@@ -1,0 +1,23 @@
+"""polyblur_torch — Polyblur blind deblurring in PyTorch with hand-written
+CUDA kernels for Hopper (sm_90a).
+
+The port of ``polyblur_tpu`` (JAX/Pallas on TPU), which stays the
+reference. This slice runs the patch engine's main path — pad + cast,
+per-tile blur estimate, kernel spectrum, spectral polynomial, windowed
+overlap-add — through the kernels in ``csrc/``; every kernel has a plain
+PyTorch version beside it, which CPU tensors take.
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
+The plain versions are an f32 reference: on the card they require
+``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) and
+float32 matmul precision ``"highest"``, and raise otherwise.
+"""
+
+from .api import PolyblurDeblurring, polyblur_deblurring
+from .config import PolyblurConfig
+from .patches import deblur_patches
+
+__version__ = "0.1.0"
+
+__all__ = ["polyblur_deblurring", "PolyblurDeblurring", "PolyblurConfig",
+           "deblur_patches"]

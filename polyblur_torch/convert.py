@@ -1,0 +1,35 @@
+"""Carry the JAX package's restoration parameters over to the port.
+
+Polyblur has no learned weights: what a JAX configuration fixes is the
+(8,) coefficient vector of the mega kernel (``pipeline._mega_pack``:
+``[a3, a2, a1, beta, c, b, sigma_s, sigma_r]``) and the host tables, which
+the port rebuilds bit-identically (tests/test_torch_tables.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .pipeline import _mega_pack
+
+__all__ = ["params_from_jax"]
+
+_FIELDS = ("c", "b", "alpha", "beta", "sigma_s", "sigma_r")
+
+
+def params_from_jax(coeffs, device=None) -> torch.Tensor:
+    """The port's (8,) f32 coefficient vector from the JAX package's.
+
+    :param coeffs: the (8,) vector of ``polyblur_tpu.pipeline._mega_pack``
+        as a NumPy array, or a mapping with the ``PolyblurConfig`` fields
+        ``c, b, alpha, beta, sigma_s, sigma_r`` (e.g.
+        ``dataclasses.asdict(cfg)``)
+    """
+    if isinstance(coeffs, dict):
+        return _mega_pack(*(coeffs[k] for k in _FIELDS), device=device)
+    arr = np.asarray(coeffs, dtype=np.float32)
+    if arr.shape != (8,):
+        raise ValueError(f"expected an (8,) coefficient vector, got "
+                         f"{arr.shape}")
+    return torch.tensor(arr, device=device)

@@ -1,0 +1,179 @@
+"""Blind anisotropic-Gaussian blur estimation from directional gradient
+statistics (reference blur_estimation.py), plain torch.
+
+The chain is: range-normalize -> spectral gradients -> per-angle directional
+gradient maxima -> Keys-cubic interpolation to a finer angle grid -> argmin
+angle (the blur direction) -> affine model ``sigma^2 = c^2 / f^2 - b^2``
+with clamping.
+
+This slice ports the branch the patch engine runs: q = 0, no saturation
+mask, and the C == 3 (or not multichannel) gray collapse, returning the
+``(sigma, rho, theta)`` parameters. The plain version of the patch engine's
+per-tile estimate (``ops.cuda.polyblur_fused.tile_estimate_plain``) is built
+from the steps here, fed with the kernel's host tables.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ops.spectral_matmul import _derivative_matrix_np
+
+__all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
+           "compute_gaussian_parameters", "cubic_interpolator",
+           "angle_grids", "normalize_range", "directional_maxima",
+           "keys_weights", "weighted_sum", "blur_direction",
+           "clamped_variances"]
+
+_TODO = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
+
+
+def angle_grids(n_angles: int, n_interpolated_angles: int):
+    """(thetas (n_angles + 1,), interpolated_thetas (n_interp,)) in degrees
+    as f32, integer-truncated like the reference's ``.long()`` tensors
+    (deblurring.py:62-63)."""
+    thetas = torch.floor(torch.linspace(0.0, 180.0, n_angles + 1,
+                                        dtype=torch.float64))
+    interpolated_thetas = torch.floor(torch.arange(
+        0.0, 180.0, 180.0 / n_interpolated_angles, dtype=torch.float64))
+    return thetas.float(), interpolated_thetas.float()
+
+
+def normalize_range(x: torch.Tensor) -> torch.Tensor:
+    """Min/max normalize over the last two axes, guarded and clipped to
+    [0, 1]."""
+    vmin = x.amin(dim=(-2, -1), keepdim=True)
+    vmax = x.amax(dim=(-2, -1), keepdim=True)
+    return ((x - vmin) / torch.clamp(vmax - vmin, min=1e-8)).clamp(0.0, 1.0)
+
+
+def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
+                       cs: torch.Tensor) -> torch.Tensor:
+    """(..., n) maxima over the last two axes of ``|cos t gx - sin t gy|``
+    at the n angles of the (n, 2) cos/sin table ``cs``."""
+    return torch.stack([torch.abs(cs[a, 0] * gx - cs[a, 1] * gy)
+                        .amax(dim=(-2, -1)) for a in range(cs.shape[0])], -1)
+
+
+def _mags_xla(img: torch.Tensor, n_angles: int) -> torch.Tensor:
+    """min/max normalize -> spectral gradients -> directional maxima
+    (the q=0 path). ``img`` is (B, C, H, W); returns (B, n_angles + 1)."""
+    x = normalize_range(img.float())
+    h, w = x.shape[-2:]
+    dw = torch.as_tensor(_derivative_matrix_np(w), device=x.device)
+    dh = torch.as_tensor(_derivative_matrix_np(h), device=x.device)
+    gx = (x @ dw.T).mean(dim=1)   # (B, H, W)
+    gy = (dh @ x).mean(dim=1)
+    angles = torch.linspace(0.0, math.pi, n_angles + 1, device=x.device)
+    return directional_maxima(
+        gx, gy, torch.stack([torch.cos(angles), torch.sin(angles)], 1))
+
+
+def keys_weights(x_new: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(..., N, n) Keys-cubic weights of the samples ``x`` (..., n) at
+    ``x_new`` (..., N), with the reference's 1e-5 weight-sum guard
+    (blur_estimation.py:138-148)."""
+    d = torch.abs(x_new[..., :, None] - x[..., None, :])
+    w = torch.where(
+        d < 1.0,
+        (1.5 * d - 2.5) * d * d + 1.0,
+        torch.where(d < 2.0, ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0,
+                    torch.zeros_like(d)),
+    )
+    return w / (w.sum(dim=-1, keepdim=True) + 1e-5)
+
+
+def weighted_sum(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sum_k w[..., :, k] * y[..., k]``, summed in k order (the order the
+    estimate kernel sums in)."""
+    out = y[..., 0, None] * w[..., 0]
+    for k in range(1, y.shape[-1]):
+        out = out + y[..., k, None] * w[..., k]
+    return out
+
+
+def cubic_interpolator(x_new: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """Keys cubic interpolation of ``y(x)`` at ``x_new``. Shapes:
+    x_new (..., N), x (..., n), y (..., n) -> (..., N)."""
+    return weighted_sum(keys_weights(x_new, x), y)
+
+
+def blur_direction(interp: torch.Tensor, interpolated_thetas: torch.Tensor):
+    """First-minimum argmin of the interpolated maxima (..., N) and the
+    magnitude at the +90 degree orthogonal angle.
+
+    :return: (i_min, magnitudes_normal, magnitudes_ortho, thetas_normal in
+        degrees), each (..., 1)
+    """
+    n_interp = interpolated_thetas.shape[-1]
+    i_min = torch.argmin(interp, dim=-1, keepdim=True)  # first minimum
+    thetas_normal = torch.gather(interpolated_thetas.expand_as(interp), -1,
+                                 i_min)
+    thetas_ortho = torch.remainder(thetas_normal + 90.0, 180.0)
+    i_ortho = (thetas_ortho / (180.0 / n_interp)).to(torch.int64)
+    return (i_min, torch.gather(interp, -1, i_min),
+            torch.gather(interp, -1, i_ortho), thetas_normal)
+
+
+def find_maximal_blur_direction(gradient_magnitudes: torch.Tensor,
+                                thetas: torch.Tensor,
+                                interpolated_thetas: torch.Tensor):
+    """Blur direction = argmin of the interpolated directional maxima
+    (blur_estimation.py:151-167), plus the magnitude at the +90 degree
+    orthogonal angle.
+
+    :return: (magnitudes_normal, magnitudes_ortho, theta_rad), each (B, 1)
+    """
+    n_interp = interpolated_thetas.shape[-1]
+    interp = cubic_interpolator(interpolated_thetas / n_interp,
+                                thetas / n_interp, gradient_magnitudes)
+    _, m_n, m_o, thetas_normal = blur_direction(interp, interpolated_thetas)
+    return m_n, m_o, thetas_normal * (math.pi / 180.0)
+
+
+def clamped_variances(magnitudes_normal, magnitudes_ortho, c, b):
+    """Affine blur model with the reference's guards:
+    ``clip(c^2 / (f^2 + 1e-8) - b^2, 0.09, 16)`` for both directions
+    (blur_estimation.py:171-185), before the square root."""
+    cc = c * c
+    bb = b * b
+    sigma2 = cc / (magnitudes_normal * magnitudes_normal + 1e-8) - bb
+    rho2 = cc / (magnitudes_ortho * magnitudes_ortho + 1e-8) - bb
+    return torch.clamp(sigma2, 0.09, 16.0), torch.clamp(rho2, 0.09, 16.0)
+
+
+def compute_gaussian_parameters(magnitudes_normal, magnitudes_ortho, c, b):
+    """``(sigma, rho)``: the square roots of :func:`clamped_variances`."""
+    sigma2, rho2 = clamped_variances(magnitudes_normal, magnitudes_ortho,
+                                     c, b)
+    return torch.sqrt(sigma2), torch.sqrt(rho2)
+
+
+def gaussian_blur_estimation(img: torch.Tensor, c=0.362, b=0.468,
+                             q: float = 0.0, n_angles: int = 6,
+                             n_interpolated_angles: int = 30,
+                             ker_size: int = 25,
+                             discard_saturation: bool = False,
+                             multichannel: bool = False,
+                             return_2d_filters: bool = True):
+    """Estimate per-image Gaussian blur parameters.
+
+    :param img: (B, C, H, W) blurry image(s) in [0, 1]
+    :return: ``(sigma, rho, theta)``, each (B, 1)
+    """
+    if (q != 0.0 or discard_saturation or return_2d_filters
+            or (multichannel and img.shape[1] != 3)):
+        raise NotImplementedError(
+            "polyblur_torch estimates only the q=0, no-saturation, "
+            f"gray-collapsed parameters so far; see {_TODO}")
+    dev = img.device
+    thetas, interpolated_thetas = angle_grids(n_angles, n_interpolated_angles)
+    gray = img.float().mean(dim=1, keepdim=True)
+    mags = _mags_xla(gray, n_angles)
+    m_n, m_o, theta = find_maximal_blur_direction(
+        mags, thetas[None].to(dev), interpolated_thetas[None].to(dev))
+    sigma, rho = compute_gaussian_parameters(m_n, m_o, c=c, b=b)
+    return sigma, rho, theta

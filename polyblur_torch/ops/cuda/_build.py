@@ -1,0 +1,127 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+under ``build/polyblur_torch/`` at the repository root, keyed on a hash of
+the sources and flags. The first call that needs a library builds it; the
+sources are compiled in parallel, one ``nvcc`` each. Libraries are loaded
+with ``ctypes``; every pointer and the stream are passed as ``c_void_p``.
+
+Every C entry returns ``cudaGetLastError()`` after its launch and
+:func:`check` raises on anything but 0, so a refused launch is never lost.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["SOURCES", "build", "library", "check", "stream_of", "dtype_code",
+           "count_launch", "launches", "reset_launches"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "polyblur_torch"
+SOURCES = ("pad_cast", "estimate", "spectral", "blend")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel name.
+launches: collections.Counter = collections.Counter()
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    launches[name] += 1
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of polyblur_torch "
+                           "are built on first use and need the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile the named sources that are not built yet, all ``nvcc``
+    processes at once. Returns {name: compiler log} of what was built
+    (the ``-Xptxas=-v`` register/spill report); raises on any failure."""
+    jobs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never race
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.pb_error_string.argtypes = [ctypes.c_int]
+            lib.pb_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.pb_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
+                           f"({msg})")
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(dt: torch.dtype) -> int:
+    """The kernels' dtype code (csrc/common.cuh ``pb::DType``)."""
+    try:
+        return _DTYPE_CODES[dt]
+    except KeyError:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, "
+                        f"got {dt}") from None

@@ -1,0 +1,359 @@
+"""The per-tile stages of the patch engine: blur estimate, kernel spectrum
+and the spectral polynomial, as kernels over a tile batch.
+
+Replaces the TPU mega kernel polyblur_tpu/ops/pallas/polyblur_fused.py::
+_make_kernel (blend and DMA modes). The TPU runs one program per tile with
+every intermediate in VMEM and blends its output using neighbour strips
+carried across programs that run in order. A 472 x 472 f32 canvas is
+~870 KB, far over an SM's 227 KB of shared memory, and CUDA blocks run in
+no order, so the program splits into stages over the whole tile batch with
+the intermediates in device memory (see ``pipeline.restore_tiles``):
+
+* :func:`tile_estimate`  — ``csrc/estimate.cu``, 3 launches;
+* :func:`kernel_spectrum` — ``csrc/spectral.cu``, 1 launch;
+* :func:`spectral_poly`  — ``csrc/spectral.cu`` ``spectral_gemm``, 4 launches.
+
+Each has a plain PyTorch version beside it that rounds where the kernel
+(and the TPU kernel) rounds: the state and every DFT-product operand in the
+work dtype, accumulation and spectra in f32. The plain estimate and
+spectrum are composed of the steps of ``estimation`` and ``ops.sep_poly``,
+fed with the kernels' host tables. The wrappers take the plain
+version for CPU tensors only; for CUDA tensors they launch or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...estimation import (angle_grids, blur_direction, clamped_variances,
+                           directional_maxima, normalize_range, weighted_sum)
+from ..sep_poly import (_horner_spectrum, gaussian_taps, otf_from_taps,
+                        quadratic_form)
+from ..spectral_matmul import _derivative_matrix_np
+from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
+                      _interp_weights_np, _packed_k, _tap_tables_np,
+                      _ydft_mats_np)
+from ._build import check, count_launch, dtype_code, library, stream_of
+
+__all__ = ["TileView", "StageTables", "stage_tables", "tile_estimate",
+           "tile_estimate_plain", "kernel_spectrum", "kernel_spectrum_plain",
+           "spectral_poly", "spectral_poly_plain", "HALF"]
+
+HALF = 12            # kernel half-support (ker_size 25)
+_N_EST = 8           # est row: [idx, mn, mo, sigma2, rho2, qa, qb, qc]
+_DEG6 = 6.0 * math.pi / 180.0
+
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_P = ctypes.c_void_p
+
+
+class TileView(NamedTuple):
+    """``n`` tiles of size ``patch`` cut from ``data`` without copying.
+
+    ``data`` is either a (B, C, H, W) canvas — tile n is grid tile
+    ``tile0 + n // batch`` of image ``n % batch``, grid tile t at
+    ``((t // tiles_w) * step[0], (t % tiles_w) * step[1])`` — or an
+    (N, C, ph, pw) tile batch (:meth:`of_tiles`)."""
+    data: torch.Tensor
+    batch: int
+    tile0: int
+    n: int
+    tiles_w: int
+    step: tuple
+    patch: tuple
+
+    @staticmethod
+    def of_tiles(x: torch.Tensor) -> "TileView":
+        n = x.shape[0]
+        return TileView(x, n, 0, n, 1, (0, 0), tuple(x.shape[-2:]))
+
+    @property
+    def channels(self) -> int:
+        return self.data.shape[1]
+
+    def tiles(self) -> torch.Tensor:
+        """The (n, C, ph, pw) tiles as one tensor (a copy for a canvas)."""
+        if self.batch == self.data.shape[0] and self.tiles_w == 1 \
+                and self.step == (0, 0) and self.n == self.batch:
+            return self.data
+        ph, pw = self.patch
+        sh, sw = self.step
+        out = []
+        for q in range(self.n // self.batch):
+            t = self.tile0 + q
+            i0, j0 = (t // self.tiles_w) * sh, (t % self.tiles_w) * sw
+            out.append(self.data[:, :, i0:i0 + ph, j0:j0 + pw])
+        return torch.cat(out, 0)
+
+    def c_args(self) -> list:
+        """(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h, step_w)."""
+        d = self.data
+        if not d.is_contiguous():
+            raise ValueError("TileView data must be contiguous")
+        return [d.data_ptr(), d.stride(0), d.stride(1), d.stride(2),
+                self.batch, self.tile0, self.tiles_w, self.step[0],
+                self.step[1]]
+
+
+_VIEW_ARGTYPES = [_P, _L, _L, _L] + [_I] * 5
+
+
+class StageTables(NamedTuple):
+    """Constant tables of the per-tile stages for one tile size and dtype."""
+    dw: torch.Tensor     # (pw, pw) f32 x-derivative
+    dh: torch.Tensor     # (ph, ph) f32 y-derivative
+    cs: torch.Tensor     # (7, 2) f32 cos/sin of the directional angles
+    wts: torch.Tensor    # (30, 7) f32 Keys interpolation weights
+    er: torch.Tensor     # (128, kp) f32 x tap phases (cos)
+    ei: torch.Tensor     # (128, kp) f32 x tap phases (-sin)
+    cyt: torch.Tensor    # (h, 32) f32 y tap phases (cos)
+    syt: torch.Tensor    # (h, 32) f32 y tap phases (sin)
+    fwd: torch.Tensor    # (wc, 2 kp) work dtype, packed x-rDFT [Cf | -Sf]
+    inv: torch.Tensor    # (2 kp, wc) work dtype, packed inverse [Ai ; Bi]
+    cysy: torch.Tensor   # (h, 2 h) work dtype, y-DFT pair [Cy | Sy]
+
+
+@functools.lru_cache(maxsize=8)
+def stage_tables(ph: int, pw: int, dtype: torch.dtype,
+                 device: str) -> StageTables:
+    """The tables for (ph, pw) tiles in work dtype ``dtype`` on ``device``
+    (built once on the host from ops/tables.py and cached)."""
+    h, wc = ph + 2 * HALF, pw + 2 * HALF
+    angles = [k * math.pi / N_ANGLES for k in range(N_ANGLES + 1)]
+    cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
+    er, ei, cyt, syt = _tap_tables_np(h, wc, HALF)
+    fwd, inv = _dft_operands_packed(wc)
+    cy, sy = _ydft_mats_np(h)
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    def wd(a):
+        return f32(a).to(dtype)
+
+    return StageTables(f32(_derivative_matrix_np(pw)),
+                       f32(_derivative_matrix_np(ph)), f32(cs),
+                       f32(_interp_weights_np()), f32(er), f32(ei), f32(cyt),
+                       f32(syt), wd(fwd), wd(inv),
+                       wd(np.concatenate([cy, sy], axis=1)))
+
+
+def _tables_for(view: TileView) -> StageTables:
+    return stage_tables(*view.patch, view.data.dtype, str(view.data.device))
+
+
+def _check_cuda(what: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
+
+
+def _require_full_f32(t: torch.Tensor) -> None:
+    """The plain versions are the f32 reference: on the card their f32
+    products must not run in TF32."""
+    if t.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("the plain reference needs full f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False and "
+                           "float32 matmul precision 'highest'")
+
+
+# ------------------------------------------------------------- estimation
+
+def _directional_vals_plain(view: TileView) -> torch.Tensor:
+    """(n, 30) Keys-interpolated directional gradient maxima of the tiles'
+    normalized gray images (the values the blur direction is the argmin
+    of): the steps of ``estimation`` on the kernel's tables."""
+    _require_full_f32(view.data)
+    t = _tables_for(view)
+    x = view.tiles().float()
+    c = x.shape[1]
+    gray = x[:, 0]
+    for ch in range(1, c):
+        gray = gray + x[:, ch]
+    g = normalize_range(gray * torch.tensor(1.0 / c, dtype=torch.float32))
+    return weighted_sum(t.wts, directional_maxima(g @ t.dw.T, t.dh @ g,
+                                                  t.cs))
+
+
+def tile_estimate_plain(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`tile_estimate`: same arithmetic order."""
+    vals = _directional_vals_plain(view)
+    grid = angle_grids(N_ANGLES, N_INTERP)[1].to(vals.device)
+    idx, mn, mo, _ = (v[:, 0] for v in blur_direction(vals, grid))
+    sigma2, rho2 = clamped_variances(mn, mo, coeffs[4], coeffs[5])
+    theta = idx.float() * torch.tensor(_DEG6, dtype=torch.float32)
+    qa, qb, qc = quadratic_form(sigma2, rho2, theta)
+    return torch.stack([idx.float(), mn, mo, sigma2, rho2, qa, qb, qc], 1)
+
+
+def tile_estimate(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
+    """Blind blur estimate of every tile of ``view``.
+
+    :param coeffs: (8,) f32 ``[a3, a2, a1, beta, c, b, sigma_s, sigma_r]``
+    :returns: (n, 8) f32 rows ``[idx, mn, mo, sigma2, rho2, qa, qb, qc]``:
+        the argmin angle index (theta = idx * 6 degrees), the interpolated
+        normal and orthogonal maxima, the clamped variances and the
+        kernel's quadratic form.
+    """
+    if view.data.device.type == "cpu":
+        return tile_estimate_plain(view, coeffs)
+    _check_cuda("tile_estimate", view.data, coeffs)
+    t = _tables_for(view)
+    ph, pw = view.patch
+    dev = view.data.device
+    g = torch.empty((view.n, ph, pw), dtype=torch.float32, device=dev)
+    maxima = torch.empty((view.n, N_ANGLES + 1), dtype=torch.float32,
+                         device=dev)
+    est = torch.empty((view.n, _N_EST), dtype=torch.float32, device=dev)
+    coeffs = coeffs.float().contiguous()
+    lib = library("estimate")
+    fn = lib.pb_tile_estimate
+    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 8 + [_P]
+    fn.restype = _I
+    args = ([dtype_code(view.data.dtype)] + view.c_args()
+            + [view.n, view.channels, ph, pw]
+            + [p.data_ptr() for p in (t.dw, t.dh, t.cs, t.wts, coeffs, g,
+                                      maxima, est)]
+            + [stream_of(view.data)])
+    for stage in (1, 2, 3):
+        err = fn(stage, *args)
+        count_launch("tile_estimate")
+        check(lib, err, f"tile_estimate stage {stage}")
+    return est
+
+
+# ---------------------------------------------------------- kernel spectrum
+
+def kernel_spectrum_plain(est: torch.Tensor, coeffs: torch.Tensor,
+                          tables: StageTables) -> torch.Tensor:
+    """Plain version of :func:`kernel_spectrum`."""
+    _require_full_f32(est)
+    h = tables.cyt.shape[0]
+    km = gaussian_taps(est[:, 5], est[:, 6], est[:, 7], HALF)
+    khat = otf_from_taps(km, tables.er, tables.ei, tables.cyt, tables.syt)
+    qhat = _horner_spectrum(khat, (coeffs[0], coeffs[1], coeffs[2],
+                                   coeffs[3]))
+    return torch.cat([qhat, qhat], -1) * torch.tensor(1.0 / h,
+                                                      dtype=torch.float32)
+
+
+def kernel_spectrum(est: torch.Tensor, coeffs: torch.Tensor,
+                    tables: StageTables) -> torch.Tensor:
+    """(n, h, 2 kp) packed ``[p(K_hat) | p(K_hat)] / h`` spectra of the
+    tiles' estimated kernels (``est`` from :func:`tile_estimate`)."""
+    if est.device.type == "cpu":
+        return kernel_spectrum_plain(est, coeffs, tables)
+    _check_cuda("kernel_spectrum", est, coeffs, tables.er)
+    n = est.shape[0]
+    h, kp = tables.cyt.shape[0], tables.er.shape[1]
+    est = est.contiguous()
+    coeffs = coeffs.float().contiguous()
+    qhat2 = torch.empty((n, h, 2 * kp), dtype=torch.float32,
+                        device=est.device)
+    lib = library("spectral")
+    fn = lib.pb_kernel_spectrum
+    fn.argtypes = [_P] * 6 + [_I] * 3 + [_P, _P]
+    fn.restype = _I
+    err = fn(est.data_ptr(), coeffs.data_ptr(), tables.er.data_ptr(),
+             tables.ei.data_ptr(), tables.cyt.data_ptr(),
+             tables.syt.data_ptr(), n, h, kp, qhat2.data_ptr(),
+             stream_of(est))
+    count_launch("kernel_spectrum")
+    check(lib, err, "kernel_spectrum")
+    return qhat2
+
+
+# ------------------------------------------------------ spectral polynomial
+
+def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
+                        tables: StageTables,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`spectral_poly`: the same four products, each
+    operand rounded to the work dtype just before its product."""
+    _require_full_f32(view.data)
+    x = view.tiles()
+    wd = x.dtype
+    n, c, ph, pw = x.shape
+    kp = qhat2.shape[-1] // 2
+
+    def op(u):
+        return u.to(wd).float()
+
+    def swap(u):
+        return torch.cat([u[..., kp:], u[..., :kp]], -1)
+
+    sgn = torch.ones(2 * kp, dtype=torch.float32, device=x.device)
+    sgn[kp:] = -1.0
+    cysy = tables.cysy.float()
+    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (HALF,) * 4,
+               mode="replicate")[:, 0]
+    r = op(xc) @ tables.fwd.float()
+    yf = cysy @ torch.cat([op(r), op(swap(r) * sgn)], 1)
+    p = (yf.reshape(n, c, *yf.shape[1:]) * qhat2[:, None]).reshape(yf.shape)
+    yi = cysy @ torch.cat([op(p), op(swap(p) * -sgn)], 1)
+    o = op(yi)[:, HALF:HALF + ph] @ tables.inv.float()[:, HALF:HALF + pw]
+    res = o.clamp(0.0, 1.0).to(wd).reshape(n, c, ph, pw)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """One application of the degree-3 spectral polynomial to every tile
+    and channel: ``clip(crop(p(K) pad12(x)), 0, 1)`` in the work dtype.
+
+    :param view: the tiles x (work dtype = ``view.data.dtype``)
+    :param qhat2: (n, h, 2 kp) f32 from :func:`kernel_spectrum`
+    :param out: optional (n, C, ph, pw) destination; it may be the tensor
+        ``view`` reads (the first product consumes x before the last
+        writes).
+    """
+    if view.data.device.type == "cpu":
+        return spectral_poly_plain(view, qhat2, tables, out)
+    _check_cuda("spectral_poly", view.data, qhat2, tables.fwd)
+    wd = view.data.dtype
+    ph, pw = view.patch
+    c = view.channels
+    h, wc = ph + 2 * HALF, pw + 2 * HALF
+    kp = _packed_k(wc)
+    planes = view.n * c
+    if qhat2.shape != (view.n, h, 2 * kp) or tables.fwd.dtype != wd:
+        raise ValueError("spectral_poly: qhat2/tables do not match the tiles")
+    if planes > 65535:
+        raise ValueError(f"{planes} planes exceed the launch grid")
+    if out is None:
+        out = torch.empty((view.n, c, ph, pw), dtype=wd,
+                          device=view.data.device)
+    elif out.shape != (view.n, c, ph, pw) or out.dtype != wd \
+            or not out.is_contiguous():
+        raise ValueError("spectral_poly: bad out tensor")
+    qhat2 = qhat2.contiguous()
+    mid_a = torch.empty((planes, h, 2 * kp), dtype=wd, device=out.device)
+    mid_b = torch.empty_like(mid_a)
+    lib = library("spectral")
+    fn = lib.pb_spectral_gemm
+    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_P] * 5 + [_I] * 8 + [_P]
+    fn.restype = _I
+    view_args = view.c_args()
+    # (mode, A/B source, destination): R -> mid_a, P -> mid_b, Yi -> mid_a
+    for mode, mid, dst in ((1, mid_a, mid_a), (2, mid_a, mid_b),
+                           (3, mid_b, mid_a), (4, mid_a, out)):
+        err = fn(mode, dtype_code(wd), *view_args, tables.cysy.data_ptr(),
+                 (tables.fwd if mode == 1 else tables.inv).data_ptr(),
+                 mid.data_ptr(), dst.data_ptr(), qhat2.data_ptr(), planes, c,
+                 ph, pw, h, wc, kp, HALF, stream_of(out))
+        count_launch("spectral_gemm")
+        check(lib, err, f"spectral_gemm mode {mode}")
+    return out

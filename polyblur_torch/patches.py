@@ -1,0 +1,242 @@
+"""Overlapping-patch engine: tiled deblurring with windowed overlap-add.
+
+The reference's patch decomposition (deblurring.py:266-394): the image is
+even-cropped, replicate-padded to a tile grid, every tile is deblurred with
+its own blur estimate, and the tiles are blended back by a Kaiser-windowed
+overlap-add. On the card the path is the kernels of ``ops/cuda``:
+
+    edge_pad_cast -> N x (tile_estimate, kernel_spectrum, spectral_gemm x 4)
+                  -> blend_overlap_add
+
+Tiles are cut from the padded canvas by index (no extracted tile tensor);
+every regular grid and every batch size takes this one route.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .ops.cuda.overlap_add import blend_overlap_add
+from .ops.cuda.pad_cast import edge_pad_cast
+from .ops.cuda.polyblur_fused import TileView
+from .pipeline import KERNELS, StageOps, _mega_pack, restore_tiles
+from .utils.imaging import build_window_np
+from .utils.profiling import record_dispatch
+
+__all__ = ["PatchGrid", "plan_patch_grid", "extract_patches", "overlap_add",
+           "deblur_patches"]
+
+_TODO_IRREGULAR = "ROADMAP A.6 (irregular tile grids)"
+_TODO_FEATURES = ("ROADMAP B.10 (the mega kernel's feature flags: edgetaper, "
+                  "halo removal, prefilter)")
+_TODO_ESTIMATE = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
+_TODO_METHODS = "ROADMAP A.4 (fft and direct restoration methods)"
+
+
+class PatchGrid(NamedTuple):
+    """Static tiling plan."""
+    orig_size: tuple          # (h, w) after the even-crop
+    padded_size: tuple        # (H, W) of the padded canvas
+    patch_size: tuple         # (ph, pw)
+    coords: tuple             # ((i0, j0), ...) top-left corners
+    pad: tuple                # (top, bottom, left, right)
+
+
+def plan_patch_grid(h: int, w: int, patch_size=400,
+                    overlap=0.25) -> PatchGrid:
+    """The tile grid of deblurring.py:281-298. ``patch_size`` / ``overlap``
+    take an int/float (square tiles) or an ``(h, w)`` pair. The step is
+    truncated, ``int(p * (1 - overlap))``, never rounded, as in the
+    reference."""
+    h -= h % 2
+    w -= w % 2
+    ph, pw = ((patch_size, patch_size) if isinstance(patch_size, int)
+              else (int(patch_size[0]), int(patch_size[1])))
+    ov_h, ov_w = ((overlap, overlap) if isinstance(overlap, (int, float))
+                  else (overlap[0], overlap[1]))
+    step_h = int(ph * (1.0 - ov_h))
+    step_w = int(pw * (1.0 - ov_w))
+    new_h = int(math.ceil(max(h - ph, 0) / step_h) * step_h) + ph
+    new_w = int(math.ceil(max(w - pw, 0) / step_w) * step_w) + pw
+    pad_top = (new_h - h) // 2
+    pad_bottom = new_h - h - pad_top
+    pad_left = (new_w - w) // 2
+    pad_right = new_w - w - pad_left
+    coords = tuple(
+        (int(i), int(j))
+        for i in np.arange(0, new_h - ph + 1, step_h)
+        for j in np.arange(0, new_w - pw + 1, step_w)
+    )
+    return PatchGrid((h, w), (new_h, new_w), (ph, pw), coords,
+                     (pad_top, pad_bottom, pad_left, pad_right))
+
+
+def _grid_steps(grid: PatchGrid):
+    """(Th, Tw, step_h, step_w) if the tile grid is regular and the overlap
+    is at most 50% per axis, else None."""
+    ph, pw = grid.patch_size
+    H, W = grid.padded_size
+    rows = sorted({i for (i, _) in grid.coords})
+    cols = sorted({j for (_, j) in grid.coords})
+    if len(grid.coords) != len(rows) * len(cols):
+        return None
+    step_h = rows[1] - rows[0] if len(rows) > 1 else ph
+    step_w = cols[1] - cols[0] if len(cols) > 1 else pw
+    if rows != [k * step_h for k in range(len(rows))]:
+        return None
+    if cols != [k * step_w for k in range(len(cols))]:
+        return None
+    if not (ph // 2 <= step_h <= ph and pw // 2 <= step_w <= pw):
+        return None
+    if (len(rows) - 1) * step_h + ph != H or (len(cols) - 1) * step_w + pw != W:
+        return None
+    return len(rows), len(cols), step_h, step_w
+
+
+def extract_patches(images: torch.Tensor, grid: PatchGrid) -> torch.Tensor:
+    """(B, C, H, W) -> (T*B, C, ph, pw) tile batch (T outer, B inner). The
+    canvas comes from :func:`edge_pad_cast` (the kernel on CUDA tensors)."""
+    padded = edge_pad_cast(images, grid.orig_size, grid.pad)
+    ph, pw = grid.patch_size
+    tiles = torch.stack([padded[..., i0:i0 + ph, j0:j0 + pw]
+                         for (i0, j0) in grid.coords])
+    return tiles.reshape((-1,) + tiles.shape[2:])
+
+
+@functools.lru_cache(maxsize=4)
+def _blend_constants(grid: PatchGrid, window_type: str, device):
+    """(window (ph, pw), reciprocal window sum (H, W)) as f32 tensors; the
+    sum and its reciprocal are taken in float64 on the host. Cached per
+    grid: at 12 MP the host sum and its copy to the card would otherwise
+    cost several times the whole device path."""
+    ph, pw = grid.patch_size
+    window_np = build_window_np((ph, pw), window_type)
+    wsum = np.zeros(grid.padded_size, np.float64)
+    for (i0, j0) in grid.coords:
+        wsum[i0:i0 + ph, j0:j0 + pw] += window_np
+    inv = (1.0 / (wsum + 1e-8)).astype(np.float32)
+    return (torch.as_tensor(window_np, device=device),
+            torch.as_tensor(inv, device=device))
+
+
+def overlap_add(patches: torch.Tensor, grid: PatchGrid, batch: int,
+                window_type: str = "kaiser", out_dtype=None) -> torch.Tensor:
+    """Blend (T*B, C, ph, pw) tiles back into (B, C, h, w): windowed sum,
+    times the reciprocal window sum, clipped to [0, 1], cropped to the
+    original content. Accumulates in f32; ``out_dtype`` defaults to the
+    tile dtype."""
+    reg = _grid_steps(grid)
+    if reg is None:
+        raise NotImplementedError(f"blending an irregular grid: see "
+                                  f"{_TODO_IRREGULAR}")
+    window, inv_wsum = _blend_constants(grid, window_type, patches.device)
+    pt, _, pl, _ = grid.pad
+    h, w = grid.orig_size
+    return blend_overlap_add(patches, window, inv_wsum,
+                             reg + grid.patch_size, batch, (pt, pl, h, w),
+                             out_dtype)
+
+
+def _resolve_device(device) -> torch.device:
+    """The device a call runs on: CUDA unless the caller asks for another;
+    asking for (or defaulting to) CUDA without a card raises."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "polyblur_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
+                        beta=3.0, sigma_r=0.8, sigma_s=2.0,
+                        ker_size: int = 25, q: float = 0.0,
+                        n_angles: int = 6, n_interpolated_angles: int = 30,
+                        remove_halo: bool = False, edgetaping: bool = False,
+                        prefiltering: bool = False,
+                        discard_saturation: bool = False,
+                        multichannel_kernel: bool = False,
+                        method: str = "direct_separable",
+                        smoother: str = "bilateral", remat: bool = False):
+    """Validate the pipeline keywords against what the port runs and
+    return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r)). ``smoother``
+    only matters with prefiltering; ``remat`` is a memory knob of the JAX
+    package's autodiff and has no effect here."""
+    del smoother, remat
+    if method != "direct_separable":
+        raise NotImplementedError(f"method={method!r}: the port runs "
+                                  f"'direct_separable'; see {_TODO_METHODS}")
+    if remove_halo or edgetaping or prefiltering:
+        raise NotImplementedError(f"see {_TODO_FEATURES}")
+    if q != 0.0 or discard_saturation or multichannel_kernel:
+        raise NotImplementedError(f"see {_TODO_ESTIMATE}")
+    if (ker_size, n_angles, n_interpolated_angles) != (25, 6, 30):
+        raise NotImplementedError(
+            "the per-tile kernels are built for ker_size=25, n_angles=6, "
+            f"n_interpolated_angles=30; see {_TODO_ESTIMATE}")
+    return int(n_iter), (c, b, alpha, beta, sigma_s, sigma_r)
+
+
+def deblur_patches(images, patch_size=400, overlap=0.25,
+                   window_type: str = "kaiser",
+                   batch_size: Optional[int] = None, out_dtype=None,
+                   work_dtype=None, device=None,
+                   _ops: StageOps = KERNELS,
+                   **polyblur_kwargs) -> torch.Tensor:
+    """Whole patch path: pad -> per-tile blind deblurring -> overlap-add.
+
+    :param images: (B, C, H, W) tensor or array in [0, 1]; moved to
+        ``device``
+    :param device: where to run (default ``"cuda"``; raises when CUDA is
+        missing — pass ``"cpu"`` for the plain PyTorch path)
+    :param work_dtype: dtype the tiles are computed in (default: the input
+        dtype); an f32 image with ``work_dtype=torch.bfloat16`` is the
+        serving configuration — the cast rides the canvas edge-pad's pass
+    :param out_dtype: output dtype (default: the working dtype); the blend
+        accumulates in f32 either way
+    :param batch_size: at most this many tile coordinates per pass through
+        the stages (the memory ceiling of the reference's host loop);
+        ``None`` or ``<= 0`` runs every tile at once
+    :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
+        beta, ...). ``method`` is ``'direct_separable'``, the one the port
+        runs.
+    :returns: (B, C, h, w) with (h, w) the even-cropped input size
+    """
+    dev = _resolve_device(device)
+    x = torch.as_tensor(images, device=dev)
+    if x.dim() != 4:
+        raise ValueError(f"expected a (B, C, H, W) image batch, got "
+                         f"{tuple(x.shape)}")
+    n_iter, params = _restoration_params(**polyblur_kwargs)
+    b, c = x.shape[:2]
+    grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
+    reg = _grid_steps(grid)
+    if reg is None:
+        raise NotImplementedError(f"irregular tile grid {grid.patch_size} "
+                                  f"over {grid.padded_size}: see "
+                                  f"{_TODO_IRREGULAR}")
+    th, tw, sh, sw = reg
+    ph, pw = grid.patch_size
+    wd = work_dtype or x.dtype
+    record_dispatch("deblur_patches", "staged_tiles")
+    canvas = _ops.edge_pad_cast(x, grid.orig_size, grid.pad, wd)
+    coeffs = _mega_pack(*params, device=dev)
+    n_tiles = len(grid.coords)
+    chunk = (n_tiles if batch_size is None or batch_size <= 0
+             else min(batch_size, n_tiles))
+    state = torch.empty((n_tiles * b, c, ph, pw), dtype=wd, device=dev)
+    for t0 in range(0, n_tiles, chunk):
+        nt = min(chunk, n_tiles - t0)
+        view = TileView(canvas, b, t0, nt * b, tw, (sh, sw), (ph, pw))
+        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b],
+                      ops=_ops)
+    window, inv_wsum = _blend_constants(grid, window_type, dev)
+    pt, _, pl, _ = grid.pad
+    h, w = grid.orig_size
+    return _ops.blend(state, window, inv_wsum, (th, tw, sh, sw, ph, pw), b,
+                      (pt, pl, h, w), out_dtype)

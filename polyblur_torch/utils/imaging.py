@@ -1,0 +1,56 @@
+"""Array layout and blending-window utilities.
+
+NumPy ``(H, W)`` / ``(H, W, C)`` images are accepted at the API boundary and
+converted to channel-first tensors; the blending windows are built on the
+host in float64 NumPy and handed to the device as float32 constants.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["to_tensor", "to_array", "build_window_np"]
+
+
+def to_tensor(x: np.ndarray, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Convert an ``(H, W)`` or ``(H, W, C)`` ndarray into a ``(C, H, W)``
+    tensor (reference utils.py:8-21: channel-first layout, float cast)."""
+    x = np.asarray(x)
+    if x.ndim == 2:
+        x = x[None]
+    else:
+        x = np.transpose(x, (2, 0, 1))
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+
+def to_array(x: torch.Tensor) -> np.ndarray:
+    """Convert a ``(B, C, H, W)`` / ``(C, H, W)`` tensor back to an
+    ``(H, W, C)`` (or ``(H, W)``) ndarray (reference utils.py:24-31)."""
+    x = np.squeeze(x.detach().to("cpu", torch.float32).numpy())
+    if x.ndim == 2:
+        return x
+    return np.transpose(x, (1, 2, 0))
+
+
+def _kaiser_window(n: int, beta: float = 5.0) -> np.ndarray:
+    # periodic kaiser window of length n (torch.kaiser_window(..., periodic=True))
+    return np.kaiser(n + 1, beta)[:n]
+
+
+def build_window_np(image_size, window_type: str = "kaiser") -> np.ndarray:
+    """Separable 2D blending window for overlap-add tiling (reference
+    deblurring.py:349-366: kaiser beta=5 / hann / hamming / bartlett, all
+    periodic), as a float32 host array."""
+    h, w = image_size
+    if window_type == "kaiser":
+        wi, wj = _kaiser_window(h), _kaiser_window(w)
+    elif window_type == "hann":
+        wi, wj = np.hanning(h + 1)[:h], np.hanning(w + 1)[:w]
+    elif window_type == "hamming":
+        wi, wj = np.hamming(h + 1)[:h], np.hamming(w + 1)[:w]
+    elif window_type == "bartlett":
+        wi, wj = np.bartlett(h + 1)[:h], np.bartlett(w + 1)[:w]
+    else:
+        raise ValueError(f"Window {window_type!r} not implemented")
+    return (wi[:, None] * wj[None, :]).astype(np.float32)

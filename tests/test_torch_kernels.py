@@ -1,0 +1,294 @@
+"""polyblur_torch per-kernel checks.
+
+CPU: each kernel's plain PyTorch version against the JAX package's own
+counterpart, run as the JAX tests run it (Pallas in interpret mode, or the
+XLA reference the Pallas kernel is held to):
+
+* edge_pad_cast     vs ``pad_cast.edge_pad_cast(interpret=True)``, bit-equal;
+* kernel_spectrum   vs ``sep_poly.kernel_spectrum`` + Horner, atol 1e-5;
+* spectral_poly     vs ``sep_poly._spectral2d`` (rfft2) in f32, atol 1e-5;
+* tile_estimate     vs ``gaussian_blur_estimation``: same theta index,
+                    sigma and rho within 1e-5 relative;
+* blend_overlap_add vs ``patches.overlap_add``, atol 1e-6.
+
+CUDA (``test_cuda_*``, skipped without a card): each kernel against its
+plain version on the card. They import no JAX, so on a machine without it
+they run with ``python -m pytest --noconftest tests/test_torch_kernels.py
+-k cuda``.
+"""
+
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from polyblur_torch.ops import cuda as pcuda
+from polyblur_torch.ops.cuda.overlap_add import (blend_overlap_add,
+                                                 blend_overlap_add_plain)
+from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast, edge_pad_cast_plain
+from polyblur_torch.ops.cuda.polyblur_fused import (
+    TileView, kernel_spectrum, kernel_spectrum_plain, spectral_poly,
+    spectral_poly_plain, stage_tables, tile_estimate, tile_estimate_plain)
+from polyblur_torch.patches import (PatchGrid, _blend_constants, _grid_steps,
+                                    extract_patches, overlap_add,
+                                    plan_patch_grid)
+from polyblur_torch.pipeline import _mega_pack
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+HALF = 12
+COEFFS = (0.362, 0.468, 6.0, 1.0, 2.0, 0.8)  # c, b, alpha, beta, s_s, s_r
+PAD_CASES = [
+    ((1, 3, 64, 200), (4, 12, 8, 24)),       # ragged W
+    ((2, 1, 16, 256), (0, 8, 0, 0)),         # zero pads
+    ((1, 1, 512, 384), (68, 196, 80, 208)),  # tall, wide pads
+    ((1, 2, 24, 130), (5, 0, 3, 1)),         # tiny ragged
+    ((1, 1, 32, 128), (0, 0, 0, 0)),         # no-op pad
+]
+
+
+def _quad_forms(rng, n):
+    """(n,) f32 quadratic forms (a, b, c) of random anisotropic blurs."""
+    from polyblur_tpu.ops.sep_poly import gaussian_quadratic_coeffs
+    import jax.numpy as jnp
+
+    sigma = rng.uniform(0.3, 4.0, n).astype(np.float32)
+    rho = rng.uniform(0.3, 4.0, n).astype(np.float32)
+    theta = rng.uniform(0.0, math.pi, n).astype(np.float32)
+    return [np.asarray(v, np.float32) for v in gaussian_quadratic_coeffs(
+        jnp.asarray(sigma), jnp.asarray(rho), jnp.asarray(theta))]
+
+
+def _est_rows(a, b, c):
+    """tile_estimate-shaped rows carrying only the quadratic forms."""
+    est = torch.zeros((len(a), 8))
+    est[:, 5], est[:, 6], est[:, 7] = (torch.tensor(v) for v in (a, b, c))
+    return est
+
+
+def _photo_tiles(peacock):
+    """(6, 3, 96, 128) f32 crops of real photos (peacock and two corpus
+    images): a clear blur direction, unlike noise, so theta is well posed."""
+    from PIL import Image
+
+    crops = [peacock[y:y + 96, x:x + 128]
+             for (y, x) in ((0, 0), (100, 200), (300, 400), (380, 560))]
+    for name, (y, x) in (("deadleaves_coarse.png", (200, 300)),
+                         ("mosaic_fine.png", (400, 500))):
+        img = np.asarray(Image.open(os.path.join(DATA, "corpus_hr", name)))
+        img = (img[..., :3] / 255.0).astype(np.float32)
+        crops.append(img[y:y + 96, x:x + 128])
+    return np.stack(crops).transpose(0, 3, 1, 2).copy()
+
+
+# ---------------------------------------------------------------- CPU / JAX
+
+@pytest.mark.parametrize("shape, pads", PAD_CASES)
+def test_edge_pad_cast_plain_matches_pallas(shape, pads):
+    import jax.numpy as jnp
+    from polyblur_tpu.ops.pallas.pad_cast import edge_pad_cast as jpad
+
+    x = np.random.default_rng(40).uniform(size=shape).astype(np.float32)
+    for tdt, jdt in ((torch.float32, jnp.float32),
+                     (torch.bfloat16, jnp.bfloat16)):
+        want = np.asarray(jpad(jnp.asarray(x), pads, jdt, True), np.float32)
+        got = edge_pad_cast(torch.as_tensor(x), shape[-2:], pads, tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_edge_pad_cast_even_crop():
+    x = torch.rand(1, 2, 33, 41)
+    got = edge_pad_cast(x, (32, 40), (1, 2, 3, 4), torch.bfloat16)
+    want = edge_pad_cast(x[..., :32, :40].contiguous(), (32, 40),
+                         (1, 2, 3, 4), torch.bfloat16)
+    assert torch.equal(got, want) and got.shape == (1, 2, 35, 47)
+
+
+def test_kernel_spectrum_plain_matches_jax():
+    import jax.numpy as jnp
+    from polyblur_tpu.ops import sep_poly as jsp
+
+    from polyblur_torch.ops import sep_poly as tsp
+
+    a, b, c = _quad_forms(np.random.default_rng(1), 5)
+    ph, pw = 40, 56
+    h, wc = ph + 2 * HALF, pw + 2 * HALF
+    coeffs = _mega_pack(*COEFFS)
+    horner = tuple(float(v) for v in coeffs[:4])
+    tabs = stage_tables(ph, pw, torch.float32, "cpu")
+    q2 = kernel_spectrum(_est_rows(a, b, c), coeffs, tabs)
+    K, kp = wc // 2 + 1, tabs.er.shape[1]
+    assert q2.shape == (5, h, 2 * kp)
+    khat = jsp.kernel_spectrum(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c),
+                               h, wc, HALF)
+    want = np.asarray(jsp._horner_spectrum(khat, horner))
+    np.testing.assert_allclose((q2[..., :K] * h).numpy(), want, atol=1e-5,
+                               rtol=0)
+    # the packed layout: [q | q], pad columns hold p(0) = beta
+    assert torch.equal(q2[..., :kp], q2[..., kp:])
+    np.testing.assert_allclose((q2[..., K:kp] * h).numpy(), horner[3],
+                               atol=1e-6)
+    # the port's whole-image spectrum helpers agree too
+    ta, tb, tc = tsp.gaussian_quadratic_coeffs(
+        torch.tensor(1.5), torch.tensor(0.7), torch.tensor(0.4))
+    ja, jb, jc = jsp.gaussian_quadratic_coeffs(1.5, 0.7, 0.4)
+    np.testing.assert_allclose([ta, tb, tc], [ja, jb, jc], rtol=1e-6)
+    np.testing.assert_allclose(
+        tsp.kernel_spectrum(*(torch.tensor(v) for v in (a, b, c)), h, wc,
+                            HALF).numpy(), np.asarray(khat), atol=1e-5,
+        rtol=0)
+
+
+def test_spectral_poly_plain_matches_jax_spectral2d():
+    import jax.numpy as jnp
+    from polyblur_tpu.ops.sep_poly import _spectral2d
+
+    rng = np.random.default_rng(2)
+    n, c, ph, pw = 2, 3, 40, 56
+    x = rng.uniform(size=(n, c, ph, pw)).astype(np.float32)
+    a, b, cq = _quad_forms(rng, n)
+    coeffs = _mega_pack(*COEFFS)
+    tabs = stage_tables(ph, pw, torch.float32, "cpu")
+    q2 = kernel_spectrum(_est_rows(a, b, cq), coeffs, tabs)
+    got = spectral_poly(TileView.of_tiles(torch.as_tensor(x)), q2, tabs)
+    xp = jnp.pad(jnp.asarray(x.reshape(n * c, ph, pw)),
+                 ((0, 0), (HALF, HALF), (HALF, HALF)), mode="edge")
+    rep = [jnp.asarray(np.repeat(v, c)) for v in (a, b, cq)]
+    out = _spectral2d(xp, *rep, tuple(float(v) for v in coeffs[:4]), HALF)
+    want = np.clip(np.asarray(out)[:, HALF:-HALF, HALF:-HALF], 0.0, 1.0)
+    np.testing.assert_allclose(got.reshape(n * c, ph, pw).numpy(), want,
+                               atol=1e-5, rtol=0)
+
+
+def test_tile_estimate_plain_matches_jax(peacock):
+    import jax.numpy as jnp
+    from polyblur_tpu.estimation import gaussian_blur_estimation as jest
+
+    from polyblur_torch.estimation import gaussian_blur_estimation as port_est
+
+    x = _photo_tiles(peacock)
+    c, b = COEFFS[0], COEFFS[1]
+    est = tile_estimate(TileView.of_tiles(torch.as_tensor(x)),
+                        _mega_pack(*COEFFS))
+    sigma, rho, theta = (np.asarray(v)[:, 0] for v in jest(
+        jnp.asarray(x), c=c, b=b, return_2d_filters=False))
+    idx = np.rint(theta / (6.0 * math.pi / 180.0)).astype(int)
+    np.testing.assert_array_equal(est[:, 0].numpy().astype(int), idx)
+    np.testing.assert_allclose(est[:, 3].sqrt().numpy(), sigma, rtol=1e-5)
+    np.testing.assert_allclose(est[:, 4].sqrt().numpy(), rho, rtol=1e-5)
+    # the port's whole-image estimator (same chain, batched) agrees too
+    ts, tr, tt = (v[:, 0].numpy() for v in port_est(
+        torch.as_tensor(x), c=c, b=b, return_2d_filters=False))
+    np.testing.assert_allclose(ts, sigma, rtol=1e-5)
+    np.testing.assert_allclose(tr, rho, rtol=1e-5)
+    np.testing.assert_allclose(tt, theta, rtol=1e-6)
+
+
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16])
+def test_blend_plain_matches_jax_overlap_add(tile_dtype):
+    import jax.numpy as jnp
+    from polyblur_tpu.patches import overlap_add as joa
+    from polyblur_tpu.patches import plan_patch_grid as jplan
+
+    rng = np.random.default_rng(3)
+    bsz = 2
+    g = plan_patch_grid(200, 300, 160, 32.0 / 160.0)
+    tiles = torch.as_tensor(rng.uniform(
+        size=(len(g.coords) * bsz, 3, 160, 160)).astype(np.float32))
+    tiles = tiles.to(tile_dtype)
+    got = overlap_add(tiles, g, bsz, out_dtype=torch.float32)
+    jt = jnp.asarray(tiles.float().numpy()).astype(
+        jnp.bfloat16 if tile_dtype == torch.bfloat16 else jnp.float32)
+    want = np.asarray(joa(jt, jplan(200, 300, 160, 32.0 / 160.0), bsz,
+                          out_dtype=jnp.float32))
+    assert got.shape == want.shape == (bsz, 3, 200, 300)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------- CUDA
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _counts(before, name):
+    return pcuda.launches[name] - before.get(name, 0)
+
+
+@pytest.mark.parametrize("shape, pads", PAD_CASES)
+def test_cuda_edge_pad_cast_matches_plain(cuda_dev, shape, pads):
+    x = torch.rand(shape, device=cuda_dev)
+    for dt in (torch.float32, torch.bfloat16):
+        before = dict(pcuda.launches)
+        got = edge_pad_cast(x, shape[-2:], pads, dt)
+        assert _counts(before, "edge_pad_cast") == 1
+        want = edge_pad_cast_plain(x, shape[-2:], pads, dt)
+        assert torch.equal(got, want)
+    # the public tile cutter pads through the kernel too (one canvas tile)
+    hp, wp = shape[-2] + pads[0] + pads[1], shape[-1] + pads[2] + pads[3]
+    grid = PatchGrid(tuple(shape[-2:]), (hp, wp), (hp, wp), ((0, 0),), pads)
+    before = dict(pcuda.launches)
+    tiles = extract_patches(x, grid)
+    assert _counts(before, "edge_pad_cast") == 1
+    assert torch.equal(tiles, edge_pad_cast_plain(x, shape[-2:], pads))
+
+
+@pytest.mark.parametrize("dt, tol", [(torch.bfloat16, 2.0 ** -7),
+                                     (torch.float32, 1e-4)])
+def test_cuda_tile_stages_match_plain(cuda_dev, dt, tol):
+    g = torch.Generator().manual_seed(4)
+    img = torch.rand((2, 3, 300, 420), generator=g).to(cuda_dev)
+    grid = plan_patch_grid(300, 420, 160, 32.0 / 160.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    canvas = edge_pad_cast(img, grid.orig_size, grid.pad, dt)
+    view = TileView(canvas, 2, 1, 2 * (th * tw - 1), tw, (sh, sw), (160, 160))
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    before = dict(pcuda.launches)
+    est = tile_estimate(view, coeffs)
+    assert _counts(before, "tile_estimate") == 3
+    est_p = tile_estimate_plain(view, coeffs)
+    assert torch.equal(est[:, 0], est_p[:, 0])
+    torch.testing.assert_close(est[:, 1:], est_p[:, 1:], rtol=1e-4, atol=0)
+    tabs = stage_tables(160, 160, dt, str(cuda_dev))
+    q2 = kernel_spectrum(est, coeffs, tabs)
+    q2_p = kernel_spectrum_plain(est, coeffs, tabs)
+    assert float((q2 - q2_p).abs().max()) <= 1e-5 * float(q2_p.abs().max())
+    out = spectral_poly(view, q2, tabs)
+    assert _counts(before, "spectral_gemm") == 4
+    out_p = spectral_poly_plain(view, q2, tabs)
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+
+
+def test_cuda_blend_matches_plain(cuda_dev):
+    g = plan_patch_grid(300, 420, 160, 32.0 / 160.0)
+    th, tw, sh, sw = _grid_steps(g)
+    tiles = torch.rand((th * tw * 2, 3, 160, 160), device=cuda_dev)
+    win, inv = _blend_constants(g, "kaiser", cuda_dev)
+    args = (win, inv, (th, tw, sh, sw, 160, 160), 2,
+            (g.pad[0], g.pad[2]) + g.orig_size)
+    for tdt, odt in ((torch.bfloat16, torch.float32),
+                     (torch.float32, torch.bfloat16)):
+        t = tiles.to(tdt)
+        got = blend_overlap_add(t, *args, out_dtype=odt)
+        want = blend_overlap_add_plain(t, *args, out_dtype=odt)
+        assert got.dtype == odt
+        assert float((got.float() - want.float()).abs().max()) <= 1e-6
+
+
+def test_cuda_deblur_patches_matches_cpu(cuda_dev):
+    from polyblur_torch import deblur_patches
+
+    img = torch.rand((1, 3, 200, 300), generator=torch.Generator()
+                     .manual_seed(5))
+    kw = dict(patch_size=160, overlap=32.0 / 160.0, n_iter=2, c=0.362,
+              b=0.468, alpha=6.0, beta=1.0, out_dtype=torch.float32)
+    got = deblur_patches(img.to(cuda_dev), device=cuda_dev, **kw).cpu()
+    want = deblur_patches(img, device="cpu", **kw)
+    mse = float(((got.double() - want.double()) ** 2).mean())
+    assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 60.0
