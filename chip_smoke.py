@@ -16,7 +16,20 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    read just after, then compares the path with the plain path on the card
    (bf16 >= 40 dB, f32 >= 60 dB) and, on a small input, with the CPU path;
 5. runs a (2, 3, 1024, 1024) batch through the same kernels;
-6. prints one JSON line of kernels, the card line, and as its last line
+6. holds the whole-image route's kernels against their plain versions at
+   its shapes — ``fused_polynomial`` on the 2 MP photo's overlap-save
+   blocks and on a prepadded 480 x 640 image, ``directional_maxima`` at
+   (1, 1, 480, 640) and (4, 3, 481, 637), the tiles-mode stages at
+   (1, 3, 481, 637) — and drives the whole-image paths through
+   ``polyblur_torch.polyblur_deblurring``, each with the counters zeroed
+   just before and read just after, its route read from ``dispatch_log``
+   and its result held against the same call with every kernel's plain
+   version on the card: the reference demo (700 x 500 peacock, blocked
+   route), the 2 MP corpus photo (blocked), a 480 x 640 crop through the
+   tiles route (f32 and bf16) and through ``method='fft'``, and the 12 MP
+   image through ``method='auto'`` (the 448/384 patch engine, identical to
+   the explicit ``deblur_patches`` call);
+7. prints the card line, one JSON line of kernels, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. It needs one card, the
@@ -45,6 +58,8 @@ TOL_REL_EST = 1e-4              # tile_estimate values, relative
 TOL_REL_SPEC = 1e-5             # kernel_spectrum, relative to max |q|
 TOL_SPEC_BF16 = 2.0 ** -7       # spectral_gemm application, bf16 out
 TOL_SPEC_F32 = 1e-4             # spectral_gemm application, f32 out
+TOL_POLY_F32 = 1e-4             # fused_polynomial, f32 (unclipped blocks)
+TOL_REL_MAXIMA = 1e-4           # directional_maxima, relative
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -53,6 +68,8 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 DEVICE = "cuda"
 NAMES = ("edge_pad_cast", "tile_estimate", "kernel_spectrum",
          "spectral_gemm", "blend_overlap_add")
+TILE_STAGES = ("tile_estimate", "kernel_spectrum", "spectral_gemm")
+PATH_KW = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
 SOURCES = {
     "edge_pad_cast": ("polyblur_torch/csrc/pad_cast.cu",
                       "polyblur_tpu/ops/pallas/pad_cast.py:200"),
@@ -64,6 +81,13 @@ SOURCES = {
                       "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "blend_overlap_add": ("polyblur_torch/csrc/blend.cu",
                           "polyblur_tpu/ops/pallas/overlap_add.py:168"),
+    "polyblur_tiles": ("polyblur_torch/csrc/estimate.cu, "
+                       "polyblur_torch/csrc/spectral.cu",
+                       "polyblur_tpu/ops/pallas/polyblur_fused.py:631"),
+    "fused_polynomial": ("polyblur_torch/csrc/spectral.cu",
+                         "polyblur_tpu/ops/pallas/sep_poly_fused.py:364"),
+    "directional_maxima": ("polyblur_torch/csrc/estimate.cu",
+                           "polyblur_tpu/ops/pallas/est_fused.py:95"),
 }
 
 
@@ -88,6 +112,59 @@ def make_12mp_image(rng) -> np.ndarray:
     big = np.tile(peacock, reps)[:h, :w]
     big += rng.normal(0.0, 0.005, big.shape).astype(np.float32)
     return np.clip(big, 0.0, 1.0).astype(np.float32).transpose(2, 0, 1)[None]
+
+
+def load_png(path: str) -> np.ndarray:
+    """(H, W, 3) f32 in [0, 1]."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))[..., :3]
+    return (img.astype(np.float32) / 255.0).copy()
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` in ms, each call ending in a
+    synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+# Least operation counts of the kernels' functions, for their bounds: what
+# the function needs done, not what the kernel does (its DFTs are dense
+# GEMMs). A real 2D FFT of N = h w points is counted as 2.5 N log2 N flops,
+# half a complex FFT's 5 N log2 N, at any N.
+
+def fft_flops(h: int, w: int) -> float:
+    """Flops of one real 2D FFT (forward or inverse) of an (h, w) plane."""
+    return 2.5 * h * w * math.log2(h * w)
+
+
+def application_flops(h: int, w: int) -> float:
+    """One p(K) application to one (h, w) canvas plane given its real
+    spectrum: rfft2, the product with the spectrum, irfft2."""
+    return 2.0 * fft_flops(h, w) + 2.0 * h * (w // 2 + 1)
+
+
+def spectrum_flops(h: int, w: int) -> float:
+    """The kernel's spectrum on an (h, w) canvas (one real FFT of the
+    placed taps) and the degree-3 Horner on it."""
+    return fft_flops(h, w) + 6.0 * h * (w // 2 + 1)
+
+
+def maxima_flops(c: int, h: int, w: int) -> float:
+    """The estimate's directional maxima of one (c, h, w) image: gray and
+    range normalization, the gradient pair through one forward and two
+    inverse real FFTs, 7 directional derivatives with |.| and max."""
+    return (3.0 * fft_flops(h, w) + 4.0 * h * (w // 2 + 1)
+            + (c + 3 + 7 * 4) * h * w)
 
 
 def psnr(a, b) -> float:
@@ -130,6 +207,250 @@ def bound_ms(nbytes: float, flops: float, kind: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def whole_image_kernels(dev, report: dict) -> None:
+    """The whole-image route's kernels against their plain versions at its
+    shapes, in f32 (the route's work dtype for f32 images); fills
+    ``report`` with their rows."""
+    import torch
+
+    from polyblur_torch.estimation import gaussian_blur_estimation
+    from polyblur_torch.ops import sep_poly
+    from polyblur_torch.ops.cuda.est_fused import (directional_maxima,
+                                                   directional_maxima_plain)
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, kernel_spectrum, kernel_spectrum_plain, spectral_poly,
+        spectral_poly_plain, spectrum_plain, stage_tables, tile_estimate,
+        tile_estimate_plain)
+    from polyblur_torch.ops.cuda.sep_poly_fused import (
+        fused_polynomial, fused_polynomial_plain)
+    from polyblur_torch.pipeline import _mega_pack
+
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    photo = torch.as_tensor(load_png("tests/data/corpus_hr/peacock_tiled.png")
+                            .transpose(2, 0, 1)[None].copy(), device=dev)
+
+    # -- fused_polynomial: the 2 MP photo's overlap-save blocks (pad 0, no
+    # clip) with the photo's own estimated blur, as the blocked route runs
+    sigma, rho, theta = gaussian_blur_estimation(
+        photo, c=0.362, b=0.468, return_2d_filters=False)
+    a, b, c = sep_poly.gaussian_quadratic_coeffs(sigma[:, 0], rho[:, 0],
+                                                 theta[:, 0])
+    planes = photo[0]                                        # (3, H, W)
+    view, (th, b0h, tw, b0w, ap) = sep_poly._block_view(planes, 12)
+    params = torch.stack([a, b, c], -1).repeat(3, 1).repeat(th * tw, 1)
+    out = fused_polynomial(view, params, coeffs)
+    out_p = fused_polynomial_plain(view, params, coeffs)
+    err = float((out - out_p).abs().max())
+    require(err <= TOL_POLY_F32, f"fused_polynomial blocks error {err}")
+    bh, bw = view.patch
+    tabs = stage_tables(bh, bw, torch.float32, str(dev), 0)
+    kp = tabs.er.shape[1]
+    print(f"fused_polynomial[blocks {view.n} x {bh}x{bw}, kp {kp}, pad 0, "
+          f"no clip, f32]: max_abs_err {err:.3e}")
+    blocks = view.tiles()[:, 0]
+    K = bw // 2 + 1
+    qh = spectrum_plain(params[:, 0], params[:, 1], params[:, 2], coeffs,
+                        tabs)[..., :K] * bh
+
+    def fft_blocks():
+        return torch.fft.irfft2(qh * torch.fft.rfft2(blocks), s=(bh, bw))
+
+    ferr = float((fft_blocks() - out[:, 0]).abs().max())
+    print(f"  FFT yardstick vs kernel: max_abs_err {ferr:.3e}")
+    flops = view.n * (spectrum_flops(bh, bw) + application_flops(bh, bw))
+    report["fused_polynomial"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fused_polynomial(view, params, coeffs)),
+        plain_ms=cuda_ms(lambda: fused_polynomial_plain(view, params,
+                                                        coeffs), reps=3),
+        library_ms=cuda_ms(fft_blocks),
+        bound=bound_ms(view.data.numel() * 4 + out.numel() * 4
+                       + params.numel() * 4, flops, "f32"))
+    # the fused whole-image route: 3 planes of 480 x 640, pad 12, clip
+    x3 = photo[0, :, :480, :640].contiguous()
+    p3 = params[:3]
+    out = fused_polynomial(x3, p3, coeffs, True, True)
+    out_p = fused_polynomial_plain(x3, p3, coeffs, True, True)
+    err = float((out - out_p).abs().max())
+    require(err <= TOL_SPEC_F32, f"fused_polynomial prepad error {err}")
+    ms = cuda_ms(lambda: fused_polynomial(x3, p3, coeffs, True, True))
+    plain_ms = cuda_ms(lambda: fused_polynomial_plain(x3, p3, coeffs, True,
+                                                      True), reps=3)
+    print(f"fused_polynomial[3 x 480x640, pad 12, clip, f32]: max_abs_err "
+          f"{err:.3e}, {ms:.3f} ms (plain {plain_ms:.3f} ms)")
+
+    # -- directional_maxima
+    for shape in ((1, 1, 480, 640), (4, 3, 481, 637)):
+        xs = torch.rand(shape, generator=torch.Generator().manual_seed(3))
+        xs = xs.to(dev)
+        m = directional_maxima(xs)
+        m_p = directional_maxima_plain(xs)
+        rel = float(((m - m_p).abs() / m_p.abs().clamp(min=1e-30)).max())
+        require(rel <= TOL_REL_MAXIMA,
+                f"directional_maxima {shape} rel error {rel}")
+        print(f"directional_maxima[{shape}]: max rel err {rel:.3e}, "
+              f"{cuda_ms(lambda: directional_maxima(xs)):.3f} ms")
+        if shape[0] == 1:
+            _, _, hh, ww = shape
+            report["directional_maxima"] = dict(
+                max_abs_err=float((m - m_p).abs().max()),
+                ms=cuda_ms(lambda: directional_maxima(xs)),
+                plain_ms=cuda_ms(lambda: directional_maxima_plain(xs)),
+                library_ms=None,
+                bound=bound_ms(xs.numel() * 4 + m.numel() * 4,
+                               maxima_flops(shape[1], hh, ww), "f32"))
+
+    # -- tiles mode: one iteration's stages on an odd rectangle whose 2h is
+    # not a multiple of 16 (h = 505, wc = 661, kp = 384)
+    xt = photo[:, :, 100:581, 200:837].contiguous()        # (1, 3, 481, 637)
+    tv = TileView.of_tiles(xt)
+    ph, pw = tv.patch
+    est = tile_estimate(tv, coeffs)
+    est_p = tile_estimate_plain(tv, coeffs)
+    require(bool(torch.equal(est[:, 0], est_p[:, 0])),
+            f"tiles-mode theta index differs: {est[:, 0]} vs {est_p[:, 0]}")
+    tabs = stage_tables(ph, pw, torch.float32, str(dev))
+    q2 = kernel_spectrum(est, coeffs, tabs)
+    q2_p = kernel_spectrum_plain(est, coeffs, tabs)
+    require(float((q2 - q2_p).abs().max())
+            <= TOL_REL_SPEC * float(q2_p.abs().max()), "tiles-mode spectrum")
+    o = spectral_poly(tv, q2, tabs)
+    o_p = spectral_poly_plain(tv, q2, tabs)
+    err = float((o - o_p).abs().max())
+    require(err <= TOL_SPEC_F32, f"tiles-mode application error {err}")
+    kp = tabs.er.shape[1]
+    h, wc = ph + 24, pw + 24
+    print(f"polyblur_tiles[(1, 3, {ph}, {pw}), h {h}, wc {wc}, kp {kp}]: "
+          f"theta idx identical, max_abs_err {err:.3e}")
+
+    def one_iter(e=tile_estimate, s=kernel_spectrum, g=spectral_poly):
+        return g(tv, s(e(tv, coeffs), coeffs, tabs), tabs)
+
+    flops = (maxima_flops(3, ph, pw) + spectrum_flops(h, wc)
+             + 3 * application_flops(h, wc))
+    report["polyblur_tiles"] = dict(
+        max_abs_err=err, ms=cuda_ms(one_iter),
+        plain_ms=cuda_ms(lambda: one_iter(tile_estimate_plain,
+                                          kernel_spectrum_plain,
+                                          spectral_poly_plain), reps=3),
+        library_ms=None,
+        bound=bound_ms(2 * xt.numel() * 4, flops, "f32"))
+
+
+def whole_image_paths(dev, img12, card: str, launches: dict) -> None:
+    """Drive the whole-image paths through ``polyblur_deblurring``, each
+    with the counters zeroed just before and read just after, and hold
+    each against the same call with the plain versions on the card; record
+    each kernel row's launches in ``launches``."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, tile_estimate, tile_estimate_plain)
+    from polyblur_torch.pipeline import _mega_pack
+    from polyblur_torch.utils.profiling import (dispatch_log,
+                                                reset_dispatch_log)
+
+    def run(x, **kw):
+        return polyblur_torch.polyblur_deblurring(x, device=dev, **kw)
+
+    def drive(name, x, routes, kernels, min_db, **kw):
+        """One path: counted hand run, route check, timed hand runs, plain
+        run; returns (hand output, launches)."""
+        torch.cuda.synchronize()
+        pcuda.reset_launches()
+        reset_dispatch_log()
+        out = run(x, **kw)
+        torch.cuda.synchronize()
+        counts = dict(pcuda.launches)
+        log = dispatch_log()
+        for route in routes:
+            require(route in log, f"{name}: route {route} not taken: {log}")
+        for k in kernels:
+            require(counts.get(k, 0) > 0, f"{name}: {k} never launched "
+                                          f"({counts})")
+        out_t = torch.as_tensor(out)
+        require(bool(torch.isfinite(out_t.float()).all()),
+                f"{name}: output not finite")
+        require(tuple(out_t.shape) == tuple(np.shape(x)),
+                f"{name}: output shape")
+        ms = host_ms(lambda: run(x, **kw), reps=3)
+        with pcuda.plain_versions():
+            ref = torch.as_tensor(run(x, **kw))
+        p = psnr(out_t.float().cpu(), ref.float().cpu())
+        npx = out_t.shape[-2] * out_t.shape[-1]
+        if out_t.dim() == 3:  # numpy (H, W, C)
+            npx = out_t.shape[0] * out_t.shape[1]
+        print(f"{name}: {ms:.2f} ms = {npx / 1e6 / (ms / 1e3):.2f} MP/s on "
+              f"{card}; hand vs plain {p:.2f} dB; routes {sorted(log)}; "
+              f"launches {counts}")
+        require(p >= min_db, f"{name}: PSNR {p:.2f} < {min_db}")
+        return out_t, counts
+
+    peacock = load_png("tests/data/peacock_defocus.png")        # (500, 700, 3)
+    photo = load_png("tests/data/corpus_hr/peacock_tiled.png")  # 1200 x 1600
+    scan_ds = ("polyblur_core", "scan/direct_separable")
+    blocked = ("compute_polynomial_separable", "blocked")
+    drive("demo 700x500 (blocked)", peacock, (scan_ds, blocked),
+          ("fused_polynomial",), PSNR_F32_DB, **PATH_KW)
+    _, counts = drive("2 MP photo 1600x1200 (blocked)", photo,
+                      (scan_ds, blocked), ("fused_polynomial",), PSNR_F32_DB,
+                      **PATH_KW)
+    launches["fused_polynomial"] = counts["fused_polynomial"]
+
+    crop = torch.as_tensor(peacock[:480, :640].transpose(2, 0, 1)[None].copy(),
+                           device=dev)
+    tiles = ("polyblur_core", "tiles")
+    out, counts = drive("crop 480x640 tiles route f32", crop, (tiles,),
+                        TILE_STAGES, PSNR_F32_DB, method="direct_separable",
+                        **PATH_KW)
+    launches["polyblur_tiles"] = sum(counts[k] for k in TILE_STAGES)
+    # theta identical, kernel vs plain, on every iteration's input
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    x = crop
+    for it in range(PATH_KW["n_iter"]):
+        tv = TileView.of_tiles(x)
+        ik = tile_estimate(tv, coeffs)[:, 0]
+        ip = tile_estimate_plain(tv, coeffs)[:, 0]
+        require(bool(torch.equal(ik, ip)),
+                f"tiles route iteration {it + 1}: theta idx {ik} vs {ip}")
+        x = run(crop, method="direct_separable", **dict(PATH_KW,
+                                                         n_iter=it + 1))
+    print("crop 480x640 tiles route: theta idx identical on all "
+          f"{PATH_KW['n_iter']} iterations")
+    drive("crop 480x640 tiles route bf16", crop.bfloat16(), (tiles,),
+          TILE_STAGES, PSNR_BF16_DB, method="direct_separable", **PATH_KW)
+    _, counts = drive("crop 480x640 method=fft", crop,
+                      (("polyblur_core", "scan/fft"),
+                       ("directional_maxima", "fused")),
+                      ("directional_maxima",), PSNR_F32_DB, method="fft",
+                      **PATH_KW)
+    launches["directional_maxima"] = counts["directional_maxima"]
+
+    # 12 MP, method='auto': the 448/384 patch engine, identical to the
+    # explicit deblur_patches call (both f32)
+    torch.cuda.synchronize()
+    pcuda.reset_launches()
+    reset_dispatch_log()
+    auto = run(img12, method="auto", **PATH_KW)
+    torch.cuda.synchronize()
+    require(("polyblur_deblurring", "auto_tiled/448") in dispatch_log(),
+            f"12 MP auto did not tile at 448: {dispatch_log()}")
+    require(all(pcuda.launches.get(k, 0) > 0 for k in NAMES),
+            "12 MP auto skipped a kernel")
+    ms = host_ms(lambda: run(img12, method="auto", **PATH_KW), reps=3)
+    explicit = polyblur_torch.deblur_patches(
+        img12, patch_size=448, overlap=64.0 / 448.0, batch_size=0,
+        device=dev, method="direct_separable", **PATH_KW)
+    same = bool(torch.equal(auto, explicit))
+    print(f"12 MP method='auto' f32: auto_tiled/448, {ms:.2f} ms = "
+          f"{img12.shape[-2] * img12.shape[-1] / 1e6 / (ms / 1e3):.2f} MP/s; "
+          f"identical to deblur_patches(448, 64/448): {same} (max diff "
+          f"{float((auto - explicit).abs().max()):.3e})")
+    require(same, "12 MP auto differs from the explicit deblur_patches call")
+
+
 def main() -> int:
     import torch
 
@@ -150,7 +471,7 @@ def main() -> int:
         stage_tables, tile_estimate, tile_estimate_plain)
     from polyblur_torch.patches import (_blend_constants, _grid_steps,
                                         plan_patch_grid)
-    from polyblur_torch.pipeline import PLAIN, _mega_pack
+    from polyblur_torch.pipeline import _mega_pack
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 reference
     torch.backends.cudnn.allow_tf32 = False
@@ -180,8 +501,7 @@ def main() -> int:
     n_tiles = len(grid.coords)
     print(f"grid: {th}x{tw} = {n_tiles} tiles of {ph}, step {sh}, canvas "
           f"{grid.padded_size}, pads {grid.pad}")
-    path_kw = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0,
-                   method="direct_separable")
+    path_kw = dict(PATH_KW, method="direct_separable")
     coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
     h, wc = ph + 2 * HALF, pw + 2 * HALF
     report = {}
@@ -227,15 +547,15 @@ def main() -> int:
         print(f"tile_estimate[{tag}]: theta idx identical on {n_tiles} "
               f"tiles, max rel err {rel:.3e}")
         if tag == "bf16":
-            macs = n_tiles * b * (ph * pw * pw + ph * ph * pw)
             report["tile_estimate"] = dict(
                 max_abs_err=float((est[:, 1:] - est_p[:, 1:]).abs().max()),
                 ms=cuda_ms(lambda: tile_estimate(view, coeffs)),
                 plain_ms=cuda_ms(lambda: tile_estimate_plain(view, coeffs),
                                  reps=3),
                 library_ms=None,
-                bound=bound_ms(n_tiles * b * c * ph * pw * esz,
-                               2.0 * macs, "f32"))
+                bound=bound_ms(n_tiles * b * c * ph * pw * esz
+                               + est.numel() * 4,
+                               n_tiles * b * maxima_flops(c, ph, pw), "f32"))
 
         tabs = stage_tables(ph, pw, wd, str(dev))
         q2 = kernel_spectrum(est, coeffs, tabs)
@@ -247,7 +567,6 @@ def main() -> int:
         print(f"kernel_spectrum[{tag}]: max_abs_err {err:.3e} "
               f"(max |q| {scale:.3e})")
         if tag == "bf16":
-            kp = q2.shape[-1] // 2
             report["kernel_spectrum"] = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: kernel_spectrum(est, coeffs, tabs)),
@@ -255,8 +574,7 @@ def main() -> int:
                     lambda: kernel_spectrum_plain(est, coeffs, tabs)),
                 library_ms=None,
                 bound=bound_ms(q2.numel() * 4,
-                               2.0 * n_tiles * (25 * 25 * kp * 2
-                                                + h * 25 * kp * 2), "f32"))
+                               n_tiles * spectrum_flops(h, wc), "f32"))
 
         out = spectral_poly(view, q2, tabs)
         out_p = spectral_poly_plain(view, q2, tabs)
@@ -266,12 +584,7 @@ def main() -> int:
         print(f"spectral_gemm[{tag}]: max_abs_err {err:.3e} "
               f"(PSNR {psnr(out, out_p):.1f} dB)")
         if tag == "bf16":
-            kp = q2.shape[-1] // 2
-            macs = (h * wc * 2 * kp + 2 * h * 2 * h * 2 * kp
-                    + ph * 2 * kp * pw) * n_tiles * b * c
-            nb = (2 * out.numel() * esz + q2.numel() * 4
-                  + (tabs.fwd.numel() + tabs.inv.numel()
-                     + tabs.cysy.numel()) * esz)
+            nb = 2 * out.numel() * esz + q2.numel() * 4
             # the same function through the FFT: rfft2 -> * p(K) -> irfft2
             xpad = F.pad(view.tiles().float().reshape(-1, 1, ph, pw),
                          (HALF,) * 4, mode="replicate")[:, 0]
@@ -291,7 +604,8 @@ def main() -> int:
                 plain_ms=cuda_ms(lambda: spectral_poly_plain(view, q2, tabs),
                                  reps=3),
                 library_ms=cuda_ms(fft_app, reps=3),
-                bound=bound_ms(nb, 2.0 * macs, tag))
+                bound=bound_ms(nb, n_tiles * b * c * application_flops(h, wc),
+                               tag))
 
         win, inv_wsum = _blend_constants(grid, "kaiser", dev)
         gi = (th, tw, sh, sw, ph, pw)
@@ -346,14 +660,21 @@ def main() -> int:
     sec = statistics.median(times)
     print(f"main path 12 MP bf16: {sec * 1e3:.2f} ms median of 5 = "
           f"{H * W / 1e6 / sec:.2f} MP/s on {card}")
+    per_call = dict(tile_estimate=3, spectral_gemm=4)
+    floor = sum(report[k]["bound"][0] * launches[k] / per_call.get(k, 1)
+                for k in NAMES)
+    print(f"main path bound: {floor:.4f} ms (the kernel rows' bounds times "
+          f"their calls) = {H * W / 1e6 / (floor / 1e3):.0f} MP/s")
 
-    plain16 = path(img, torch.bfloat16, _ops=PLAIN)
+    with pcuda.plain_versions():
+        plain16 = path(img, torch.bfloat16)
     p = psnr(out16, plain16)
     print(f"path bf16 hand vs plain: {p:.2f} dB")
     require(p >= PSNR_BF16_DB, f"bf16 path PSNR {p:.2f} < {PSNR_BF16_DB}")
     del plain16
     out32 = path(img, torch.float32)
-    plain32 = path(img, torch.float32, _ops=PLAIN)
+    with pcuda.plain_versions():
+        plain32 = path(img, torch.float32)
     p = psnr(out32, plain32)
     print(f"path f32 hand vs plain: {p:.2f} dB")
     require(p >= PSNR_F32_DB, f"f32 path PSNR {p:.2f} < {PSNR_F32_DB}")
@@ -380,17 +701,25 @@ def main() -> int:
     torch.cuda.synchronize()
     require(all(pcuda.launches.get(n, 0) > 0 for n in NAMES),
             "batch-2 path skipped a kernel")
-    pb = polyblur_torch.deblur_patches(
-        xb, patch_size=448, overlap=64.0 / 448.0, work_dtype=torch.bfloat16,
-        out_dtype=torch.float32, device=dev, _ops=PLAIN, **path_kw)
+    with pcuda.plain_versions():
+        pb = polyblur_torch.deblur_patches(
+            xb, patch_size=448, overlap=64.0 / 448.0,
+            work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,
+            **path_kw)
     p = psnr(ob, pb)
     print(f"batch 2 (2, 3, 1024, 1024), 4-tile chunks: hand vs plain "
           f"{p:.2f} dB, launches {dict(pcuda.launches)}")
     require(p >= PSNR_BF16_DB, f"batch-2 PSNR {p:.2f} < {PSNR_BF16_DB}")
 
+    # ---------------------------------------------------------- whole image
+    whole_image_kernels(dev, report)
+    torch.cuda.empty_cache()
+    whole_image_paths(dev, img, card, launches)
+
     # ---------------------------------------------------------- report
     rows = []
-    for name in NAMES:
+    for name in NAMES + ("polyblur_tiles", "fused_polynomial",
+                         "directional_maxima"):
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]
@@ -399,8 +728,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": rows}))
     print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

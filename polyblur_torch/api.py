@@ -1,32 +1,75 @@
-"""Public API: the stateless deblurring module.
+"""Public API: the functional entry point and the stateless module.
 
-Mirrors the reference surface (deblurring.py:250-394), including the NumPy
-adapter: ``(H, W)`` / ``(H, W, C)`` ndarrays are accepted and returned as
-such; tensors must be ``(B, C, H, W)``. This slice of the port runs the
-patch engine (``patch_decomposition=True``); the whole-image route and the
-functional ``polyblur_deblurring`` come next.
+Mirrors the reference surface (deblurring.py:23-96, :250-394), including
+the NumPy adapter: ``(H, W)`` / ``(H, W, C)`` ndarrays are accepted and
+returned as such; tensors must be ``(B, C, H, W)``. Calls run on
+``device`` (default ``"cuda"``, raising when no card is available; pass
+``"cpu"`` for the plain PyTorch path).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .config import MODULE_DEFAULTS
-from .patches import _resolve_device, deblur_patches
+from .config import FUNCTIONAL_DEFAULTS, MODULE_DEFAULTS
+from .envelopes import (AUTO_TILE_MIN_AREA, BLOCKED_COST_MACS_PX,
+                        TILE_FIXED_MACS)
+from .patches import deblur_patches
+from .pipeline import mega_tile_cap, polyblur_core, resolve_device
 from .utils.imaging import to_array, to_tensor
+from .utils.profiling import record_dispatch
 
 __all__ = ["polyblur_deblurring", "PolyblurDeblurring"]
 
-_TODO_WHOLE = ("ROADMAP A.5 (the whole-image polyblur_core / "
-               "polyblur_deblurring route)")
+_TODO_VERBOSE = "ROADMAP A.11 (verbose per-stage timing)"
+
+#: Candidate (patch, step) grids of ``method='auto'`` tiling, as in the
+#: JAX package (api.py:37), so that both tile the same images alike.
+_TILE_CANDIDATES = ((576, 512), (448, 384), (320, 256))
+
+
+def _auto_tile_wanted(h: int, w: int, cap: int) -> bool:
+    """Whether ``method='auto'`` considers tiling: the image is past the
+    tiles route's edge and at least ``AUTO_TILE_MIN_AREA`` pixels."""
+    return max(h, w) > cap and h * w >= AUTO_TILE_MIN_AREA
+
+
+def _tile_macs(ph: int, pw: int) -> float:
+    """Modeled MACs of one patch-engine tile per channel and iteration:
+    the x-DFT pair linear in width, the y-DFT pair quadratic in height,
+    times the packed half-spectrum depth (the JAX package's model)."""
+    hh, wc = ph + 24, pw + 24
+    kp = -(-(wc // 2 + 1) // 128) * 128
+    return float((2 * hh * wc + 4 * hh * hh) * 2 * kp)
+
+
+def _auto_tile_plan(h: int, w: int, cap: int):
+    """(patch_size, overlap) of the cheapest candidate tiling, or None when
+    the whole-image blocked route is modeled cheaper (the JAX package's
+    cost model and constants, not fitted to the H100)."""
+    best = None
+    for p, s in _TILE_CANDIDATES:
+        if p > cap:
+            continue
+        ch = int(math.ceil(max(h - p, 0) / s)) * s + p
+        cw = int(math.ceil(max(w - p, 0) / s)) * s + p
+        n_tiles = ((ch - p) // s + 1) * ((cw - p) // s + 1)
+        cost = n_tiles * (_tile_macs(p, p) + TILE_FIXED_MACS)
+        if best is None or cost < best[0]:
+            best = (cost, p, s)
+    if best is not None and best[0] < BLOCKED_COST_MACS_PX * h * w:
+        return best[1], (best[1] - best[2]) / best[1]
+    return None
 
 
 def _resolve_auto(method: str) -> str:
-    """``'auto'`` -> ``'direct_separable'``: the reference's
-    direct-on-CUDA selection (main.py:109-112), and the only method the
-    port runs (its CPU path is the plain version of the CUDA path)."""
+    """``'auto'`` -> ``'direct_separable'``: the reference's direct-on-CUDA
+    selection (main.py:109-112), the JAX package's choice on its TPU."""
     return "direct_separable" if method == "auto" else method
 
 
@@ -47,19 +90,73 @@ def _adapt_in(img, device: torch.device):
     return img, False
 
 
-def polyblur_deblurring(img, *args, **kwargs):
-    """Functional Polyblur on whole images — not ported yet."""
-    raise NotImplementedError(f"polyblur_deblurring: see {_TODO_WHOLE}")
+def polyblur_deblurring(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
+                        beta=3.0, sigma_r=0.8, sigma_s=2.0,
+                        ker_size: int = 25, q: float = 0.0,
+                        n_angles: int = 6, n_interpolated_angles: int = 30,
+                        remove_halo: bool = False, edgetaping: bool = False,
+                        prefiltering: bool = False,
+                        discard_saturation: bool = False,
+                        multichannel_kernel: bool = False,
+                        method: str = "auto", verbose: bool = False,
+                        device=None):
+    """Blind deblurring of mildly blurred image(s) — functional Polyblur.
+
+    The reference's 17-keyword surface (deblurring.py:23-96) and defaults,
+    except ``method``: ``'auto'`` resolves to ``'direct_separable'`` and,
+    for images of at least 4 MP past the tiles route's 640 px edge, runs
+    the overlapping-patch engine on the cheapest of the 576/512, 448/384
+    and 320/256 grids (blur estimated per tile), exactly the images the
+    JAX package tiles on its TPU. Everything smaller, and every explicit
+    ``method``, runs whole-image (``pipeline.polyblur_core``). Odd sizes
+    are edge-padded to even around the patch engine, so the output shape
+    always matches the input.
+
+    :param img: numpy ``(H, W)``/``(H, W, C)`` image or ``(B, C, H, W)``
+        tensor in [0, 1]; the return type matches
+    :param device: where to run (default ``"cuda"``; raises without a
+        card — pass ``"cpu"`` for the plain PyTorch path)
+    """
+    if verbose:
+        raise NotImplementedError(f"verbose=True: see {_TODO_VERBOSE}")
+    dev = resolve_device(device)
+    x, was_numpy = _adapt_in(img, dev)
+    cfg = FUNCTIONAL_DEFAULTS.replace(
+        n_iter=n_iter, c=c, b=b, alpha=alpha, beta=beta, sigma_r=sigma_r,
+        sigma_s=sigma_s, ker_size=ker_size, q=q, n_angles=n_angles,
+        n_interpolated_angles=n_interpolated_angles, remove_halo=remove_halo,
+        edgetaping=edgetaping, prefiltering=prefiltering,
+        discard_saturation=discard_saturation,
+        multichannel_kernel=multichannel_kernel,
+        method=_resolve_auto(method))
+    kw = dict(**cfg.traced_kwargs(), **cfg.static_kwargs())
+    h, w = x.shape[-2:]
+    plan = None
+    if method == "auto":
+        cap = mega_tile_cap(prefiltering, cfg.smoother)
+        if _auto_tile_wanted(h, w, cap):
+            plan = _auto_tile_plan(h, w, cap)
+    if plan is None:
+        out = polyblur_core(x, device=dev, **kw)
+    else:
+        record_dispatch("polyblur_deblurring", f"auto_tiled/{plan[0]}")
+        # the patch engine even-crops: edge-pad odd axes by one first
+        xe = x
+        if h % 2 or w % 2:
+            xe = F.pad(x, (0, w % 2, 0, h % 2), mode="replicate")
+        out = deblur_patches(xe, patch_size=plan[0], overlap=plan[1],
+                             batch_size=0, device=dev, **kw)[..., :h, :w]
+    return to_array(out) if was_numpy else out
 
 
 class PolyblurDeblurring(nn.Module):
-    """Stateless deblurring module with the overlapping-patch engine.
+    """Stateless deblurring module with an optional overlapping-patch
+    engine.
 
     Holds no parameters or buffers (as the reference module). The
     constructor stores the patch configuration and the device; ``forward``
     matches the reference's surface and defaults (deblurring.py:266-268).
-    Calls run on ``device`` (default ``"cuda"``, raising when no card is
-    available; pass ``"cpu"`` for the plain PyTorch path).
+    ``patch_decomposition=False`` runs whole-image (``polyblur_core``).
     """
 
     def __init__(self, patch_decomposition: bool = False,
@@ -81,11 +178,7 @@ class PolyblurDeblurring(nn.Module):
                 discard_saturation: bool = False,
                 multichannel_kernel: bool = False, method: str = "auto",
                 device=None):
-        if not self.patch_decomposition:
-            raise NotImplementedError(
-                f"PolyblurDeblurring(patch_decomposition=False): see "
-                f"{_TODO_WHOLE}")
-        dev = _resolve_device(device if device is not None else self.device)
+        dev = resolve_device(device if device is not None else self.device)
         cfg = MODULE_DEFAULTS.replace(
             n_iter=n_iter, c=c, b=b, alpha=alpha, beta=beta, sigma_r=sigma_r,
             sigma_s=sigma_s, ker_size=ker_size, q=q, n_angles=n_angles,
@@ -95,8 +188,11 @@ class PolyblurDeblurring(nn.Module):
             multichannel_kernel=multichannel_kernel,
             method=_resolve_auto(method))
         x, was_numpy = _adapt_in(images, dev)
-        out = deblur_patches(
-            x, patch_size=self.patch_size, overlap=self.patch_overlap,
-            batch_size=self.batch_size, device=dev,
-            **cfg.traced_kwargs(), **cfg.static_kwargs())
+        kw = dict(**cfg.traced_kwargs(), **cfg.static_kwargs())
+        if self.patch_decomposition:
+            out = deblur_patches(
+                x, patch_size=self.patch_size, overlap=self.patch_overlap,
+                batch_size=self.batch_size, device=dev, **kw)
+        else:
+            out = polyblur_core(x, device=dev, **kw)
         return to_array(out) if was_numpy else out

@@ -20,6 +20,14 @@
 //                        the values are >= 0);
 //   (3) tile_est_final   one warp per tile: interpolation, argmin, model.
 //
+// Stages (1)-(2) alone are also the directional-maxima reduction of the
+// whole-image estimate, replacing polyblur_tpu/ops/pallas/est_fused.py::
+// directional_maxima_pallas (the (B, 7) maxima of the normalized channel
+// mean, for C = 1 or 3): the wrapper ops/cuda/est_fused.py launches stages
+// 1 and 2 and reads `maxima`. Stage (1) is one block per image, so at
+// B = 1 it runs on one SM: correct, and slow at whole-image sizes (a split
+// reduction is later work).
+//
 // Bound on the H100: operations — 2 * ph^3 f32 MACs per tile in (2)
 // against the 67 TFLOP/s f32 rate (the products stay f32, as in the TPU
 // kernel's f32 estimation path); (1) and (3) are small. Design: (2) is a
@@ -232,7 +240,8 @@ __global__ void tile_est_final_kernel(const float* __restrict__ maxima,
 
 // view: the n tiles (canvas or tile batch, dtype `dtype`); g: (n, ph, pw)
 // f32 scratch; maxima: (n, 7) f32 scratch; est: (n, 8) f32 output.
-// stage selects the launch (1, 2 or 3) so the wrapper can count each.
+// stage selects the launch (1, 2 or 3) so the wrapper can count each; the
+// directional maxima launch stages 1 and 2 only (wts, coeffs, est unused).
 extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,

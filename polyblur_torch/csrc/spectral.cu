@@ -1,36 +1,46 @@
-// kernel_spectrum and spectral_gemm: the per-tile 2D-spectral polynomial
-// deconvolution of the patch engine.
+// kernel_spectrum and spectral_gemm: the 2D-spectral polynomial
+// deconvolution p(K) of a batch of (tile, channel) planes.
 //
 // kernel_spectrum replaces polyblur_tpu/ops/pallas/sep_poly_fused.py::
 // _kernel_spectrum_block and the Horner/packing lines of
-// polyblur_fused.py::_make_kernel (:372-373): per tile, the 25 x 25 masked,
-// normalized Gaussian from (qa, qb, qc) -> (25 x Kp) tap products against
-// the x-phase tables -> (h x Kp) real OTF through the y-phase tables, all
-// f32; then p(K_hat) by Horner and the packed [q | q] * (1/h) spectrum.
-// Bound on the H100: operations, and tiny (~6 M f32 MACs per tile).
+// polyblur_fused.py::_make_kernel (:372-373) and of sep_poly_fused.py::
+// _make_kernel (:316-319): per plane, the 25 x 25 masked, normalized
+// Gaussian from its quadratic form (qa, qb, qc) -> (25 x Kp) tap products
+// against the x-phase tables -> (h x Kp) real OTF through the y-phase
+// tables, all f32; then p(K_hat) by Horner and the packed [q | q] * (1/h)
+// spectrum. The quadratic forms are read from rows of any stride (the
+// (n, 8) estimate rows, or the (N, 3) params of fused_polynomial).
+// Bound on the H100: operations, and tiny (~6 M f32 MACs per plane).
 //
 // spectral_gemm replaces sep_poly_fused.py::_spectral_poly_block, the six
-// DFT products the mega kernel runs per channel per iteration. The TPU
-// program holds a 472 x 472 f32 canvas, its packed spectra and the DFT
-// tables in VMEM; a Hopper SM has 227 KB of shared memory, so the
-// application is four batched GEMM launches over (tile, channel) planes
-// with the intermediates in device memory, stored in the work dtype
-// (exactly where the TPU kernel rounds its product operands):
-//   mode 1  R  = pad12(x) @ F                     replicate pad in the A-load
+// DFT products the mega kernel runs per channel per iteration, and the
+// whole of sep_poly_fused.py::_make_kernel (fused_polynomial_pallas) after
+// its spectrum. The TPU program holds a 472 x 472 f32 canvas, its packed
+// spectra and the DFT tables in VMEM; a Hopper SM has 227 KB of shared
+// memory, so the application is four batched GEMM launches over (tile,
+// channel) planes with the intermediates in device memory, stored in the
+// work dtype (exactly where the TPU kernel rounds its product operands):
+//   mode 1  R  = pad(x) @ F                       replicate pad in the A-load
 //   mode 2  P  = qhat2 * ([Cy|Sy] @ [R ; swap(R) sgn])   one K = 2h product;
 //                the B-load does the half-swap and sign, the epilogue the
 //                spectrum multiply (before the cast, never after)
 //   mode 3  Yi = [Cy|Sy] @ [P ; -swap(P) sgn]
-//   mode 4  x' = cast(clip(crop12(Yi @ G)))       only the cropped block
+//   mode 4  x' = cast(clip?(crop(Yi @ G)))        only the cropped block
+// The pad/crop width `half` is 12 (the patch engine, the tiles route and
+// the fused whole-image polynomial pad by the kernel half-support) or 0
+// (the overlap-save blocks of the blocked route, whose canvas is the block
+// itself); the clip to [0, 1] is a flag (the blocked route applies p(K)
+// unclipped and clips after reassembly).
 // Accumulation is f32. bf16 operands run on the tensor cores (WMMA
 // m16n16k16 fragments, the mma.sync path); f32 operands run plain f32 FMA,
 // never TF32 or a bf16 split.
 //
 // Bound on the H100: operations — 684 M MACs per (tile, channel) plane at
-// 448 px tiles, against 989 TFLOP/s dense bf16 (67 TFLOP/s f32). Design:
-// 128 x 128 block tiles through shared memory, 8 warps of 64 x 32; loads
-// are synchronous scalar loads (no cp.async/TMA pipeline yet), which is
-// the first thing a faster version changes.
+// 448 px tiles, ~115 M per 280 x 240 block of the 2 MP blocked route,
+// against 989 TFLOP/s dense bf16 (67 TFLOP/s f32). Design: 128 x 128
+// block tiles through shared memory, 8 warps of 64 x 32; loads are
+// synchronous scalar loads (no cp.async/TMA pipeline yet), which is the
+// first thing a faster version changes.
 #include <mma.h>
 
 #include "common.cuh"
@@ -45,9 +55,9 @@ constexpr int kHalf = 12;
 constexpr int kTaps = 2 * kHalf + 1;
 constexpr int kCols = 32;  // spectrum columns per block
 
-// est row: [idx, mn, mo, sigma2, rho2, qa, qb, qc]
+// plane n's quadratic form is q[n * stride + off + 0..2] = (qa, qb, qc)
 __global__ void __launch_bounds__(256)
-kernel_spectrum_kernel(const float* __restrict__ est,
+kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
                        const float* __restrict__ coeffs,
                        const float* __restrict__ er,   // (128, kp)
                        const float* __restrict__ ei,   // (128, kp)
@@ -61,7 +71,8 @@ kernel_spectrum_kernel(const float* __restrict__ est,
   const int n = blockIdx.y;
   const int k0 = blockIdx.x * kCols;
   const int tid = threadIdx.x;
-  const float qa = est[n * 8 + 5], qb = est[n * 8 + 6], qc = est[n * 8 + 7];
+  const float* qn = q + (long long)n * stride + off;
+  const float qa = qn[0], qb = qn[1], qc = qn[2];
   float part = 0.f;
   for (int e = tid; e < kTaps * kTaps; e += blockDim.x) {
     const float jf = static_cast<float>(e / kTaps - kHalf);  // row offset
@@ -127,7 +138,7 @@ struct GemmParams {
   const void* mid;      // modes 2, 3: R / P; mode 4: Yi — (planes, h, 2kp)
   void* dst;            // modes 1-3: (planes, h, 2kp); mode 4: (planes, ph, pw)
   const float* qhat2;   // mode 2: (n, h, 2kp)
-  int C, ph, pw, h, wc, kp, half;
+  int C, ph, pw, h, wc, kp, half, clip;
   int M, N, K;
 };
 
@@ -198,7 +209,8 @@ __device__ __forceinline__ void store_c(const GemmParams& p,
                                         const Plane<T>& P, int i, int j,
                                         float acc) {
   if (MODE == 4) {
-    P.d[(long long)i * p.pw + j] = pb::from_f32<T>(fminf(fmaxf(acc, 0.f), 1.f));
+    if (p.clip) acc = fminf(fmaxf(acc, 0.f), 1.f);
+    P.d[(long long)i * p.pw + j] = pb::from_f32<T>(acc);
   } else {
     const long long o = (long long)i * 2 * p.kp + j;
     if (MODE == 2) acc = __fmul_rn(P.q[o], acc);
@@ -336,22 +348,25 @@ void launch_gemm(int dtype, const GemmParams& p, int planes, cudaStream_t s) {
 
 }  // namespace
 
-// est: (n, 8) f32 [.., qa, qb, qc]; coeffs: (8,) f32 [a3, a2, a1, beta, ..];
-// qhat2: (n, h, 2 kp) f32 output.
-extern "C" int pb_kernel_spectrum(const float* est, const float* coeffs,
-                                  const float* er, const float* ei,
-                                  const float* cyt, const float* syt, int n,
-                                  int h, int kp, float* qhat2, void* stream) {
+// q: n rows of `stride` f32 with (qa, qb, qc) at column `off` (the (n, 8)
+// estimate rows: stride 8, off 5; fused_polynomial's (N, 3) params: 3, 0);
+// coeffs: f32 [a3, a2, a1, beta, ..]; qhat2: (n, h, 2 kp) f32 output.
+extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
+                                  const float* coeffs, const float* er,
+                                  const float* ei, const float* cyt,
+                                  const float* syt, int n, int h, int kp,
+                                  float* qhat2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(kp / kCols, n);
-  kernel_spectrum_kernel<<<grid, 256, 0, s>>>(est, coeffs, er, ei, cyt, syt,
-                                              h, kp, qhat2);
+  kernel_spectrum_kernel<<<grid, 256, 0, s>>>(q, stride, off, coeffs, er, ei,
+                                              cyt, syt, h, kp, qhat2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One of the four products of a spectral application over `planes`
 // (tile, channel) planes; see the modes above. Shapes: tiles (ph, pw),
-// canvas h = ph + 2 half, wc = pw + 2 half, packed half-spectrum kp.
+// canvas h = ph + 2 half, wc = pw + 2 half, packed half-spectrum kp;
+// clip != 0 clips mode 4's output to [0, 1].
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
@@ -359,7 +374,7 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 const void* tab_b, const void* mid, void* dst,
                                 const float* qhat2, int planes, int C, int ph,
                                 int pw, int h, int wc, int kp, int half,
-                                void* stream) {
+                                int clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != pb::kBF16 && dtype != pb::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -378,6 +393,7 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.wc = wc;
   p.kp = kp;
   p.half = half;
+  p.clip = clip;
   switch (mode) {
     case 1:
       p.M = h; p.N = 2 * kp; p.K = wc;

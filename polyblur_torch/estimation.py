@@ -6,11 +6,15 @@ gradient maxima -> Keys-cubic interpolation to a finer angle grid -> argmin
 angle (the blur direction) -> affine model ``sigma^2 = c^2 / f^2 - b^2``
 with clamping.
 
-This slice ports the branch the patch engine runs: q = 0, no saturation
-mask, and the C == 3 (or not multichannel) gray collapse, returning the
-``(sigma, rho, theta)`` parameters. The plain version of the patch engine's
-per-tile estimate (``ops.cuda.polyblur_fused.tile_estimate_plain``) is built
-from the steps here, fed with the kernel's host tables.
+The port runs the q = 0, no-saturation branch with the C == 3 (or not
+multichannel) gray collapse, returning the ``(sigma, rho, theta)``
+parameters or the 2D kernels. The directional maxima of images up to
+``MEGA_MAX_TILE`` go through the fused reduction
+(``ops.cuda.est_fused.directional_maxima``), larger ones through the plain
+chain of spectral gradients, as the JAX package runs XLA there. The plain
+version of the patch engine's per-tile estimate
+(``ops.cuda.polyblur_fused.tile_estimate_plain``) is built from the steps
+here, fed with the kernel's host tables.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ import math
 
 import torch
 
-from .ops.spectral_matmul import _derivative_matrix_np
+from .envelopes import MEGA_MAX_TILE
+from .ops.fourier import spectral_gradients
+from .ops.gaussian import batch_gaussian_kernels
+from .utils.profiling import record_dispatch
 
 __all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
            "compute_gaussian_parameters", "cubic_interpolator",
@@ -60,15 +67,27 @@ def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
 def _mags_xla(img: torch.Tensor, n_angles: int) -> torch.Tensor:
     """min/max normalize -> spectral gradients -> directional maxima
     (the q=0 path). ``img`` is (B, C, H, W); returns (B, n_angles + 1)."""
-    x = normalize_range(img.float())
-    h, w = x.shape[-2:]
-    dw = torch.as_tensor(_derivative_matrix_np(w), device=x.device)
-    dh = torch.as_tensor(_derivative_matrix_np(h), device=x.device)
-    gx = (x @ dw.T).mean(dim=1)   # (B, H, W)
-    gy = (dh @ x).mean(dim=1)
-    angles = torch.linspace(0.0, math.pi, n_angles + 1, device=x.device)
+    gx, gy = spectral_gradients(normalize_range(img.float()))
+    angles = torch.linspace(0.0, math.pi, n_angles + 1, device=img.device)
     return directional_maxima(
-        gx, gy, torch.stack([torch.cos(angles), torch.sin(angles)], 1))
+        gx.mean(dim=1), gy.mean(dim=1),
+        torch.stack([torch.cos(angles), torch.sin(angles)], 1))
+
+
+def _mags_fast(img: torch.Tensor, n_angles: int) -> torch.Tensor:
+    """Directional maxima through the fused reduction for images up to
+    ``MEGA_MAX_TILE`` (the kernel on CUDA tensors, its plain version on
+    CPU ones), the plain chain of :func:`_mags_xla` above."""
+    if max(img.shape[-2:]) <= MEGA_MAX_TILE:
+        from .ops.cuda.est_fused import directional_maxima as fused
+
+        if n_angles != 6:
+            raise NotImplementedError(f"n_angles={n_angles}: the fused "
+                                      f"reduction has 7 angles; see {_TODO}")
+        record_dispatch("directional_maxima", "fused")
+        return fused(img, n_angles)
+    record_dispatch("directional_maxima", "plain")
+    return _mags_xla(img, n_angles)
 
 
 def keys_weights(x_new: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -162,9 +181,11 @@ def gaussian_blur_estimation(img: torch.Tensor, c=0.362, b=0.468,
     """Estimate per-image Gaussian blur parameters.
 
     :param img: (B, C, H, W) blurry image(s) in [0, 1]
-    :return: ``(sigma, rho, theta)``, each (B, 1)
+    :return: the (B, 1, ker_size, ker_size) kernels in the image dtype, or
+        the ``(sigma, rho, theta)`` tuple of (B, 1) f32 tensors when
+        ``return_2d_filters`` is False
     """
-    if (q != 0.0 or discard_saturation or return_2d_filters
+    if (q != 0.0 or discard_saturation
             or (multichannel and img.shape[1] != 3)):
         raise NotImplementedError(
             "polyblur_torch estimates only the q=0, no-saturation, "
@@ -172,8 +193,10 @@ def gaussian_blur_estimation(img: torch.Tensor, c=0.362, b=0.468,
     dev = img.device
     thetas, interpolated_thetas = angle_grids(n_angles, n_interpolated_angles)
     gray = img.float().mean(dim=1, keepdim=True)
-    mags = _mags_xla(gray, n_angles)
+    mags = _mags_fast(gray, n_angles)
     m_n, m_o, theta = find_maximal_blur_direction(
         mags, thetas[None].to(dev), interpolated_thetas[None].to(dev))
     sigma, rho = compute_gaussian_parameters(m_n, m_o, c=c, b=b)
-    return sigma, rho, theta
+    if not return_2d_filters:
+        return sigma, rho, theta
+    return batch_gaussian_kernels(theta, sigma, rho, ker_size).to(img.dtype)

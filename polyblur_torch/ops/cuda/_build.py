@@ -9,11 +9,17 @@ with ``ctypes``; every pointer and the stream are passed as ``c_void_p``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch and
 :func:`check` raises on anything but 0, so a refused launch is never lost.
+
+The wrappers run their plain PyTorch version for CPU tensors
+(:func:`runs_plain`); for CUDA tensors they launch or raise, except inside
+:func:`plain_versions`, the explicit reference mode the kernels are held
+against on the card.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +31,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build", "library", "check", "stream_of", "dtype_code",
-           "count_launch", "launches", "reset_launches"]
+           "count_launch", "launches", "reset_launches", "runs_plain",
+           "plain_versions"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -39,6 +46,7 @@ launches: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_PLAIN_ON_CARD = False
 
 
 def count_launch(name: str) -> None:
@@ -47,6 +55,26 @@ def count_launch(name: str) -> None:
 
 def reset_launches() -> None:
     launches.clear()
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: for a CPU
+    tensor, or on any device inside :func:`plain_versions`."""
+    return t.device.type == "cpu" or _PLAIN_ON_CARD
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every kernel wrapper runs its plain PyTorch version
+    on any device: the reference a whole path's kernels are held against
+    on the card (``chip_smoke.py``). It launches nothing and counts
+    nothing."""
+    global _PLAIN_ON_CARD
+    prev, _PLAIN_ON_CARD = _PLAIN_ON_CARD, True
+    try:
+        yield
+    finally:
+        _PLAIN_ON_CARD = prev
 
 
 def _nvcc() -> str:

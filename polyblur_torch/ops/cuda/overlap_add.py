@@ -15,7 +15,8 @@ import ctypes
 
 import torch
 
-from ._build import check, count_launch, dtype_code, library, stream_of
+from ._build import (check, count_launch, dtype_code, library, runs_plain,
+                     stream_of)
 
 __all__ = ["blend_overlap_add", "blend_overlap_add_plain"]
 
@@ -66,7 +67,7 @@ def blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
     :param out_dtype: output dtype (default: the tile dtype); the blend
         always accumulates in f32
     """
-    if tiles.device.type == "cpu":
+    if runs_plain(tiles):
         return blend_overlap_add_plain(tiles, window, inv_wsum, grid_info,
                                        batch, crop, out_dtype)
     for t in (tiles, window, inv_wsum):

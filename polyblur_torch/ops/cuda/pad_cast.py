@@ -14,7 +14,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import (check, count_launch, dtype_code, library, stream_of)
+from ._build import (check, count_launch, dtype_code, library, runs_plain,
+                     stream_of)
 
 __all__ = ["edge_pad_cast", "edge_pad_cast_plain"]
 
@@ -41,7 +42,7 @@ def edge_pad_cast(x: torch.Tensor, crop_hw, pads,
     (default: the input dtype), where (h, w) = ``crop_hw`` <= (H, W) is the
     even-crop. CPU tensors take :func:`edge_pad_cast_plain`; CUDA tensors
     launch the kernel."""
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return edge_pad_cast_plain(x, crop_hw, pads, out_dtype)
     if x.device.type != "cuda" or x.dim() != 4:
         raise ValueError(f"edge_pad_cast takes a (B, C, H, W) CPU or CUDA "

@@ -1,24 +1,33 @@
-"""The per-tile stages of the patch engine: blur estimate, kernel spectrum
-and the spectral polynomial, as kernels over a tile batch.
+"""The per-tile stages of the patch engine and of the whole-image tiles
+route: blur estimate, kernel spectrum and the spectral polynomial, as
+kernels over a tile batch.
 
 Replaces the TPU mega kernel polyblur_tpu/ops/pallas/polyblur_fused.py::
-_make_kernel (blend and DMA modes). The TPU runs one program per tile with
-every intermediate in VMEM and blends its output using neighbour strips
-carried across programs that run in order. A 472 x 472 f32 canvas is
-~870 KB, far over an SM's 227 KB of shared memory, and CUDA blocks run in
-no order, so the program splits into stages over the whole tile batch with
-the intermediates in device memory (see ``pipeline.restore_tiles``):
+_make_kernel (blend, DMA and tiles modes). The TPU runs one program per
+tile with every intermediate in VMEM and blends its output using neighbour
+strips carried across programs that run in order. A 472 x 472 f32 canvas
+is ~870 KB, far over an SM's 227 KB of shared memory, and CUDA blocks run
+in no order, so the program splits into stages over the whole tile batch
+with the intermediates in device memory (see ``pipeline.restore_tiles``):
 
 * :func:`tile_estimate`  — ``csrc/estimate.cu``, 3 launches;
 * :func:`kernel_spectrum` — ``csrc/spectral.cu``, 1 launch;
 * :func:`spectral_poly`  — ``csrc/spectral.cu`` ``spectral_gemm``, 4 launches.
 
+The tiles mode (:func:`polyblur_tiles_fused`, the whole-image route for
+images of 640 px or less) runs the same stages on the image itself as one
+tile, at its own (H, W). The ``launch_*`` functions are the launches
+themselves, counted under the caller's name, so that ``fused_polynomial``
+and ``directional_maxima`` (ops/cuda/sep_poly_fused.py, est_fused.py)
+reuse these kernels with counters of their own.
+
 Each has a plain PyTorch version beside it that rounds where the kernel
 (and the TPU kernel) rounds: the state and every DFT-product operand in the
 work dtype, accumulation and spectra in f32. The plain estimate and
 spectrum are composed of the steps of ``estimation`` and ``ops.sep_poly``,
-fed with the kernels' host tables. The wrappers take the plain
-version for CPU tensors only; for CUDA tensors they launch or raise.
+fed with the kernels' host tables. The wrappers take the plain version for
+CPU tensors (and inside ``plain_versions()``); for CUDA tensors they launch
+or raise.
 """
 
 from __future__ import annotations
@@ -36,15 +45,19 @@ from ...estimation import (angle_grids, blur_direction, clamped_variances,
                            directional_maxima, normalize_range, weighted_sum)
 from ..sep_poly import (_horner_spectrum, gaussian_taps, otf_from_taps,
                         quadratic_form)
-from ..spectral_matmul import _derivative_matrix_np
+from ..spectral_matmul import _derivative_matrix_np, require_full_f32
 from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
                       _interp_weights_np, _packed_k, _tap_tables_np,
                       _ydft_mats_np)
-from ._build import check, count_launch, dtype_code, library, stream_of
+from ._build import (check, count_launch, dtype_code, library, runs_plain,
+                     stream_of)
 
-__all__ = ["TileView", "StageTables", "stage_tables", "tile_estimate",
-           "tile_estimate_plain", "kernel_spectrum", "kernel_spectrum_plain",
-           "spectral_poly", "spectral_poly_plain", "HALF"]
+__all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
+           "stage_tables", "tile_estimate", "tile_estimate_plain",
+           "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
+           "spectral_poly", "spectral_poly_plain", "polyblur_tiles_fused",
+           "launch_estimate", "launch_spectrum", "launch_spectral_gemm",
+           "HALF"]
 
 HALF = 12            # kernel half-support (ker_size 25)
 _N_EST = 8           # est row: [idx, mn, mo, sigma2, rho2, qa, qb, qc]
@@ -106,12 +119,29 @@ class TileView(NamedTuple):
 _VIEW_ARGTYPES = [_P, _L, _L, _L] + [_I] * 5
 
 
-class StageTables(NamedTuple):
-    """Constant tables of the per-tile stages for one tile size and dtype."""
+class EstimateTables(NamedTuple):
+    """Constant tables of the blur estimate for one tile size."""
     dw: torch.Tensor     # (pw, pw) f32 x-derivative
     dh: torch.Tensor     # (ph, ph) f32 y-derivative
     cs: torch.Tensor     # (7, 2) f32 cos/sin of the directional angles
     wts: torch.Tensor    # (30, 7) f32 Keys interpolation weights
+
+
+@functools.lru_cache(maxsize=8)
+def estimate_tables(ph: int, pw: int, device: str) -> EstimateTables:
+    """The estimate tables for (ph, pw) tiles on ``device`` (built once on
+    the host and cached)."""
+    angles = [k * math.pi / N_ANGLES for k in range(N_ANGLES + 1)]
+    cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
+    return EstimateTables(*(torch.tensor(a, device=device) for a in (
+        _derivative_matrix_np(pw), _derivative_matrix_np(ph), cs,
+        _interp_weights_np())))
+
+
+class StageTables(NamedTuple):
+    """Constant tables of the spectral polynomial on one canvas and dtype:
+    (ph, pw) tiles replicate-padded by ``pad`` to an (h, wc) canvas."""
+    pad: int             # pad/crop width: HALF, or 0 (canvas = the tile)
     er: torch.Tensor     # (128, kp) f32 x tap phases (cos)
     ei: torch.Tensor     # (128, kp) f32 x tap phases (-sin)
     cyt: torch.Tensor    # (h, 32) f32 y tap phases (cos)
@@ -121,33 +151,25 @@ class StageTables(NamedTuple):
     cysy: torch.Tensor   # (h, 2 h) work dtype, y-DFT pair [Cy | Sy]
 
 
-@functools.lru_cache(maxsize=8)
-def stage_tables(ph: int, pw: int, dtype: torch.dtype,
-                 device: str) -> StageTables:
-    """The tables for (ph, pw) tiles in work dtype ``dtype`` on ``device``
-    (built once on the host from ops/tables.py and cached)."""
-    h, wc = ph + 2 * HALF, pw + 2 * HALF
-    angles = [k * math.pi / N_ANGLES for k in range(N_ANGLES + 1)]
-    cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
+@functools.lru_cache(maxsize=16)
+def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
+                 pad: int = HALF) -> StageTables:
+    """The spectral tables for (ph, pw) tiles padded by ``pad`` in work
+    dtype ``dtype`` on ``device`` (built once on the host from
+    ops/tables.py and cached). The kernel taps always span 2 HALF + 1."""
+    h, wc = ph + 2 * pad, pw + 2 * pad
     er, ei, cyt, syt = _tap_tables_np(h, wc, HALF)
     fwd, inv = _dft_operands_packed(wc)
     cy, sy = _ydft_mats_np(h)
 
     def f32(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return torch.tensor(np.ascontiguousarray(a), device=device)
 
     def wd(a):
         return f32(a).to(dtype)
 
-    return StageTables(f32(_derivative_matrix_np(pw)),
-                       f32(_derivative_matrix_np(ph)), f32(cs),
-                       f32(_interp_weights_np()), f32(er), f32(ei), f32(cyt),
-                       f32(syt), wd(fwd), wd(inv),
-                       wd(np.concatenate([cy, sy], axis=1)))
-
-
-def _tables_for(view: TileView) -> StageTables:
-    return stage_tables(*view.patch, view.data.dtype, str(view.data.device))
+    return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt), wd(fwd),
+                       wd(inv), wd(np.concatenate([cy, sy], axis=1)))
 
 
 def _check_cuda(what: str, *tensors) -> None:
@@ -156,33 +178,34 @@ def _check_cuda(what: str, *tensors) -> None:
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
 
 
-def _require_full_f32(t: torch.Tensor) -> None:
-    """The plain versions are the f32 reference: on the card their f32
-    products must not run in TF32."""
-    if t.device.type == "cuda" and (
-            torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("the plain reference needs full f32 products: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False and "
-                           "float32 matmul precision 'highest'")
-
-
 # ------------------------------------------------------------- estimation
 
-def _directional_vals_plain(view: TileView) -> torch.Tensor:
-    """(n, 30) Keys-interpolated directional gradient maxima of the tiles'
-    normalized gray images (the values the blur direction is the argmin
-    of): the steps of ``estimation`` on the kernel's tables."""
-    _require_full_f32(view.data)
-    t = _tables_for(view)
+def _gray_norm_plain(view: TileView) -> torch.Tensor:
+    """(n, ph, pw) min/max-normalized gray images of the tiles: channel sum
+    times 1/C, as the estimate kernel's stage 1."""
     x = view.tiles().float()
     c = x.shape[1]
     gray = x[:, 0]
     for ch in range(1, c):
         gray = gray + x[:, ch]
-    g = normalize_range(gray * torch.tensor(1.0 / c, dtype=torch.float32))
-    return weighted_sum(t.wts, directional_maxima(g @ t.dw.T, t.dh @ g,
-                                                  t.cs))
+    return normalize_range(gray * torch.tensor(1.0 / c, dtype=torch.float32))
+
+
+def _maxima_plain(view: TileView) -> torch.Tensor:
+    """(n, 7) directional gradient maxima of the tiles' normalized gray
+    images (stages 1-2 of the estimate kernel): the steps of
+    ``estimation`` on the kernel's tables."""
+    require_full_f32(view.data)
+    t = estimate_tables(*view.patch, str(view.data.device))
+    g = _gray_norm_plain(view)
+    return directional_maxima(g @ t.dw.T, t.dh @ g, t.cs)
+
+
+def _directional_vals_plain(view: TileView) -> torch.Tensor:
+    """(n, 30) Keys-interpolated directional gradient maxima of the tiles
+    (the values the blur direction is the argmin of)."""
+    t = estimate_tables(*view.patch, str(view.data.device))
+    return weighted_sum(t.wts, _maxima_plain(view))
 
 
 def tile_estimate_plain(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
@@ -196,26 +219,23 @@ def tile_estimate_plain(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
     return torch.stack([idx.float(), mn, mo, sigma2, rho2, qa, qb, qc], 1)
 
 
-def tile_estimate(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
-    """Blind blur estimate of every tile of ``view``.
-
-    :param coeffs: (8,) f32 ``[a3, a2, a1, beta, c, b, sigma_s, sigma_r]``
-    :returns: (n, 8) f32 rows ``[idx, mn, mo, sigma2, rho2, qa, qb, qc]``:
-        the argmin angle index (theta = idx * 6 degrees), the interpolated
-        normal and orthogonal maxima, the clamped variances and the
-        kernel's quadratic form.
-    """
-    if view.data.device.type == "cpu":
-        return tile_estimate_plain(view, coeffs)
-    _check_cuda("tile_estimate", view.data, coeffs)
-    t = _tables_for(view)
+def launch_estimate(view: TileView, stages, name: str,
+                    coeffs: torch.Tensor | None = None):
+    """Launch the given stages of ``csrc/estimate.cu`` over the tiles of
+    ``view``, each counted under ``name``. Returns (maxima (n, 7) f32,
+    est (n, 8) f32); ``est`` is written by stage 3 only."""
+    _check_cuda(name, view.data)
     ph, pw = view.patch
+    t = estimate_tables(ph, pw, str(view.data.device))
     dev = view.data.device
     g = torch.empty((view.n, ph, pw), dtype=torch.float32, device=dev)
     maxima = torch.empty((view.n, N_ANGLES + 1), dtype=torch.float32,
                          device=dev)
     est = torch.empty((view.n, _N_EST), dtype=torch.float32, device=dev)
+    if coeffs is None:
+        coeffs = torch.zeros(8, dtype=torch.float32, device=dev)
     coeffs = coeffs.float().contiguous()
+    _check_cuda(name, coeffs)
     lib = library("estimate")
     fn = lib.pb_tile_estimate
     fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 8 + [_P]
@@ -225,21 +245,37 @@ def tile_estimate(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
             + [p.data_ptr() for p in (t.dw, t.dh, t.cs, t.wts, coeffs, g,
                                       maxima, est)]
             + [stream_of(view.data)])
-    for stage in (1, 2, 3):
+    for stage in stages:
         err = fn(stage, *args)
-        count_launch("tile_estimate")
-        check(lib, err, f"tile_estimate stage {stage}")
-    return est
+        count_launch(name)
+        check(lib, err, f"{name} stage {stage}")
+    return maxima, est
+
+
+def tile_estimate(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
+    """Blind blur estimate of every tile of ``view``.
+
+    :param coeffs: (8,) f32 ``[a3, a2, a1, beta, c, b, sigma_s, sigma_r]``
+    :returns: (n, 8) f32 rows ``[idx, mn, mo, sigma2, rho2, qa, qb, qc]``:
+        the argmin angle index (theta = idx * 6 degrees), the interpolated
+        normal and orthogonal maxima, the clamped variances and the
+        kernel's quadratic form.
+    """
+    if runs_plain(view.data):
+        return tile_estimate_plain(view, coeffs)
+    return launch_estimate(view, (1, 2, 3), "tile_estimate", coeffs)[1]
 
 
 # ---------------------------------------------------------- kernel spectrum
 
-def kernel_spectrum_plain(est: torch.Tensor, coeffs: torch.Tensor,
-                          tables: StageTables) -> torch.Tensor:
-    """Plain version of :func:`kernel_spectrum`."""
-    _require_full_f32(est)
+def spectrum_plain(qa, qb, qc, coeffs: torch.Tensor,
+                   tables: StageTables) -> torch.Tensor:
+    """(n, h, 2 kp) packed ``[p(K_hat) | p(K_hat)] / h`` of the kernels
+    with quadratic forms (qa, qb, qc), each (n,): the steps of
+    ``ops.sep_poly`` on the kernel's tables."""
+    require_full_f32(qa)
     h = tables.cyt.shape[0]
-    km = gaussian_taps(est[:, 5], est[:, 6], est[:, 7], HALF)
+    km = gaussian_taps(qa, qb, qc, HALF)
     khat = otf_from_taps(km, tables.er, tables.ei, tables.cyt, tables.syt)
     qhat = _horner_spectrum(khat, (coeffs[0], coeffs[1], coeffs[2],
                                    coeffs[3]))
@@ -247,43 +283,61 @@ def kernel_spectrum_plain(est: torch.Tensor, coeffs: torch.Tensor,
                                                       dtype=torch.float32)
 
 
+def kernel_spectrum_plain(est: torch.Tensor, coeffs: torch.Tensor,
+                          tables: StageTables) -> torch.Tensor:
+    """Plain version of :func:`kernel_spectrum`."""
+    return spectrum_plain(est[:, 5], est[:, 6], est[:, 7], coeffs, tables)
+
+
+def launch_spectrum(q: torch.Tensor, off: int, coeffs: torch.Tensor,
+                    tables: StageTables, name: str) -> torch.Tensor:
+    """Launch ``pb_kernel_spectrum`` on the rows of ``q`` (n, stride) f32
+    whose columns ``off .. off + 2`` hold (qa, qb, qc), counted under
+    ``name``; ``coeffs`` starts with [a3, a2, a1, beta]."""
+    _check_cuda(name, q, coeffs, tables.er)
+    n = q.shape[0]
+    h, kp = tables.cyt.shape[0], tables.er.shape[1]
+    q = q.float().contiguous()
+    coeffs = coeffs.float().contiguous()
+    if coeffs.numel() < 4 or q.dim() != 2 or q.shape[1] < off + 3:
+        raise ValueError(f"{name}: bad quadratic-form rows {tuple(q.shape)} "
+                         f"or coefficients {tuple(coeffs.shape)}")
+    qhat2 = torch.empty((n, h, 2 * kp), dtype=torch.float32, device=q.device)
+    lib = library("spectral")
+    fn = lib.pb_kernel_spectrum
+    fn.argtypes = [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P, _P]
+    fn.restype = _I
+    err = fn(q.data_ptr(), q.shape[1], off, coeffs.data_ptr(),
+             tables.er.data_ptr(), tables.ei.data_ptr(),
+             tables.cyt.data_ptr(), tables.syt.data_ptr(), n, h, kp,
+             qhat2.data_ptr(), stream_of(q))
+    count_launch(name)
+    check(lib, err, name)
+    return qhat2
+
+
 def kernel_spectrum(est: torch.Tensor, coeffs: torch.Tensor,
                     tables: StageTables) -> torch.Tensor:
     """(n, h, 2 kp) packed ``[p(K_hat) | p(K_hat)] / h`` spectra of the
     tiles' estimated kernels (``est`` from :func:`tile_estimate`)."""
-    if est.device.type == "cpu":
+    if runs_plain(est):
         return kernel_spectrum_plain(est, coeffs, tables)
-    _check_cuda("kernel_spectrum", est, coeffs, tables.er)
-    n = est.shape[0]
-    h, kp = tables.cyt.shape[0], tables.er.shape[1]
-    est = est.contiguous()
-    coeffs = coeffs.float().contiguous()
-    qhat2 = torch.empty((n, h, 2 * kp), dtype=torch.float32,
-                        device=est.device)
-    lib = library("spectral")
-    fn = lib.pb_kernel_spectrum
-    fn.argtypes = [_P] * 6 + [_I] * 3 + [_P, _P]
-    fn.restype = _I
-    err = fn(est.data_ptr(), coeffs.data_ptr(), tables.er.data_ptr(),
-             tables.ei.data_ptr(), tables.cyt.data_ptr(),
-             tables.syt.data_ptr(), n, h, kp, qhat2.data_ptr(),
-             stream_of(est))
-    count_launch("kernel_spectrum")
-    check(lib, err, "kernel_spectrum")
-    return qhat2
+    return launch_spectrum(est, 5, coeffs, tables, "kernel_spectrum")
 
 
 # ------------------------------------------------------ spectral polynomial
 
 def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
                         tables: StageTables,
-                        out: torch.Tensor | None = None) -> torch.Tensor:
+                        out: torch.Tensor | None = None,
+                        clip: bool = True) -> torch.Tensor:
     """Plain version of :func:`spectral_poly`: the same four products, each
     operand rounded to the work dtype just before its product."""
-    _require_full_f32(view.data)
+    require_full_f32(view.data)
     x = view.tiles()
     wd = x.dtype
     n, c, ph, pw = x.shape
+    p = tables.pad
     kp = qhat2.shape[-1] // 2
 
     def op(u):
@@ -295,42 +349,38 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
     sgn = torch.ones(2 * kp, dtype=torch.float32, device=x.device)
     sgn[kp:] = -1.0
     cysy = tables.cysy.float()
-    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (HALF,) * 4,
+    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (p,) * 4,
                mode="replicate")[:, 0]
     r = op(xc) @ tables.fwd.float()
     yf = cysy @ torch.cat([op(r), op(swap(r) * sgn)], 1)
-    p = (yf.reshape(n, c, *yf.shape[1:]) * qhat2[:, None]).reshape(yf.shape)
-    yi = cysy @ torch.cat([op(p), op(swap(p) * -sgn)], 1)
-    o = op(yi)[:, HALF:HALF + ph] @ tables.inv.float()[:, HALF:HALF + pw]
-    res = o.clamp(0.0, 1.0).to(wd).reshape(n, c, ph, pw)
+    pq = (yf.reshape(n, c, *yf.shape[1:]) * qhat2[:, None]).reshape(yf.shape)
+    yi = cysy @ torch.cat([op(pq), op(swap(pq) * -sgn)], 1)
+    o = op(yi)[:, p:p + ph] @ tables.inv.float()[:, p:p + pw]
+    if clip:
+        o = o.clamp(0.0, 1.0)
+    res = o.to(wd).reshape(n, c, ph, pw)
     if out is None:
         return res
     out.copy_(res)
     return out
 
 
-def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """One application of the degree-3 spectral polynomial to every tile
-    and channel: ``clip(crop(p(K) pad12(x)), 0, 1)`` in the work dtype.
-
-    :param view: the tiles x (work dtype = ``view.data.dtype``)
-    :param qhat2: (n, h, 2 kp) f32 from :func:`kernel_spectrum`
-    :param out: optional (n, C, ph, pw) destination; it may be the tensor
-        ``view`` reads (the first product consumes x before the last
-        writes).
-    """
-    if view.data.device.type == "cpu":
-        return spectral_poly_plain(view, qhat2, tables, out)
-    _check_cuda("spectral_poly", view.data, qhat2, tables.fwd)
+def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
+                         tables: StageTables, out: torch.Tensor | None,
+                         clip: bool, name: str) -> torch.Tensor:
+    """The four ``pb_spectral_gemm`` launches of one application, counted
+    under ``name``; see :func:`spectral_poly`."""
+    _check_cuda(name, view.data, qhat2, tables.fwd)
     wd = view.data.dtype
     ph, pw = view.patch
     c = view.channels
-    h, wc = ph + 2 * HALF, pw + 2 * HALF
+    pad = tables.pad
+    h, wc = ph + 2 * pad, pw + 2 * pad
     kp = _packed_k(wc)
     planes = view.n * c
-    if qhat2.shape != (view.n, h, 2 * kp) or tables.fwd.dtype != wd:
-        raise ValueError("spectral_poly: qhat2/tables do not match the tiles")
+    if (qhat2.shape != (view.n, h, 2 * kp) or tables.fwd.dtype != wd
+            or tables.fwd.shape[0] != wc):
+        raise ValueError(f"{name}: qhat2/tables do not match the tiles")
     if planes > 65535:
         raise ValueError(f"{planes} planes exceed the launch grid")
     if out is None:
@@ -338,13 +388,13 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
                           device=view.data.device)
     elif out.shape != (view.n, c, ph, pw) or out.dtype != wd \
             or not out.is_contiguous():
-        raise ValueError("spectral_poly: bad out tensor")
+        raise ValueError(f"{name}: bad out tensor")
     qhat2 = qhat2.contiguous()
     mid_a = torch.empty((planes, h, 2 * kp), dtype=wd, device=out.device)
     mid_b = torch.empty_like(mid_a)
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
-    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_P] * 5 + [_I] * 8 + [_P]
+    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_P] * 5 + [_I] * 9 + [_P]
     fn.restype = _I
     view_args = view.c_args()
     # (mode, A/B source, destination): R -> mid_a, P -> mid_b, Yi -> mid_a
@@ -353,7 +403,45 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
         err = fn(mode, dtype_code(wd), *view_args, tables.cysy.data_ptr(),
                  (tables.fwd if mode == 1 else tables.inv).data_ptr(),
                  mid.data_ptr(), dst.data_ptr(), qhat2.data_ptr(), planes, c,
-                 ph, pw, h, wc, kp, HALF, stream_of(out))
-        count_launch("spectral_gemm")
-        check(lib, err, f"spectral_gemm mode {mode}")
+                 ph, pw, h, wc, kp, pad, int(clip), stream_of(out))
+        count_launch(name)
+        check(lib, err, f"{name} mode {mode}")
     return out
+
+
+def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
+                  out: torch.Tensor | None = None,
+                  clip: bool = True) -> torch.Tensor:
+    """One application of the degree-3 spectral polynomial to every tile
+    and channel: ``clip(crop(p(K) pad(x)), 0, 1)`` in the work dtype, with
+    pad/crop width ``tables.pad``.
+
+    :param view: the tiles x (work dtype = ``view.data.dtype``)
+    :param qhat2: (n, h, 2 kp) f32 from :func:`kernel_spectrum`
+    :param out: optional (n, C, ph, pw) destination; it may be the tensor
+        ``view`` reads (the first product consumes x before the last
+        writes).
+    :param clip: clip the result to [0, 1]
+    """
+    if runs_plain(view.data):
+        return spectral_poly_plain(view, qhat2, tables, out, clip)
+    return launch_spectral_gemm(view, qhat2, tables, out, clip,
+                                "spectral_gemm")
+
+
+# ------------------------------------------------------------- tiles mode
+
+def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
+                         n_iter: int) -> torch.Tensor:
+    """N blind Polyblur iterations on a (T, C, Ht, Wt) tile batch, each
+    tile its own blur estimate (rectangles and odd sizes fine): the
+    counterpart of the TPU mega kernel's tiles mode
+    (polyblur_tpu/ops/pallas/polyblur_fused.py::polyblur_tiles_fused), run
+    as the per-tile stages above at the tiles' own shape, 8 launches per
+    iteration.
+
+    :param coeffs: (8,) f32 from ``pipeline._mega_pack``
+    """
+    from ...pipeline import restore_tiles
+
+    return restore_tiles(TileView.of_tiles(x.contiguous()), coeffs, n_iter)

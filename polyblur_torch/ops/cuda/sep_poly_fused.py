@@ -1,0 +1,90 @@
+"""The fused spectral polynomial p(K) on a plane batch with per-plane
+quadratic forms: the whole-image polynomial of ``ops.sep_poly``.
+
+Replaces polyblur_tpu/ops/pallas/sep_poly_fused.py::fused_polynomial_pallas
+(its ``_make_kernel`` at :288-337): per plane, the analytic kernel spectrum
+from three quadratic-form scalars, the degree-3 Horner polynomial, the six
+DFT products, an optional replicate pad by the kernel half-support (with
+the crop) and an optional clip to [0, 1]. The TPU holds one plane's canvas,
+spectra and tables in VMEM; here it is the patch engine's kernels of
+``csrc/spectral.cu`` (see ops/cuda/polyblur_fused.py), generalized:
+``kernel_spectrum`` reads the (N, 3) params rows directly, and the four
+``spectral_gemm`` launches take a pad/crop width of 12 or 0 and a clip
+flag. 1 + 4 launches per application, counted as ``fused_polynomial``.
+
+Callers: ``ops.sep_poly._apply_param_operator`` with the replicate pad on
+whole images up to a 664 px canvas, and ``ops.sep_poly._blocked_polynomial``
+without it on the overlap-save blocks of larger images, cut from the
+wrap-extended canvas through a :class:`TileView` (no copy).
+
+Bound on the H100: operations — ~115 M MACs per 280 x 240 block of the
+2 MP blocked route (180 planes, 20.6 G MACs per application), in f32
+plain FMA (67 TFLOP/s) or on the bf16 tensor cores.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import runs_plain
+from .polyblur_fused import (HALF, TileView, launch_spectral_gemm,
+                             launch_spectrum, spectral_poly_plain,
+                             spectrum_plain, stage_tables)
+
+__all__ = ["fused_polynomial", "fused_polynomial_plain"]
+
+
+def _view_and_tables(x, replicate_pad: bool):
+    """(view, spectral tables) of an (N, H, W) tensor (one channel per
+    plane) or a :class:`TileView`."""
+    view = x if isinstance(x, TileView) else TileView.of_tiles(
+        x.contiguous()[:, None])
+    tables = stage_tables(*view.patch, view.data.dtype, str(view.data.device),
+                          HALF if replicate_pad else 0)
+    return view, tables
+
+
+def _shape_like(out: torch.Tensor, x) -> torch.Tensor:
+    return out if isinstance(x, TileView) else out[:, 0]
+
+
+def fused_polynomial_plain(x, params: torch.Tensor, coeffs: torch.Tensor,
+                           replicate_pad: bool = False,
+                           clip: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fused_polynomial`: the spectrum of
+    ``ops.sep_poly`` and the same four products, rounded where the kernel
+    rounds."""
+    view, tables = _view_and_tables(x, replicate_pad)
+    params = params.float()
+    q2 = spectrum_plain(params[:, 0], params[:, 1], params[:, 2],
+                        coeffs.float(), tables)
+    return _shape_like(spectral_poly_plain(view, q2, tables, clip=clip), x)
+
+
+def fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
+                     replicate_pad: bool = False,
+                     clip: bool = False) -> torch.Tensor:
+    """p(K) on a plane batch.
+
+    :param x: (N, H, W) planes in the work dtype (f32 or bf16; rectangles
+        fine), or a :class:`TileView` of N tiles whose C channels share
+        their tile's params
+    :param params: (N, 3) f32 per-plane quadratic forms [a, b, c]
+        (``ops.sep_poly.gaussian_quadratic_coeffs``)
+    :param coeffs: Horner coefficients [a3, a2, a1, beta]: a (4,) vector,
+        or the first four of the (8,) ``pipeline._mega_pack`` vector
+    :param replicate_pad: pad by the kernel half-support (12) before and
+        crop after (whole images); else the canvas is the plane itself
+        (circular, the overlap-save blocks)
+    :param clip: clip the result to [0, 1]
+    :returns: same shape and dtype as ``x`` ((n, C, ph, pw) for a view)
+    """
+    view, tables = _view_and_tables(x, replicate_pad)
+    if runs_plain(view.data):
+        return fused_polynomial_plain(x, params, coeffs, replicate_pad, clip)
+    if params.shape != (view.n, 3):
+        raise ValueError(f"fused_polynomial: params {tuple(params.shape)} "
+                         f"for {view.n} planes")
+    q2 = launch_spectrum(params, 0, coeffs, tables, "fused_polynomial")
+    return _shape_like(launch_spectral_gemm(view, q2, tables, None, clip,
+                                            "fused_polynomial"), x)

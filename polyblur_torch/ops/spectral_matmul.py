@@ -17,8 +17,10 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
-__all__ = ["_derivative_matrix_np"]
+__all__ = ["_derivative_matrix_np", "derivative_matrix",
+           "fourier_gradients_matmul", "require_full_f32"]
 
 
 @lru_cache(maxsize=32)
@@ -36,3 +38,43 @@ def _derivative_matrix_np(n: int) -> np.ndarray:
     G = np.fft.ifft(np.fft.ifftshift(2.0 * np.pi * f * (1j * U), axes=0),
                     axis=0)
     return np.real(G).astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def _derivative_matrix_on(n: int, dtype: torch.dtype,
+                          device: str) -> torch.Tensor:
+    return torch.tensor(_derivative_matrix_np(n), device=device).to(dtype)
+
+
+def derivative_matrix(n: int, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """The (n, n) derivative matrix as a tensor, cached per device: the
+    whole-image estimate would otherwise copy it to the card on every
+    iteration. Callers must not write to it."""
+    return _derivative_matrix_on(n, dtype, str(torch.device(device or "cpu")))
+
+
+def require_full_f32(t: torch.Tensor) -> None:
+    """The plain f32 products are a reference: on the card they must not
+    run in TF32."""
+    if t.device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("the plain reference needs full f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False and "
+                           "float32 matmul precision 'highest'")
+
+
+def fourier_gradients_matmul(images: torch.Tensor):
+    """Exact spectral gradients via two constant-matrix products (the same
+    linear map as ``ops.fourier.fourier_gradients``), accumulated in f32.
+
+    :param images: (..., H, W)
+    :return: (grad_x, grad_y), same shape and dtype
+    """
+    require_full_f32(images)
+    h, w = images.shape[-2:]
+    x = images.float()
+    gx = x @ derivative_matrix(w, device=x.device).T
+    gy = derivative_matrix(h, device=x.device) @ x
+    return gx.to(images.dtype), gy.to(images.dtype)

@@ -9,7 +9,10 @@ overlap-add. On the card the path is the kernels of ``ops/cuda``:
                   -> blend_overlap_add
 
 Tiles are cut from the padded canvas by index (no extracted tile tensor);
-every regular grid and every batch size takes this one route.
+every regular grid and every batch size takes this one route. Methods
+other than ``'direct_separable'`` (``'fft'``) take the composed route of
+the JAX package (patches.py:479-500): extract the tiles, run
+``pipeline.polyblur_core`` on them, blend.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from .ops.cuda.overlap_add import blend_overlap_add
 from .ops.cuda.pad_cast import edge_pad_cast
 from .ops.cuda.polyblur_fused import TileView
-from .pipeline import KERNELS, StageOps, _mega_pack, restore_tiles
+from .pipeline import _mega_pack, polyblur_core, resolve_device, restore_tiles
 from .utils.imaging import build_window_np
 from .utils.profiling import record_dispatch
 
@@ -35,7 +38,7 @@ _TODO_IRREGULAR = "ROADMAP A.6 (irregular tile grids)"
 _TODO_FEATURES = ("ROADMAP B.10 (the mega kernel's feature flags: edgetaper, "
                   "halo removal, prefilter)")
 _TODO_ESTIMATE = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
-_TODO_METHODS = "ROADMAP A.4 (fft and direct restoration methods)"
+_TODO_METHODS = "ROADMAP A.8 (ops/conv.py: method='direct')"
 
 
 class PatchGrid(NamedTuple):
@@ -142,17 +145,6 @@ def overlap_add(patches: torch.Tensor, grid: PatchGrid, batch: int,
                              out_dtype)
 
 
-def _resolve_device(device) -> torch.device:
-    """The device a call runs on: CUDA unless the caller asks for another;
-    asking for (or defaulting to) CUDA without a card raises."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "polyblur_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
-    return dev
-
-
 def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         beta=3.0, sigma_r=0.8, sigma_s=2.0,
                         ker_size: int = 25, q: float = 0.0,
@@ -163,14 +155,15 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         multichannel_kernel: bool = False,
                         method: str = "direct_separable",
                         smoother: str = "bilateral", remat: bool = False):
-    """Validate the pipeline keywords against what the port runs and
-    return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r)). ``smoother``
-    only matters with prefiltering; ``remat`` is a memory knob of the JAX
-    package's autodiff and has no effect here."""
+    """Validate the staged route's keywords against what the port runs
+    and return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r)).
+    ``smoother`` only matters with prefiltering; ``remat`` is a memory knob
+    of the JAX package's autodiff and has no effect here."""
     del smoother, remat
     if method != "direct_separable":
         raise NotImplementedError(f"method={method!r}: the port runs "
-                                  f"'direct_separable'; see {_TODO_METHODS}")
+                                  f"'direct_separable' and 'fft'; see "
+                                  f"{_TODO_METHODS}")
     if remove_halo or edgetaping or prefiltering:
         raise NotImplementedError(f"see {_TODO_FEATURES}")
     if q != 0.0 or discard_saturation or multichannel_kernel:
@@ -185,9 +178,7 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
 def deblur_patches(images, patch_size=400, overlap=0.25,
                    window_type: str = "kaiser",
                    batch_size: Optional[int] = None, out_dtype=None,
-                   work_dtype=None, device=None,
-                   _ops: StageOps = KERNELS,
-                   **polyblur_kwargs) -> torch.Tensor:
+                   work_dtype=None, device=None, **polyblur_kwargs) -> torch.Tensor:
     """Whole patch path: pad -> per-tile blind deblurring -> overlap-add.
 
     :param images: (B, C, H, W) tensor or array in [0, 1]; moved to
@@ -203,16 +194,15 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         the stages (the memory ceiling of the reference's host loop);
         ``None`` or ``<= 0`` runs every tile at once
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
-        beta, ...). ``method`` is ``'direct_separable'``, the one the port
-        runs.
+        beta, ...). ``method='direct_separable'`` takes the staged route,
+        ``'fft'`` the composed one.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     x = torch.as_tensor(images, device=dev)
     if x.dim() != 4:
         raise ValueError(f"expected a (B, C, H, W) image batch, got "
                          f"{tuple(x.shape)}")
-    n_iter, params = _restoration_params(**polyblur_kwargs)
     b, c = x.shape[:2]
     grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
     reg = _grid_steps(grid)
@@ -220,23 +210,32 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         raise NotImplementedError(f"irregular tile grid {grid.patch_size} "
                                   f"over {grid.padded_size}: see "
                                   f"{_TODO_IRREGULAR}")
-    th, tw, sh, sw = reg
-    ph, pw = grid.patch_size
     wd = work_dtype or x.dtype
-    record_dispatch("deblur_patches", "staged_tiles")
-    canvas = _ops.edge_pad_cast(x, grid.orig_size, grid.pad, wd)
-    coeffs = _mega_pack(*params, device=dev)
     n_tiles = len(grid.coords)
     chunk = (n_tiles if batch_size is None or batch_size <= 0
              else min(batch_size, n_tiles))
+    if polyblur_kwargs.get("method", "direct_separable") == "fft":
+        record_dispatch("deblur_patches", "composed")
+        tiles = extract_patches(x.to(wd), grid)
+        restored = torch.cat([
+            polyblur_core(tiles[t0 * b:(t0 + chunk) * b], device=dev,
+                          **polyblur_kwargs)
+            for t0 in range(0, n_tiles, chunk)])
+        return overlap_add(restored, grid, b, window_type, out_dtype)
+    n_iter, params = _restoration_params(**polyblur_kwargs)
+    th, tw, sh, sw = reg
+    ph, pw = grid.patch_size
+    record_dispatch("deblur_patches", "staged_tiles")
+    canvas = edge_pad_cast(x, grid.orig_size, grid.pad, wd)
+    coeffs = _mega_pack(*params, device=dev)
     state = torch.empty((n_tiles * b, c, ph, pw), dtype=wd, device=dev)
     for t0 in range(0, n_tiles, chunk):
         nt = min(chunk, n_tiles - t0)
         view = TileView(canvas, b, t0, nt * b, tw, (sh, sw), (ph, pw))
-        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b],
-                      ops=_ops)
+        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b])
     window, inv_wsum = _blend_constants(grid, window_type, dev)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
-    return _ops.blend(state, window, inv_wsum, (th, tw, sh, sw, ph, pw), b,
+    return blend_overlap_add(state, window, inv_wsum,
+                             (th, tw, sh, sw, ph, pw), b,
                       (pt, pl, h, w), out_dtype)

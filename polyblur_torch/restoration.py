@@ -1,17 +1,33 @@
-"""Polynomial restoration coefficients.
+"""Non-blind restoration: the degree-3 polynomial deconvolution.
 
 With blur operator K and gains (alpha, beta) the degree-3 filter is
 
     a3 = alpha/2 - beta + 2,  a2 = 3 beta - alpha - 6,  a1 = 5 - 3 beta + alpha/2
     out = a3 K^3 u + a2 K^2 u + a1 K u + beta u            (Horner evaluated)
 
-(reference deblurring.py:113-239). The patch engine evaluates it per tile in
-the spectral kernels of ops/cuda/polyblur_fused.py.
+(reference deblurring.py:113-239; port of polyblur_tpu/restoration.py). The
+patch engine evaluates it per tile in the spectral kernels of
+ops/cuda/polyblur_fused.py; the whole-image route through
+:func:`inverse_filtering_rank3`: ``'direct_separable'`` with the
+``(sigma, rho, theta)`` parameters takes ``ops.sep_poly`` (the fused or
+blocked kernel), ``'fft'`` with the 2D kernel takes ``torch.fft``.
 """
 
 from __future__ import annotations
 
-__all__ = ["polynomial_coefficients"]
+import torch
+
+from .ops.fourier import p2o
+from .ops.sep_poly import compute_polynomial_separable
+from .utils.imaging import crop_with_kernel, pad_with_kernel
+from .utils.profiling import record_dispatch
+
+__all__ = ["polynomial_coefficients", "compute_polynomial",
+           "compute_polynomial_fft", "inverse_filtering_rank3"]
+
+_TODO_DIRECT = "ROADMAP A.8 (ops/conv.py: method='direct')"
+_TODO_FEATURES = ("ROADMAP B.10 (halo removal and edgetaper: remove_halo, "
+                  "do_edgetaper)")
 
 
 def polynomial_coefficients(alpha, beta):
@@ -19,3 +35,69 @@ def polynomial_coefficients(alpha, beta):
     a2 = 3.0 * beta - alpha - 6.0
     a1 = 5.0 - 3.0 * beta + alpha / 2.0
     return a3, a2, a1
+
+
+def compute_polynomial_fft(img: torch.Tensor, kernel: torch.Tensor, alpha,
+                           beta, not_symmetric: bool = False) -> torch.Tensor:
+    """Fourier-domain polynomial filter (deblurring.py:141-169): one fft2,
+    the kernel's OTF, three complex multiply-adds, one ifft2."""
+    h, w = img.shape[-2:]
+    Y = torch.fft.fft2(img.float())
+    K = p2o(kernel, (h, w))
+    if not_symmetric:
+        # pure-phase correction for non-symmetric kernels
+        Y = torch.conj(K) / (torch.abs(K) + 1e-8) * Y
+    a3, a2, a1 = polynomial_coefficients(alpha, beta)
+    X = a3 * Y
+    X = K * X + a2 * Y
+    X = K * X + a1 * Y
+    X = K * X + beta * Y
+    return torch.fft.ifft2(X).real.to(img.dtype)
+
+
+def compute_polynomial(img, kernel, alpha, beta, method: str = "fft",
+                       not_symmetric: bool = False, ker_size: int = 25):
+    """Backend dispatcher (deblurring.py:113-119): ``'fft'`` with a 2D
+    kernel, ``'direct_separable'`` with a ``(sigma, rho, theta)`` tuple."""
+    if method == "fft":
+        return compute_polynomial_fft(img, kernel, alpha, beta, not_symmetric)
+    if method == "direct_separable" and isinstance(kernel, (tuple, list)):
+        sigma, rho, theta = kernel
+        return compute_polynomial_separable(img, sigma, rho, theta, alpha,
+                                            beta, ker_size=ker_size)
+    if method in ("direct", "direct_separable"):
+        raise NotImplementedError(f"method={method!r} with a 2D kernel: "
+                                  f"see {_TODO_DIRECT}")
+    raise ValueError(f"{method!r} not implemented")
+
+
+def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
+                            correlate: bool = False,
+                            remove_halo: bool = False,
+                            do_edgetaper: bool = False, grad_img=None,
+                            method: str = "fft",
+                            ker_size: int = 25) -> torch.Tensor:
+    """One polynomial deconvolution step (deblurring.py:211-239):
+    replicate-pad by half the kernel support, apply p(K), crop back, clamp
+    to [0, 1]. ``ker_size`` sets the support of parametric
+    ``(sigma, rho, theta)`` kernels; 2D kernels carry their own."""
+    del grad_img  # the halo mask's input; remove_halo is not ported yet
+    if remove_halo or do_edgetaper:
+        raise NotImplementedError(f"see {_TODO_FEATURES}")
+    is_param_kernel = isinstance(kernel, (tuple, list))
+    ksize = ker_size if is_param_kernel else kernel.shape[-1]
+    fast = is_param_kernel and method == "direct_separable"
+    record_dispatch("inverse_filtering_rank3",
+                    "separable_fast" if fast else f"generic/{method}")
+    if fast:
+        # padding, crop and the final clamp are fused into the kernel
+        sigma, rho, theta = kernel
+        return compute_polynomial_separable(img, sigma, rho, theta, alpha,
+                                            beta, prepad=True, clip=True,
+                                            ker_size=ksize)
+    if correlate and not is_param_kernel:
+        kernel = torch.rot90(kernel, 2, dims=(-2, -1))
+    padded = pad_with_kernel(img, ksize=ksize)
+    imout = compute_polynomial(padded, kernel, alpha, beta, method=method,
+                               ker_size=ksize)
+    return crop_with_kernel(imout, ksize=ksize).clamp(0.0, 1.0)

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["to_tensor", "to_array", "build_window_np"]
+__all__ = ["to_tensor", "to_array", "build_window_np", "crop",
+           "pad_with_kernel", "crop_with_kernel"]
 
 
 def to_tensor(x: np.ndarray, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -31,6 +32,32 @@ def to_array(x: torch.Tensor) -> np.ndarray:
     if x.ndim == 2:
         return x
     return np.transpose(x, (1, 2, 0))
+
+
+def crop(image: torch.Tensor, new_size) -> torch.Tensor:
+    """Top-left crop to ``new_size`` where larger (filters.py:189-195)."""
+    return image[..., :int(new_size[0]), :int(new_size[1])]
+
+
+def _half_support(kernel=None, ksize: int = 3) -> int:
+    return kernel.shape[-1] // 2 if kernel is not None else ksize // 2
+
+
+def pad_with_kernel(img: torch.Tensor, kernel=None, ksize: int = 3,
+                    mode: str = "replicate") -> torch.Tensor:
+    """Replicate-pad the two spatial dims by half the kernel support
+    (utils.py:48-53); ``mode='circular'`` wraps instead."""
+    ks = _half_support(kernel, ksize)
+    out = torch.nn.functional.pad(img.reshape((-1, 1) + img.shape[-2:]),
+                                  (ks,) * 4, mode=mode)
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
+
+
+def crop_with_kernel(img: torch.Tensor, kernel=None,
+                     ksize: int = 3) -> torch.Tensor:
+    """Inverse of :func:`pad_with_kernel` (utils.py:56-61)."""
+    ks = _half_support(kernel, ksize)
+    return img[..., ks:-ks, ks:-ks]
 
 
 def _kaiser_window(n: int, beta: float = 5.0) -> np.ndarray:

@@ -9,7 +9,13 @@ XLA reference the Pallas kernel is held to):
 * spectral_poly     vs ``sep_poly._spectral2d`` (rfft2) in f32, atol 1e-5;
 * tile_estimate     vs ``gaussian_blur_estimation``: same theta index,
                     sigma and rho within 1e-5 relative;
-* blend_overlap_add vs ``patches.overlap_add``, atol 1e-6.
+* blend_overlap_add vs ``patches.overlap_add``, atol 1e-6;
+* fused_polynomial  vs ``sep_poly_fused.fused_polynomial_pallas(interpret=
+                    True)`` with and without the replicate pad and the clip,
+                    and inside ``_blocked_polynomial`` vs the JAX blocked
+                    route and ``_spectral2d``, atol 1e-5;
+* directional_maxima vs ``est_fused.directional_maxima_pallas(interpret=
+                    True)`` for C = 1 and C = 3, atol 1e-5.
 
 CUDA (``test_cuda_*``, skipped without a card): each kernel against its
 plain version on the card. They import no JAX, so on a machine without it
@@ -24,13 +30,19 @@ import numpy as np
 import pytest
 import torch
 
+from polyblur_torch.convert import params_from_jax
 from polyblur_torch.ops import cuda as pcuda
+from polyblur_torch.ops.cuda.est_fused import (directional_maxima,
+                                               directional_maxima_plain)
 from polyblur_torch.ops.cuda.overlap_add import (blend_overlap_add,
                                                  blend_overlap_add_plain)
 from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast, edge_pad_cast_plain
 from polyblur_torch.ops.cuda.polyblur_fused import (
-    TileView, kernel_spectrum, kernel_spectrum_plain, spectral_poly,
-    spectral_poly_plain, stage_tables, tile_estimate, tile_estimate_plain)
+    TileView, kernel_spectrum, kernel_spectrum_plain, polyblur_tiles_fused,
+    spectral_poly, spectral_poly_plain, stage_tables, tile_estimate,
+    tile_estimate_plain)
+from polyblur_torch.ops.cuda.sep_poly_fused import (fused_polynomial,
+                                                    fused_polynomial_plain)
 from polyblur_torch.patches import (PatchGrid, _blend_constants, _grid_steps,
                                     extract_patches, overlap_add,
                                     plan_patch_grid)
@@ -207,6 +219,88 @@ def test_blend_plain_matches_jax_overlap_add(tile_dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
+def _jax_poly_inputs(rng, n):
+    """(params (n, 3), coeffs (4,)) as the JAX package feeds its fused
+    polynomial (test_kernels.py:183-198)."""
+    import jax.numpy as jnp
+    from polyblur_tpu.ops.sep_poly import gaussian_quadratic_coeffs
+
+    sg = rng.uniform(0.5, 3.0, n).astype(np.float32)
+    rh = rng.uniform(0.4, 1.5, n).astype(np.float32)
+    th = rng.uniform(0.0, math.pi, n).astype(np.float32)
+    a, b, c = gaussian_quadratic_coeffs(jnp.asarray(sg), jnp.asarray(rh),
+                                        jnp.asarray(th))
+    return jnp.stack([a, b, c], -1), jnp.asarray([4.0, -5.0, 2.0, 1.0],
+                                                 jnp.float32)
+
+
+@pytest.mark.parametrize("replicate_pad", [False, True])
+@pytest.mark.parametrize("clip", [False, True])
+def test_fused_polynomial_plain_matches_pallas(replicate_pad, clip):
+    import jax.numpy as jnp
+    from polyblur_tpu.ops.pallas.sep_poly_fused import fused_polynomial_pallas
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(size=(3, 48, 72)).astype(np.float32)
+    params, coeffs = _jax_poly_inputs(rng, 3)
+    want = np.asarray(fused_polynomial_pallas(
+        jnp.asarray(x), params, coeffs, replicate_pad, clip, True))
+    tp, tc = params_from_jax((np.asarray(params), np.asarray(coeffs)))
+    got = fused_polynomial(torch.as_tensor(x), tp, tc, replicate_pad, clip)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    if clip:
+        assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+
+
+def test_blocked_polynomial_matches_jax_blocked_and_spectral2d():
+    """The overlap-save block grid (blocks cut from the wrap-extended
+    canvas by a TileView) against the JAX package's blocked route and the
+    whole-canvas rfft2 composition (test_kernels.py:626-648)."""
+    import jax.numpy as jnp
+    from polyblur_tpu.ops import sep_poly as jsp
+    from scipy import ndimage
+
+    from polyblur_torch.ops import sep_poly as tsp
+
+    rng = np.random.default_rng(30)
+    base = ndimage.gaussian_filter(rng.uniform(size=(300, 260)), 1.0)
+    x = np.stack([base, base[::-1]]).astype(np.float32)
+    sg, rh, th = (np.asarray(v, np.float32) for v in ([2.0, 1.2], [0.8, 1.0],
+                                                        [0.5, 2.0]))
+    a, b, c = (np.asarray(v, np.float32)
+               for v in jsp.gaussian_quadratic_coeffs(
+                   jnp.asarray(sg), jnp.asarray(rh), jnp.asarray(th)))
+    horner = (6.0 / 2 - 1.0 + 2, 3 * 1.0 - 6.0 - 6, 5 - 3 * 1.0 + 6.0 / 2, 1.0)
+    want = np.asarray(jsp._blocked_polynomial(
+        jnp.asarray(x), *(jnp.asarray(v) for v in (a, b, c)), horner, 12,
+        block=160, interpret=True))
+    ta, tb, tc = (torch.tensor(v) for v in (a, b, c))
+    got = tsp._blocked_polynomial(torch.as_tensor(x), ta, tb, tc, horner, 12,
+                                  block=160)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    ref = tsp._spectral2d(torch.as_tensor(x), ta, tb, tc, horner, 12)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_directional_maxima_plain_matches_pallas(peacock, channels):
+    import jax.numpy as jnp
+    from polyblur_tpu.ops.pallas.est_fused import directional_maxima_pallas
+
+    x = peacock[:128, :160].transpose(2, 0, 1)[None]
+    x = np.concatenate([x, peacock[200:328, 300:460].transpose(2, 0, 1)[None]])
+    if channels == 1:
+        x = x.mean(axis=1, keepdims=True)
+    x = np.ascontiguousarray(x, np.float32)
+    want = np.asarray(directional_maxima_pallas(jnp.asarray(x), n_angles=6,
+                                                interpret=True))
+    got = directional_maxima(torch.as_tensor(x))
+    assert got.shape == (2, 7) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
 # ---------------------------------------------------------------- CUDA
 
 @pytest.fixture
@@ -290,5 +384,71 @@ def test_cuda_deblur_patches_matches_cpu(cuda_dev):
               b=0.468, alpha=6.0, beta=1.0, out_dtype=torch.float32)
     got = deblur_patches(img.to(cuda_dev), device=cuda_dev, **kw).cpu()
     want = deblur_patches(img, device="cpu", **kw)
+    mse = float(((got.double() - want.double()) ** 2).mean())
+    assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 60.0
+
+
+@pytest.mark.parametrize("replicate_pad, clip, shape", [
+    (True, True, (3, 480, 640)),     # the fused whole-image route
+    (False, False, (5, 280, 240)),   # blocked-route blocks
+    (True, True, (2, 97, 141)),      # odd sizes
+])
+def test_cuda_fused_polynomial_matches_plain(cuda_dev, replicate_pad, clip,
+                                             shape):
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(shape, generator=g).to(cuda_dev)
+    a, b, c = (torch.as_tensor(v) for v in _quad_forms(
+        np.random.default_rng(7), shape[0]))
+    params = torch.stack([a, b, c], -1).to(cuda_dev)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)):
+        before = dict(pcuda.launches)
+        got = fused_polynomial(x.to(dt), params, coeffs, replicate_pad, clip)
+        assert _counts(before, "fused_polynomial") == 5
+        want = fused_polynomial_plain(x.to(dt), params, coeffs,
+                                      replicate_pad, clip)
+        assert got.dtype == dt and got.shape == shape
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_cuda_blocked_polynomial_matches_plain(cuda_dev):
+    from polyblur_torch.ops import sep_poly as tsp
+
+    x = torch.rand((2, 700, 500), generator=torch.Generator()
+                   .manual_seed(8)).to(cuda_dev)
+    a, b, c = (torch.as_tensor(v).to(cuda_dev)
+               for v in _quad_forms(np.random.default_rng(9), 2))
+    horner = tuple(float(v) for v in _mega_pack(*COEFFS)[:4])
+    got = tsp._blocked_polynomial(x, a, b, c, horner, 12)
+    with pcuda.plain_versions():
+        want = tsp._blocked_polynomial(x, a, b, c, horner, 12)
+    ref = tsp._spectral2d(x, a, b, c, horner, 12)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 480, 640), (4, 3, 481, 637)])
+def test_cuda_directional_maxima_matches_plain(cuda_dev, shape):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(10))
+    x = x.to(cuda_dev)
+    before = dict(pcuda.launches)
+    got = directional_maxima(x)
+    assert _counts(before, "directional_maxima") == 2
+    want = directional_maxima_plain(x)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+def test_cuda_tiles_mode_matches_plain(cuda_dev):
+    """The whole-image tiles route at an odd rectangle whose 2h is not a
+    multiple of 16 (h = 505, wc = 661, kp = 384)."""
+    x = torch.rand((1, 3, 481, 637), generator=torch.Generator()
+                   .manual_seed(11)).to(cuda_dev)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    before = dict(pcuda.launches)
+    got = polyblur_tiles_fused(x, coeffs, 2)
+    assert _counts(before, "tile_estimate") == 6
+    assert _counts(before, "spectral_gemm") == 8
+    with pcuda.plain_versions():
+        want = polyblur_tiles_fused(x, coeffs, 2)
     mse = float(((got.double() - want.double()) ** 2).mean())
     assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 60.0

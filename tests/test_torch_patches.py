@@ -135,12 +135,18 @@ def test_cuda_by_default_and_raises_without_it(img):
         deblur_patches(torch.as_tensor(img), **GRID, **BASE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PolyblurDeblurring(patch_decomposition=True)(img[0].transpose(1, 2, 0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polyblur_torch.polyblur_deblurring(img[0].transpose(1, 2, 0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polyblur_torch.polyblur_deblurring(torch.as_tensor(img))
 
 
 @pytest.mark.parametrize("call", [
-    lambda x: polyblur_torch.polyblur_deblurring(x),
-    lambda x: PolyblurDeblurring(device="cpu")(x),
-    lambda x: deblur_patches(x, device="cpu", method="fft"),
+    lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
+                                                 remove_halo=True),
+    lambda x: PolyblurDeblurring(device="cpu")(x, prefiltering=True),
+    lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
+                                                 method="direct"),
     lambda x: deblur_patches(x, device="cpu", edgetaping=True),
     lambda x: deblur_patches(x, device="cpu", q=0.01),
     lambda x: deblur_patches(x, device="cpu", patch_size=160, overlap=0.6),

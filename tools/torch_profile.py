@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time goes in polyblur_torch's paths on one NVIDIA GPU.
+
+Run from the repository root on a machine with a card:
+``python3 tools/torch_profile.py``. For each path (the 12 MP bf16 patch
+engine, the reference demo and the 2 MP corpus photo through the blocked
+route, a 480 x 640 crop through the tiles route and through
+``method='fft'``) it times one warm call on the host clock (ending in a
+synchronize), traces a second with ``torch.profiler`` and prints the
+device time by kernel name, the device busy time (the union of the
+kernels' intervals) and the idle share of the call. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _png(path):
+    from PIL import Image
+
+    return (np.asarray(Image.open(path))[..., :3] / 255.0).astype(np.float32)
+
+
+def _busy_ms(events) -> float:
+    """Union of the device kernels' [start, end) intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3  # us -> ms
+
+
+def profile(name, fn, top: int = 10) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms(kernels)
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time / 1e3)
+    print(f"\n== {name}: host {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1.0 - busy / wall:.3f}, {len(kernels)} kernels")
+    for k, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"   {t:9.3f} ms  {n:4d}x  {k[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import polyblur_torch as pt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}")
+    dev = torch.device("cuda")
+    kw = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
+    peacock = _png("tests/data/peacock_defocus.png")
+    photo = _png("tests/data/corpus_hr/peacock_tiled.png")
+    rng = np.random.default_rng(0)
+    big = np.tile(peacock, (7, 6, 1))[:3000, :4000]
+    big = np.clip(big + rng.normal(0, 0.005, big.shape), 0, 1)
+    img12 = torch.as_tensor(big.astype(np.float32).transpose(2, 0, 1)[None]
+                            .copy(), device=dev)
+    crop = torch.as_tensor(peacock[:480, :640].transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    profile("12 MP patch engine, bf16 (the main path)", lambda: (
+        pt.deblur_patches(img12, patch_size=448, overlap=64.0 / 448.0,
+                          work_dtype=torch.bfloat16, out_dtype=torch.float32,
+                          device=dev, method="direct_separable", **kw)))
+    profile("demo 700x500, blocked route", lambda: pt.polyblur_deblurring(
+        peacock, device=dev, **kw))
+    profile("2 MP 1600x1200, blocked route", lambda: pt.polyblur_deblurring(
+        photo, device=dev, **kw))
+    profile("480x640 tiles route, f32", lambda: pt.polyblur_deblurring(
+        crop, device=dev, **kw))
+    profile("480x640 method='fft'", lambda: pt.polyblur_deblurring(
+        crop, device=dev, method="fft", **kw))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
