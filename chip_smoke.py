@@ -29,7 +29,22 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    tiles route (f32 and bf16) and through ``method='fft'``, and the 12 MP
    image through ``method='auto'`` (the 448/384 patch engine, identical to
    the explicit ``deblur_patches`` call);
-7. prints the card line, one JSON line of kernels, and as its last line
+7. holds the feature flags' kernels against their plain versions at
+   BASELINE config 2's shapes (the 1200 x 1600 RGB photo of
+   polyblur_tpu/cli/bench_suite.py:117-120; 448 px tiles at overlap 1/7,
+   3 x 4 = 12 tiles on a 1216 x 1600 canvas): ``bilateral`` on the whole
+   image and on the tiles, ``iir_scan_rows`` (row and column passes) on the
+   whole image and on the tiles, ``dt_coeffs``, the taper (weights and
+   blends) and the halo (input gradients and mask) stages on the tiles;
+   then drives config 2 (``deblur_patches``, bf16 work dtype, taper + dt
+   prefilter + halo), 2b (the same in f32), 2c (``polyblur_core(method=
+   'fft')``), ``polyblur_deblurring`` with every flag (the bilateral
+   smoother on the scan route), and the tiles route with the full
+   bilateral set (480 x 640) and the dt set (480 x 512), each with the
+   counters zeroed just before and read just after, its route read from
+   ``dispatch_log`` and its result held against the same call with every
+   kernel's plain version on the card;
+8. prints the card line, one JSON line of kernels, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. It needs one card, the
@@ -60,6 +75,15 @@ TOL_SPEC_BF16 = 2.0 ** -7       # spectral_gemm application, bf16 out
 TOL_SPEC_F32 = 1e-4             # spectral_gemm application, f32 out
 TOL_POLY_F32 = 1e-4             # fused_polynomial, f32 (unclipped blocks)
 TOL_REL_MAXIMA = 1e-4           # directional_maxima, relative
+TOL_BILATERAL = 1e-5            # bilateral, f32 out (expf vs float64 exp)
+# the kernels compose the recurrence sequentially (rows: in chunks of 32),
+# the plain versions by a Hillis-Steele scan; it contracts (v < 1), so the
+# two stay within a few f32 ulps
+TOL_IIR = 1e-5
+TOL_DT = 1e-6                   # dt_coeffs maps in (0, 1)
+TOL_TAPER = 1e-6                # taper weights and blends, f32
+TOL_REL_GRADS = 1e-5            # halo input gradients, relative to max |g|
+TOL_HALO_BF16 = 2.0 ** -7       # halo mask, bf16 out
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -69,7 +93,14 @@ DEVICE = "cuda"
 NAMES = ("edge_pad_cast", "tile_estimate", "kernel_spectrum",
          "spectral_gemm", "blend_overlap_add")
 TILE_STAGES = ("tile_estimate", "kernel_spectrum", "spectral_gemm")
+FEATURES = ("bilateral", "iir_scan_rows", "dt_coeffs", "taper", "halo")
+DT_STAGES = ("dt_coeffs", "iir_scan_rows", "taper", "halo")
 PATH_KW = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
+# BASELINE config 2 (polyblur_tpu/cli/bench_suite.py:121-123)
+CFG2_KW = dict(PATH_KW, remove_halo=True, edgetaping=True, prefiltering=True,
+               smoother="domain_transform")
+FLAGS_KW = dict(remove_halo=True, edgetaping=True, prefiltering=True)
+BILATERAL_FLOPS_PX = 25 * 8 + 2  # per tap: sub, 2 mul, exp, 2 mul, 2 add
 SOURCES = {
     "edge_pad_cast": ("polyblur_torch/csrc/pad_cast.cu",
                       "polyblur_tpu/ops/pallas/pad_cast.py:200"),
@@ -88,6 +119,16 @@ SOURCES = {
                          "polyblur_tpu/ops/pallas/sep_poly_fused.py:364"),
     "directional_maxima": ("polyblur_torch/csrc/estimate.cu",
                            "polyblur_tpu/ops/pallas/est_fused.py:95"),
+    "bilateral": ("polyblur_torch/csrc/bilateral.cu",
+                  "polyblur_tpu/ops/pallas/bilateral.py:89"),
+    "iir_scan_rows": ("polyblur_torch/csrc/iir.cu",
+                      "polyblur_tpu/ops/pallas/iir.py:145"),
+    "dt_coeffs": ("polyblur_torch/csrc/iir.cu",
+                  "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
+    "taper": ("polyblur_torch/csrc/features.cu",
+              "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
+    "halo": ("polyblur_torch/csrc/estimate.cu",
+             "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
 }
 
 
@@ -112,6 +153,15 @@ def make_12mp_image(rng) -> np.ndarray:
     big = np.tile(peacock, reps)[:h, :w]
     big += rng.normal(0.0, 0.005, big.shape).astype(np.float32)
     return np.clip(big, 0.0, 1.0).astype(np.float32).transpose(2, 0, 1)[None]
+
+
+def make_config2_image() -> np.ndarray:
+    """bench_suite's config 2 input: the peacock tiled to 1200 x 1600,
+    (1200, 1600, 3) f32 (polyblur_tpu/cli/bench_suite.py:117-120)."""
+    peacock = load_png("tests/data/peacock_defocus.png")    # (500, 700, 3)
+    h, w = 1200, 1600
+    reps = (h // peacock.shape[0] + 1, w // peacock.shape[1] + 1, 1)
+    return np.ascontiguousarray(np.tile(peacock, reps)[:h, :w])
 
 
 def load_png(path: str) -> np.ndarray:
@@ -451,6 +501,286 @@ def whole_image_paths(dev, img12, card: str, launches: dict) -> None:
     require(same, "12 MP auto differs from the explicit deblur_patches call")
 
 
+def drive_path(name, fn, shape, routes, kernels, min_db, card, npx):
+    """One path: a counted hand run (the counters and the dispatch log
+    zeroed just before, read just after), the route and launch checks,
+    timed hand runs, and the same call with every kernel's plain version
+    on the card; returns the launch counts."""
+    import torch
+
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.utils.profiling import (dispatch_log,
+                                                reset_dispatch_log)
+
+    torch.cuda.synchronize()
+    pcuda.reset_launches()
+    reset_dispatch_log()
+    out = torch.as_tensor(fn())
+    torch.cuda.synchronize()
+    counts = dict(pcuda.launches)
+    log = dispatch_log()
+    for route in routes:
+        require(route in log, f"{name}: route {route} not taken: {log}")
+    for k in kernels:
+        require(counts.get(k, 0) > 0, f"{name}: {k} never launched "
+                                      f"({counts})")
+    require(bool(torch.isfinite(out.float()).all()),
+            f"{name}: output not finite")
+    require(tuple(out.shape) == tuple(shape), f"{name}: output shape "
+                                              f"{tuple(out.shape)}")
+    require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+            f"{name}: output outside [0, 1]")
+    ms = host_ms(fn, reps=3)
+    with pcuda.plain_versions():
+        ref = torch.as_tensor(fn())
+    p = psnr(out.float().cpu(), ref.float().cpu())
+    print(f"{name}: {ms:.2f} ms = {npx / 1e6 / (ms / 1e3):.2f} MP/s on "
+          f"{card}; hand vs plain {p:.2f} dB; routes {sorted(log)}; "
+          f"launches {counts}")
+    require(p >= min_db, f"{name}: PSNR {p:.2f} < {min_db}")
+    return counts
+
+
+def feature_kernels(dev, img2, report: dict) -> None:
+    """The feature flags' kernels against their plain versions at BASELINE
+    config 2's shapes; fills ``report`` with their rows."""
+    import torch
+
+    from polyblur_torch.ops.bilateral import bilateral_filter
+    from polyblur_torch.ops.cuda.bilateral import bilateral, bilateral_plain
+    from polyblur_torch.ops.cuda.features import (
+        halo_grads, halo_grads_plain, halo_mask, halo_mask_plain,
+        taper_blend, taper_blend_plain, taper_weights, taper_weights_plain)
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
+                                             scan_cols, scan_cols_plain,
+                                             scan_rows, scan_rows_plain)
+    from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        HALF, TileView, kernel_spectrum, spectral_poly, stage_tables,
+        tile_estimate)
+    from polyblur_torch.ops.domain_transform import (
+        _domain_transform_derivatives)
+    from polyblur_torch.patches import _grid_steps, plan_patch_grid
+    from polyblur_torch.pipeline import _mega_pack, _unit_horner
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    n_el = img2.numel()
+
+    # -- bilateral: the whole 2 MP image (the scan route's prefilter)
+    tv2 = TileView.of_tiles(img2)
+    out = bilateral_filter(img2)
+    err = float((out - bilateral_plain(tv2)).abs().max())
+    require(err <= TOL_BILATERAL, f"bilateral 2 MP error {err}")
+    report["bilateral"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: bilateral_filter(img2)),
+        plain_ms=cuda_ms(lambda: bilateral_plain(tv2), reps=3),
+        library_ms=None,
+        bound=bound_ms(2 * n_el * 4, n_el * BILATERAL_FLOPS_PX, "f32"))
+    print(f"bilateral[{tuple(img2.shape)} f32]: max_abs_err {err:.3e}, "
+          f"{report['bilateral']['ms']:.3f} ms")
+
+    # -- the config 2 tiles: 448 px at step 384 on the bf16 canvas
+    grid = plan_patch_grid(img2.shape[-2], img2.shape[-1], 448, 1.0 / 7.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    canvas = edge_pad_cast(img2, grid.orig_size, grid.pad, bf16)
+    view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
+    tiles_el = view.n * 3 * 448 * 448
+    s, nz = bilateral(view, out_dtype=f32, with_noise=True)
+    s_p, nz_p = bilateral_plain(view, out_dtype=f32, with_noise=True)
+    err = max(float((s - s_p).abs().max()), float((nz - nz_p).abs().max()))
+    require(err <= TOL_BILATERAL, f"bilateral tile stage error {err}")
+    bms, by = bound_ms(canvas.numel() * 2 + tiles_el * 2 * 4,
+                       tiles_el * BILATERAL_FLOPS_PX, "f32")
+    stage = dict(
+        shape=f"{view.n} x 3 x 448^2 bf16 tiles -> f32 smooth + noise",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: bilateral(view, out_dtype=f32, with_noise=True)),
+        plain_ms=cuda_ms(lambda: bilateral_plain(view, out_dtype=f32,
+                                                 with_noise=True), reps=3),
+        bound_ms=bms, bound_by=by)
+    report["bilateral"]["tile_stage"] = stage
+    print(f"bilateral[{stage['shape']}]: max_abs_err {err:.3e}, "
+          f"{stage['ms']:.3f} ms, bound {bms:.4f} ms ({by})")
+
+    # -- iir_scan_rows: one recursive-filter iteration of the 2 MP image
+    # (config 2c: sigma_s 2, sigma_r 0.8), row pass then column pass
+    dh, dv = _domain_transform_derivatives(img2, 2.0, 0.8)
+    a = math.exp(-math.sqrt(2.0) / 2.0)
+    v_h = (a ** dh.double()).float()
+    v_v = (a ** dv.double()).float()
+    rows = scan_rows(tv2, v_h)
+    err = float((rows - scan_rows_plain(tv2, v_h)).abs().max())
+    cols = scan_cols(rows.clone(), v_v)
+    err = max(err, float((cols - scan_cols_plain(rows, v_v)).abs().max()))
+    require(err <= TOL_IIR, f"iir_scan_rows 2 MP error {err}")
+    report["iir_scan_rows"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scan_cols(scan_rows(tv2, v_h), v_v)),
+        plain_ms=cuda_ms(lambda: scan_cols_plain(scan_rows_plain(tv2, v_h),
+                                                 v_v), reps=3),
+        library_ms=None,
+        bound=bound_ms((2 * n_el + v_h.numel() + v_v.numel()) * 4,
+                       12.0 * n_el, "f32"))
+    print(f"iir_scan_rows[{tuple(img2.shape)} rows + columns]: max_abs_err "
+          f"{err:.3e}, {report['iir_scan_rows']['ms']:.3f} ms")
+
+    # -- dt_coeffs and the dt stage on the tiles
+    vh, vv = dt_coeffs(view, coeffs)
+    vh_p, vv_p = dt_coeffs_plain(view, coeffs)
+    err = max(float((vh - vh_p).abs().max()), float((vv - vv_p).abs().max()))
+    require(err <= TOL_DT, f"dt_coeffs error {err}")
+    report["dt_coeffs"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: dt_coeffs(view, coeffs)),
+        plain_ms=cuda_ms(lambda: dt_coeffs_plain(view, coeffs)),
+        library_ms=None,
+        bound=bound_ms(canvas.numel() * 2 + 2 * vh.numel() * 4,
+                       6.0 * tiles_el, "f32"))
+    sm, nz = scan_cols(scan_rows(view, vh), vv, src=view)
+    sm_p, nz_p = scan_cols_plain(scan_rows_plain(view, vh), vv, src=view)
+    err = max(float((sm - sm_p).abs().max()), float((nz - nz_p).abs().max()))
+    require(err <= TOL_IIR, f"iir_scan_rows tile stage error {err}")
+    print(f"dt_coeffs[{view.n} tiles]: max_abs_err "
+          f"{report['dt_coeffs']['max_abs_err']:.3e}; iir_scan_rows "
+          f"[{view.n} x 3 x 448^2, smooth + noise]: max_abs_err {err:.3e}, "
+          f"{cuda_ms(lambda: scan_cols(scan_rows(view, vh), vv, src=view)):.3f} ms")
+
+    # -- taper: the weights and the 3 blends of one iteration on the tiles,
+    # each blend with its own K u, made as the path makes it (K applied to
+    # the previous blend)
+    est = tile_estimate(view, coeffs)
+    tabs = stage_tables(448, 448, bf16, str(dev))
+    h = wc = 448 + 2 * HALF
+    khat2 = kernel_spectrum(est, _unit_horner(str(dev)), tabs)
+    smooth = TileView.of_tiles(sm)
+    av, ah = taper_weights(est, h, wc)
+    av_p, ah_p = taper_weights_plain(est, h, wc)
+    err = max(float((av - av_p).abs().max()), float((ah - ah_p).abs().max()))
+    xc = torch.empty((view.n, 3, h, wc), dtype=f32, device=dev)
+    xc_p = torch.empty_like(xc)
+    kus, u, pad = [], smooth, HALF
+    for _ in range(3):
+        kus.append(spectral_poly(u, khat2, tabs, pad=pad, crop=0, clip=False,
+                                 out_dtype=f32))
+        taper_blend(u, pad, av, ah, kus[-1], xc)
+        u, pad = TileView.of_tiles(xc), 0
+
+    def taper(w=taper_weights, blend=taper_blend, x=xc):
+        a_v, a_h = w(est, h, wc)
+        blend(smooth, HALF, a_v, a_h, kus[0], x)
+        for ku in kus[1:]:
+            blend(TileView.of_tiles(x), 0, a_v, a_h, ku, x)
+        return x
+
+    taper()
+    taper(taper_weights_plain, taper_blend_plain, xc_p)
+    err = max(err, float((xc - xc_p).abs().max()))
+    require(err <= TOL_TAPER, f"taper error {err}")
+    planes_el = view.n * 3 * h * wc
+    report["taper"] = dict(
+        max_abs_err=err, ms=cuda_ms(taper),
+        plain_ms=cuda_ms(lambda: taper(taper_weights_plain, taper_blend_plain,
+                                       xc_p)),
+        library_ms=None,
+        # the smooth tiles and the three K u read once, xc written once
+        bound=bound_ms(tiles_el * 4 + 3 * planes_el * 4 + planes_el * 4,
+                       3 * 3.0 * planes_el, "f32"))
+    print(f"taper[{view.n} tiles, canvas {h}x{wc}, weights + 3 blends]: "
+          f"max_abs_err {err:.3e}, {report['taper']['ms']:.3f} ms")
+
+    # -- halo: the input gradients (once per call) and one mask pass
+    grads = halo_grads(view)
+    grads_p = halo_grads_plain(view)
+    gscale = float(grads_p.gx.abs().max())
+    rel = max(float((grads.gx - grads_p.gx).abs().max()),
+              float((grads.gy - grads_p.gy).abs().max())) / gscale
+    nm, nm_p = grads.part.sum(-1), grads_p.part.sum(-1)
+    rel = max(rel, float(((nm - nm_p).abs() / nm_p).max()))
+    require(rel <= TOL_REL_GRADS, f"halo gradients rel error {rel}")
+    q2 = kernel_spectrum(est, coeffs, tabs)
+    o = spectral_poly(smooth, q2, tabs, clip=False, out_dtype=f32)
+    out = torch.empty_like(o, dtype=bf16)
+    halo_mask(o, grads, smooth, nz, out)
+    ref = halo_mask_plain(o, grads, smooth, nz, torch.empty_like(out))
+    err = float((out.float() - ref.float()).abs().max())
+    require(err <= TOL_HALO_BF16, f"halo mask error {err}")
+
+    def halo(g=halo_grads, m=halo_mask):
+        return m(o, g(view), smooth, nz, out)
+
+    grad_flops = 3.0 * fft_flops(448, 448) + 4.0 * 448 * (448 // 2 + 1)
+    report["halo"] = dict(
+        max_abs_err=err, ms=cuda_ms(halo),
+        plain_ms=cuda_ms(lambda: halo(halo_grads_plain, halo_mask_plain),
+                         reps=3),
+        library_ms=None,
+        # the canvas, o, u_cmp and the noise read once, the bf16 tiles
+        # written once; the gradients are intermediates
+        bound=bound_ms(canvas.numel() * 2 + tiles_el * (4 + 4 + 4 + 2),
+                       view.n * 3 * 2 * grad_flops + 20.0 * tiles_el,
+                       "f32"))
+    print(f"halo[{view.n} x 3 x 448^2, gradients + mask, bf16 out]: grads "
+          f"rel err {rel:.3e}, mask max_abs_err {err:.3e}, "
+          f"{report['halo']['ms']:.3f} ms")
+
+
+def feature_paths(dev, img2, card: str, launches: dict) -> None:
+    """BASELINE config 2, 2b, 2c and the whole-image flag paths, each held
+    against its plain run on the card; records the feature kernels'
+    launches in ``launches``."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch.pipeline import polyblur_core
+
+    shape = tuple(img2.shape)
+    npx = shape[-2] * shape[-1]
+    staged = ("deblur_patches", "staged_tiles")
+
+    def cfg2(wd):
+        return polyblur_torch.deblur_patches(
+            img2, patch_size=448, overlap=1.0 / 7.0, work_dtype=wd,
+            out_dtype=torch.float32, device=dev, method="direct_separable",
+            **CFG2_KW)
+
+    counts = drive_path("config 2: 2 MP deblur_patches bf16, taper + dt + "
+                        "halo", lambda: cfg2(torch.bfloat16), shape,
+                        (staged,), NAMES + DT_STAGES, PSNR_BF16_DB, card, npx)
+    for k in DT_STAGES:
+        launches[k] = counts[k]
+    drive_path("config 2b: the same in f32", lambda: cfg2(torch.float32),
+               shape, (staged,), NAMES + DT_STAGES, PSNR_F32_DB, card, npx)
+    drive_path("config 2c: 2 MP polyblur_core(method='fft'), taper + dt + "
+               "halo", lambda: polyblur_core(img2, device=dev, method="fft",
+                                             **CFG2_KW), shape,
+               (("polyblur_core", "scan/fft"), ("recursive_filter", "cuda")),
+               ("iir_scan_rows",), PSNR_F32_DB, card, npx)
+    photo = img2[0].permute(1, 2, 0).cpu().numpy()
+    counts = drive_path(
+        "2 MP polyblur_deblurring, every flag (bilateral smoother), numpy",
+        lambda: polyblur_torch.polyblur_deblurring(photo, device=dev,
+                                                   **FLAGS_KW, **PATH_KW),
+        photo.shape, (("polyblur_core", "scan/direct_separable"),
+                      ("bilateral_filter", "cuda"),
+                      ("compute_polynomial_separable", "blocked")),
+        ("bilateral", "fused_polynomial"), PSNR_F32_DB, card, npx)
+    launches["bilateral"] = counts["bilateral"]
+    tiles = ("polyblur_core", "tiles")
+    crop = img2[..., :480, :640].contiguous()
+    drive_path("crop 480x640 tiles route, every flag (bilateral)",
+               lambda: polyblur_torch.polyblur_deblurring(
+                   crop, device=dev, method="direct_separable", **FLAGS_KW,
+                   **PATH_KW), crop.shape, (tiles,),
+               TILE_STAGES + ("bilateral", "taper", "halo"), PSNR_F32_DB,
+               card, 480 * 640)
+    crop = img2[..., :480, :512].contiguous()
+    drive_path("crop 480x512 tiles route, every flag (dt, at its cap)",
+               lambda: polyblur_core(crop, device=dev,
+                                     method="direct_separable", **CFG2_KW),
+               crop.shape, (tiles,), TILE_STAGES + DT_STAGES, PSNR_F32_DB,
+               card, 480 * 512)
+
+
 def main() -> int:
     import torch
 
@@ -473,6 +803,7 @@ def main() -> int:
                                         plan_patch_grid)
     from polyblur_torch.pipeline import _mega_pack
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 reference
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -712,14 +1043,26 @@ def main() -> int:
     require(p >= PSNR_BF16_DB, f"batch-2 PSNR {p:.2f} < {PSNR_BF16_DB}")
 
     # ---------------------------------------------------------- whole image
+    print(f"[{time.perf_counter() - t_start:.1f} s] whole-image phases")
     whole_image_kernels(dev, report)
     torch.cuda.empty_cache()
     whole_image_paths(dev, img, card, launches)
 
+    # ---------------------------------------------------------- features
+    print(f"[{time.perf_counter() - t_start:.1f} s] feature-flag phases")
+    del img
+    torch.cuda.empty_cache()
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    feature_kernels(dev, img2, report)
+    torch.cuda.empty_cache()
+    feature_paths(dev, img2, card, launches)
+    print(f"[{time.perf_counter() - t_start:.1f} s] done")
+
     # ---------------------------------------------------------- report
     rows = []
     for name in NAMES + ("polyblur_tiles", "fused_polynomial",
-                         "directional_maxima"):
+                         "directional_maxima") + FEATURES:
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]
@@ -728,6 +1071,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
+        if "tile_stage" in r:
+            rows[-1]["tile_stage"] = r["tile_stage"]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

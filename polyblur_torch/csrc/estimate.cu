@@ -28,6 +28,14 @@
 // B = 1 it runs on one SM: correct, and slow at whole-image sizes (a split
 // reduction is later work).
 //
+// The same GEMM pair, with other epilogues, is the halo mask of the mega
+// kernel's do_halo flag (polyblur_fused.py:288-302, :503-512): once per
+// call the input tiles' gradients and the per-plane sum nM of
+// |grad|^2 (`pb_halo_gemm` epi 1; the TPU hoists them when they fit VMEM,
+// here they always fit device memory), then per iteration the gradients
+// of the output o fed straight into the mask, clip, noise and store
+// (epi 2), so the output gradients never leave registers.
+//
 // Bound on the H100: operations — 2 * ph^3 f32 MACs per tile in (2)
 // against the 67 TFLOP/s f32 rate (the products stay f32, as in the TPU
 // kernel's f32 estimation path); (1) and (3) are small. Design: (2) is a
@@ -102,21 +110,53 @@ constexpr int EB = 64;   // output block edge
 constexpr int EK = 16;   // k step
 constexpr int ET = 256;  // threads: 16 x 16, 4 x 4 outputs each
 
-__global__ void __launch_bounds__(ET)
-tile_est_gemm_kernel(const float* __restrict__ g, const float* __restrict__ dw,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ cs,  // (7, 2) cos, sin
-                     int ph, int pw, float* __restrict__ maxima) {
+// Epilogues of the derivative GEMM pair (gx = g Dw^T, gy = Dh g):
+//   kMaxima  the 7 directional maxima of the estimate (atomicMax per tile);
+//   kGrads   the halo mask's input gradients: gx, gy written in f32, and
+//            per block the partial sum of gx^2 + gy^2 (its plane's nM is
+//            the sum of the partials, taken in block order);
+//   kHalo    the gradient-inversion mask of the output o (the GEMM's
+//            operand): M = -(gx0 gox) - (gy0 goy), z = max(M / (nM + M +
+//            1e-12), 0), o + z (u - o), clipped to [0, 1], plus the
+//            prefilter's noise and clipped again when given, stored in the
+//            work dtype (polyblur_fused.py:503-517).
+enum Epilogue { kMaxima = 0, kGrads = 1, kHalo = 2 };
+
+struct EstGemm {
+  pb::TileView src;   // the operand planes; plane p = (p / C, p % C)
+  int C, ph, pw;
+  const float* dw;    // (pw, pw)
+  const float* dh;    // (ph, ph)
+  const float* cs;    // kMaxima: (7, 2) cos, sin
+  float* maxima;      // kMaxima: (n, 7)
+  float* gx;          // kGrads: (planes, ph, pw) out; kHalo: gx0 in
+  float* gy;          //   "  gy0
+  float* part;        // kGrads: (planes, nblk) out; kHalo: in
+  pb::TileView ucmp;  // kHalo: the unfiltered planes u
+  int ucmp_dtype;
+  const float* noise; // kHalo: (planes, ph, pw) f32 or null
+  void* out;          // kHalo: (planes, ph, pw) in out_dtype
+  int out_dtype;
+};
+
+template <int EPI, typename S>
+__global__ void __launch_bounds__(ET) tile_est_gemm_kernel(EstGemm p) {
   // transposed A tiles padded to EB + 1 columns: conflict-free stores
   __shared__ float Ag[EK][EB + 1];  // g[y0 + i][k]
   __shared__ float Aw[EK][EB + 1];  // Dw[x0 + j][k]   (B of gx, transposed)
   __shared__ float Ah[EK][EB + 1];  // Dh[y0 + i][k]
   __shared__ float Bg[EK][EB];      // g[k][x0 + j]    (B of gy)
   __shared__ float red[ET / 32][kAngles];
-  const int n = blockIdx.z;
+  __shared__ float s_nm;
+  const int ph = p.ph, pw = p.pw;
+  const float* __restrict__ dw = p.dw;
+  const float* __restrict__ dh = p.dh;
+  const int pl = blockIdx.z;
+  const int n = pl / p.C, c = pl - (pl / p.C) * p.C;
   const int y0 = blockIdx.y * EB, x0 = blockIdx.x * EB;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* gt = g + (long long)n * ph * pw;
+  const S* gt = static_cast<const S*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+  const long long sR = p.src.sR;
   float ax[4][4], ay[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -129,12 +169,13 @@ tile_est_gemm_kernel(const float* __restrict__ g, const float* __restrict__ dw,
       const int e = tid + q * ET;
       const int r = e / EK, kk = e % EK, k = k0 + kk;
       const int yi = y0 + r, xj = x0 + r;
-      Ag[kk][r] = (yi < ph && k < pw) ? gt[(long long)yi * pw + k] : 0.f;
+      Ag[kk][r] =
+          (yi < ph && k < pw) ? pb::to_f32(gt[(long long)yi * sR + k]) : 0.f;
       Aw[kk][r] = (xj < pw && k < pw) ? dw[(long long)xj * pw + k] : 0.f;
       Ah[kk][r] = (yi < ph && k < ph) ? dh[(long long)yi * ph + k] : 0.f;
       const int kr = k0 + e / EB, cj = x0 + e % EB;
       Bg[e / EB][e % EB] =
-          (kr < ph && cj < pw) ? gt[(long long)kr * pw + cj] : 0.f;
+          (kr < ph && cj < pw) ? pb::to_f32(gt[(long long)kr * sR + cj]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -157,6 +198,76 @@ tile_est_gemm_kernel(const float* __restrict__ g, const float* __restrict__ dw,
     }
     __syncthreads();
   }
+  const int warp = tid / 32, lane = tid % 32;
+  const long long plane = (long long)pl * ph * pw;
+  if (EPI == kGrads) {
+    float part = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int y = y0 + ty + 16 * r, x = x0 + tx + 16 * s;
+        if (y < ph && x < pw) {
+          const long long o = plane + (long long)y * pw + x;
+          p.gx[o] = ax[r][s];
+          p.gy[o] = ay[r][s];
+          part = __fadd_rn(part, __fadd_rn(__fmul_rn(ax[r][s], ax[r][s]),
+                                           __fmul_rn(ay[r][s], ay[r][s])));
+        }
+      }
+    for (int o = 16; o > 0; o >>= 1)
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    if (lane == 0) red[warp][0] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float v = 0.f;
+      for (int w = 0; w < ET / 32; ++w) v = __fadd_rn(v, red[w][0]);
+      const int nblk = gridDim.x * gridDim.y;
+      p.part[(long long)pl * nblk + blockIdx.y * gridDim.x + blockIdx.x] = v;
+    }
+    return;
+  }
+  if (EPI == kHalo) {
+    if (tid == 0) {
+      const int nblk = gridDim.x * gridDim.y;
+      float v = 0.f;
+      for (int b = 0; b < nblk; ++b)
+        v = __fadd_rn(v, p.part[(long long)pl * nblk + b]);
+      s_nm = v;
+    }
+    __syncthreads();
+    const float nm = s_nm;
+    const long long ub = p.ucmp.offset(n, c, 0, 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int y = y0 + ty + 16 * r, x = x0 + tx + 16 * s;
+        if (y < ph && x < pw) {
+          const long long o = plane + (long long)y * pw + x;
+          const float M = __fsub_rn(-__fmul_rn(p.gx[o], ax[r][s]),
+                                    __fmul_rn(p.gy[o], ay[r][s]));
+          const float z = fmaxf(
+              __fdiv_rn(M, __fadd_rn(__fadd_rn(nm, M), 1e-12f)), 0.f);
+          const float ov = pb::to_f32(gt[(long long)y * sR + x]);
+          const long long uo = ub + (long long)y * p.ucmp.sR + x;
+          const float u =
+              p.ucmp_dtype == pb::kBF16
+                  ? pb::to_f32(static_cast<const pb::bf16*>(p.ucmp.ptr)[uo])
+                  : static_cast<const float*>(p.ucmp.ptr)[uo];
+          float v = __fadd_rn(ov, __fmul_rn(z, __fsub_rn(u, ov)));
+          v = fminf(fmaxf(v, 0.f), 1.f);
+          if (p.noise != nullptr)
+            v = fminf(fmaxf(__fadd_rn(v, p.noise[o]), 0.f), 1.f);
+          if (p.out_dtype == pb::kBF16)
+            static_cast<pb::bf16*>(p.out)[o] = pb::from_f32<pb::bf16>(v);
+          else
+            static_cast<float*>(p.out)[o] = v;
+        }
+      }
+    return;
+  }
+  const float* __restrict__ cs = p.cs;
   float m[kAngles];
 #pragma unroll
   for (int a = 0; a < kAngles; ++a) m[a] = 0.f;
@@ -173,7 +284,6 @@ tile_est_gemm_kernel(const float* __restrict__ g, const float* __restrict__ dw,
         }
       }
     }
-  const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
   for (int a = 0; a < kAngles; ++a) {
     float v = m[a];
@@ -186,7 +296,7 @@ tile_est_gemm_kernel(const float* __restrict__ g, const float* __restrict__ dw,
     float v = 0.f;
     for (int w = 0; w < ET / 32; ++w) v = fmaxf(v, red[w][tid]);
     // non-negative floats order like their bit patterns
-    atomicMax(reinterpret_cast<int*>(maxima) + n * kAngles + tid,
+    atomicMax(reinterpret_cast<int*>(p.maxima) + pl * kAngles + tid,
               __float_as_int(v));
   }
 }
@@ -263,10 +373,77 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
     else
       return static_cast<int>(cudaErrorInvalidValue);
   } else if (stage == 2) {
+    EstGemm p = {};
+    // the normalized gray scratch as n one-channel tiles
+    p.src = pb::make_view(g, (long long)ph * pw, (long long)ph * pw, pw, n, 0,
+                          1, 0, 0);
+    p.C = 1;
+    p.ph = ph;
+    p.pw = pw;
+    p.dw = dw;
+    p.dh = dh;
+    p.cs = cs;
+    p.maxima = maxima;
     dim3 grid((pw + EB - 1) / EB, (ph + EB - 1) / EB, n);
-    tile_est_gemm_kernel<<<grid, ET, 0, s>>>(g, dw, dh, cs, ph, pw, maxima);
+    tile_est_gemm_kernel<kMaxima, float><<<grid, ET, 0, s>>>(p);
   } else if (stage == 3) {
     tile_est_final_kernel<<<n, 32, 0, s>>>(maxima, wts, coeffs, n, est);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The halo mask's derivative GEMM pair over the n C planes of a TileView
+// (dtype `dtype`): epi 1 writes the input gradients gx, gy ((n C, ph, pw)
+// f32) and the per-block partial sums `part` ((n C, nblk) f32, nblk the
+// blocks per plane); epi 2 reads them back with the f32 output o as the
+// operand (dtype f32), the unfiltered planes u (a TileView in
+// `ucmp_dtype`) and the optional noise ((n C, ph, pw) f32), and writes the
+// masked, clipped planes to `out` ((n C, ph, pw) in `out_dtype`).
+extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
+                            long long sC, long long sR, int batch, int tile0,
+                            int tiles_w, int step_h, int step_w, int n, int C,
+                            int ph, int pw, const float* dw, const float* dh,
+                            float* gx, float* gy, float* part,
+                            int ucmp_dtype, const void* uptr, long long usB,
+                            long long usC, long long usR, int ubatch,
+                            int utile0, int utiles_w, int ustep_h,
+                            int ustep_w, const float* noise, void* out,
+                            int out_dtype,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)n * C > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  EstGemm p = {};
+  p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
+                        step_w);
+  p.C = C;
+  p.ph = ph;
+  p.pw = pw;
+  p.dw = dw;
+  p.dh = dh;
+  p.gx = gx;
+  p.gy = gy;
+  p.part = part;
+  dim3 grid((pw + EB - 1) / EB, (ph + EB - 1) / EB, n * C);
+  if (epi == kGrads) {
+    if (dtype == pb::kBF16)
+      tile_est_gemm_kernel<kGrads, pb::bf16><<<grid, ET, 0, s>>>(p);
+    else if (dtype == pb::kF32)
+      tile_est_gemm_kernel<kGrads, float><<<grid, ET, 0, s>>>(p);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (epi == kHalo && dtype == pb::kF32) {
+    if ((ucmp_dtype != pb::kF32 && ucmp_dtype != pb::kBF16) ||
+        (out_dtype != pb::kF32 && out_dtype != pb::kBF16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.ucmp = pb::make_view(uptr, usB, usC, usR, ubatch, utile0, utiles_w,
+                           ustep_h, ustep_w);
+    p.ucmp_dtype = ucmp_dtype;
+    p.noise = noise;
+    p.out = out;
+    p.out_dtype = out_dtype;
+    tile_est_gemm_kernel<kHalo, float><<<grid, ET, 0, s>>>(p);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

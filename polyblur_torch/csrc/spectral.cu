@@ -30,7 +30,14 @@
 // the fused whole-image polynomial pad by the kernel half-support) or 0
 // (the overlap-save blocks of the blocked route, whose canvas is the block
 // itself); the clip to [0, 1] is a flag (the blocked route applies p(K)
-// unclipped and clips after reassembly).
+// unclipped and clips after reassembly). The feature flags of the mega
+// kernel (polyblur_fused.py:473-517) use the same launches: mode 1 may read
+// f32 planes (the prefilter's smooth part, the taper's canvas) and round
+// them to the work dtype as it loads them, mode 4 may write f32 (the
+// taper's blur K u, the output the halo mask reads) and add the
+// prefilter's noise after the clip, and the pad of mode 1 and the crop of
+// mode 4 are separate launch arguments (the taper pads the tile onto the
+// whole canvas, then crops the canvas back).
 // Accumulation is f32. bf16 operands run on the tensor cores (WMMA
 // m16n16k16 fragments, the mma.sync path); f32 operands run plain f32 FMA,
 // never TF32 or a bf16 split.
@@ -132,23 +139,33 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
 // ------------------------------------------------------------------- GEMM
 
 struct GemmParams {
-  pb::TileView src;     // mode 1: the tiles (canvas or state)
+  pb::TileView src;     // mode 1: the tiles (canvas, state or f32 planes)
   const void* tab_a;    // modes 2, 3: [Cy | Sy] (h, 2h)
   const void* tab_b;    // mode 1: F (wc, 2kp); mode 4: G (2kp, wc)
   const void* mid;      // modes 2, 3: R / P; mode 4: Yi — (planes, h, 2kp)
   void* dst;            // modes 1-3: (planes, h, 2kp); mode 4: (planes, ph, pw)
   const float* qhat2;   // mode 2: (n, h, 2kp)
+  const float* noise;   // mode 4: (planes, ph, pw) f32 added after the clip
   int C, ph, pw, h, wc, kp, half, clip;
   int M, N, K;
 };
+
+// IO flags, template parameters so that the plain instantiations keep
+// their loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them
+// to the work dtype on load, mode 4 writes f32 instead of the work dtype;
+// kNoise — mode 4 adds the noise plane after the clip and clips again.
+constexpr int kF32IO = 1, kNoise = 2;
 
 // Per-plane base pointers, resolved once per block.
 template <typename T>
 struct Plane {
   const T* a;
+  const float* af;      // mode 1 with f32 tiles
   const T* b;
   const float* q;
+  const float* nz;      // mode 4 noise plane
   T* d;
+  float* df;            // mode 4 with an f32 destination
 };
 
 template <int MODE, typename T>
@@ -157,29 +174,37 @@ __device__ __forceinline__ Plane<T> plane_ptrs(const GemmParams& p, int pl) {
   const int n = pl / p.C, c = pl - n * p.C;
   const long long mid_plane = (long long)p.h * 2 * p.kp;
   r.q = p.qhat2 + (long long)n * mid_plane;
+  r.af = nullptr;
+  r.nz = nullptr;
   if (MODE == 1) {
-    r.a = static_cast<const T*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+    const long long o = p.src.offset(n, c, 0, 0);
+    r.a = static_cast<const T*>(p.src.ptr) + o;
+    r.af = static_cast<const float*>(p.src.ptr) + o;
     r.b = static_cast<const T*>(p.tab_b);
   } else if (MODE == 4) {
     r.a = static_cast<const T*>(p.mid) + pl * mid_plane;
     r.b = static_cast<const T*>(p.tab_b);
+    if (p.noise != nullptr) r.nz = p.noise + pl * (long long)p.ph * p.pw;
   } else {
     r.a = static_cast<const T*>(p.tab_a);
     r.b = static_cast<const T*>(p.mid) + pl * mid_plane;
   }
-  r.d = static_cast<T*>(p.dst) +
-        pl * (MODE == 4 ? (long long)p.ph * p.pw : mid_plane);
+  const long long dplane = MODE == 4 ? (long long)p.ph * p.pw : mid_plane;
+  r.d = static_cast<T*>(p.dst) + pl * dplane;
+  r.df = static_cast<float*>(p.dst) + pl * dplane;
   return r;
 }
 
 // A(i, k), i < M, k < K
-template <int MODE, typename T>
+template <int MODE, typename T, int IO>
 __device__ __forceinline__ T load_a(const GemmParams& p, const Plane<T>& P,
                                     int i, int k) {
   if (MODE == 1) {
     const int y = min(max(i - p.half, 0), p.ph - 1);
     const int x = min(max(k - p.half, 0), p.pw - 1);
-    return P.a[(long long)y * p.src.sR + x];
+    const long long o = (long long)y * p.src.sR + x;
+    if (IO & kF32IO) return pb::from_f32<T>(P.af[o]);
+    return P.a[o];
   } else if (MODE == 4) {
     return P.a[(long long)(i + p.half) * 2 * p.kp + k];
   } else {
@@ -204,13 +229,18 @@ __device__ __forceinline__ T load_b(const GemmParams& p, const Plane<T>& P,
   }
 }
 
-template <int MODE, typename T>
+template <int MODE, typename T, int IO>
 __device__ __forceinline__ void store_c(const GemmParams& p,
                                         const Plane<T>& P, int i, int j,
                                         float acc) {
   if (MODE == 4) {
+    const long long o = (long long)i * p.pw + j;
     if (p.clip) acc = fminf(fmaxf(acc, 0.f), 1.f);
-    P.d[(long long)i * p.pw + j] = pb::from_f32<T>(acc);
+    if (IO & kNoise) acc = fminf(fmaxf(__fadd_rn(acc, P.nz[o]), 0.f), 1.f);
+    if (IO & kF32IO)
+      P.df[o] = acc;
+    else
+      P.d[o] = pb::from_f32<T>(acc);
   } else {
     const long long o = (long long)i * 2 * p.kp + j;
     if (MODE == 2) acc = __fmul_rn(P.q[o], acc);
@@ -221,7 +251,7 @@ __device__ __forceinline__ void store_c(const GemmParams& p,
 constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
 
 // bf16 operands, f32 accumulate on the tensor cores.
-template <int MODE>
+template <int MODE, int IO>
 __global__ void __launch_bounds__(NT) gemm_bf16_kernel(GemmParams p) {
   using namespace nvcuda;
   constexpr int LDA = BK + 8, LDB = BN + 8;
@@ -243,7 +273,7 @@ __global__ void __launch_bounds__(NT) gemm_bf16_kernel(GemmParams p) {
     for (int e = tid; e < BM * BK; e += NT) {
       const int i = m0 + e / BK, k = k0 + e % BK;
       As[(e / BK) * LDA + e % BK] =
-          (i < p.M && k < p.K) ? load_a<MODE, bf16>(p, P, i, k) : zero;
+          (i < p.M && k < p.K) ? load_a<MODE, bf16, IO>(p, P, i, k) : zero;
     }
 #pragma unroll 4
     for (int e = tid; e < BK * BN; e += NT) {
@@ -280,14 +310,14 @@ __global__ void __launch_bounds__(NT) gemm_bf16_kernel(GemmParams p) {
       for (int e = lane; e < 256; e += 32) {
         const int i = m0 + wm * 64 + fi * 16 + e / 16;
         const int j = n0 + wn * 32 + fj * 16 + e % 16;
-        if (i < p.M && j < p.N) store_c<MODE, bf16>(p, P, i, j, cs[e]);
+        if (i < p.M && j < p.N) store_c<MODE, bf16, IO>(p, P, i, j, cs[e]);
       }
       __syncwarp();
     }
 }
 
 // f32 operands, plain f32 FMA (no TF32): 16 x 16 threads, 8 x 8 outputs each.
-template <int MODE>
+template <int MODE, int IO>
 __global__ void __launch_bounds__(NT) gemm_f32_kernel(GemmParams p) {
   __shared__ float As[BK][BM + 1];  // transposed A: conflict-free stores
   __shared__ float Bs[BK][BN];
@@ -304,7 +334,7 @@ __global__ void __launch_bounds__(NT) gemm_f32_kernel(GemmParams p) {
     for (int e = tid; e < BM * BK; e += NT) {
       const int i = m0 + e / BK, k = k0 + e % BK;
       As[e % BK][e / BK] =
-          (i < p.M && k < p.K) ? load_a<MODE, float>(p, P, i, k) : 0.f;
+          (i < p.M && k < p.K) ? load_a<MODE, float, IO>(p, P, i, k) : 0.f;
     }
 #pragma unroll 4
     for (int e = tid; e < BK * BN; e += NT) {
@@ -333,17 +363,31 @@ __global__ void __launch_bounds__(NT) gemm_f32_kernel(GemmParams p) {
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int i = m0 + ty + 16 * r, j = n0 + tx + 16 * s;
-      if (i < p.M && j < p.N) store_c<MODE, float>(p, P, i, j, acc[r][s]);
+      if (i < p.M && j < p.N) store_c<MODE, float, IO>(p, P, i, j, acc[r][s]);
     }
 }
 
-template <int MODE>
-void launch_gemm(int dtype, const GemmParams& p, int planes, cudaStream_t s) {
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
+template <int MODE, int IO>
+void launch_io(int dtype, const GemmParams& p, dim3 grid, cudaStream_t s) {
   if (dtype == pb::kBF16)
-    gemm_bf16_kernel<MODE><<<grid, NT, 0, s>>>(p);
+    gemm_bf16_kernel<MODE, IO><<<grid, NT, 0, s>>>(p);
+  else  // f32 work dtype: the tiles and the output are f32 anyway
+    gemm_f32_kernel<MODE, IO & ~kF32IO><<<grid, NT, 0, s>>>(p);
+}
+
+// f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it
+template <int MODE>
+void launch_gemm(int dtype, bool f32io, bool noise, const GemmParams& p,
+                 int planes, cudaStream_t s) {
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
+  if (f32io && noise)
+    launch_io<MODE, kF32IO | kNoise>(dtype, p, grid, s);
+  else if (f32io)
+    launch_io<MODE, kF32IO>(dtype, p, grid, s);
+  else if (noise)
+    launch_io<MODE, kNoise>(dtype, p, grid, s);
   else
-    gemm_f32_kernel<MODE><<<grid, NT, 0, s>>>(p);
+    launch_io<MODE, 0>(dtype, p, grid, s);
 }
 
 }  // namespace
@@ -364,21 +408,29 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
 }
 
 // One of the four products of a spectral application over `planes`
-// (tile, channel) planes; see the modes above. Shapes: tiles (ph, pw),
-// canvas h = ph + 2 half, wc = pw + 2 half, packed half-spectrum kp;
-// clip != 0 clips mode 4's output to [0, 1].
+// (tile, channel) planes; see the modes above. Shapes: canvas (h, wc),
+// packed half-spectrum kp; mode 1 reads (ph, pw) tiles replicate-padded by
+// `half` (= (h - ph) / 2), mode 4 writes (ph, pw) planes cropped by `half`
+// from the canvas, so the two may differ (the taper reads the tile padded
+// and writes the whole canvas, then reads the canvas and writes the tile).
+// src_f32 (mode 1): the tiles are f32 and rounded to the work dtype on
+// load; dst_f32 (mode 4): write f32; clip != 0 clips mode 4's output to
+// [0, 1]; noise (mode 4, f32 (planes, ph, pw) or null) is then added and
+// the sum clipped again.
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
-                                int step_w, const void* tab_a,
+                                int step_w, int src_f32, const void* tab_a,
                                 const void* tab_b, const void* mid, void* dst,
-                                const float* qhat2, int planes, int C, int ph,
+                                int dst_f32, const float* qhat2,
+                                const float* noise, int planes, int C, int ph,
                                 int pw, int h, int wc, int kp, int half,
                                 int clip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != pb::kBF16 && dtype != pb::kF32)
     return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p;
+  p.noise = noise;
   p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
                         step_w);
   p.tab_a = tab_a;
@@ -397,19 +449,19 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   switch (mode) {
     case 1:
       p.M = h; p.N = 2 * kp; p.K = wc;
-      launch_gemm<1>(dtype, p, planes, s);
+      launch_gemm<1>(dtype, src_f32 != 0, false, p, planes, s);
       break;
     case 2:
       p.M = h; p.N = 2 * kp; p.K = 2 * h;
-      launch_gemm<2>(dtype, p, planes, s);
+      launch_gemm<2>(dtype, false, false, p, planes, s);
       break;
     case 3:
       p.M = h; p.N = 2 * kp; p.K = 2 * h;
-      launch_gemm<3>(dtype, p, planes, s);
+      launch_gemm<3>(dtype, false, false, p, planes, s);
       break;
     case 4:
       p.M = ph; p.N = pw; p.K = 2 * kp;
-      launch_gemm<4>(dtype, p, planes, s);
+      launch_gemm<4>(dtype, dst_f32 != 0, noise != nullptr, p, planes, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

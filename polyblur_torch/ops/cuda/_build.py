@@ -30,14 +30,15 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build", "library", "check", "stream_of", "dtype_code",
-           "count_launch", "launches", "reset_launches", "runs_plain",
-           "plain_versions"]
+__all__ = ["SOURCES", "build", "library", "check", "check_cuda", "stream_of",
+           "dtype_code", "count_launch", "launches", "reset_launches",
+           "runs_plain", "plain_versions"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "polyblur_torch"
-SOURCES = ("pad_cast", "estimate", "spectral", "blend")
+SOURCES = ("pad_cast", "estimate", "spectral", "blend", "bilateral", "iir",
+           "features")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -137,6 +138,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.pb_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
                            f"({msg})")
+
+
+def check_cuda(what: str, *tensors) -> None:
+    """Raise unless every tensor lies on a CUDA device."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -49,8 +49,8 @@ from ..spectral_matmul import _derivative_matrix_np, require_full_f32
 from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
                       _interp_weights_np, _packed_k, _tap_tables_np,
                       _ydft_mats_np)
-from ._build import (check, count_launch, dtype_code, library, runs_plain,
-                     stream_of)
+from ._build import (check, check_cuda, count_launch, dtype_code, library,
+                     runs_plain, stream_of)
 
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "stage_tables", "tile_estimate", "tile_estimate_plain",
@@ -109,14 +109,17 @@ class TileView(NamedTuple):
     def c_args(self) -> list:
         """(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h, step_w)."""
         d = self.data
-        if not d.is_contiguous():
-            raise ValueError("TileView data must be contiguous")
+        if d.dim() != 4 or d.stride(3) != 1:
+            raise ValueError("TileView data must be (B, C, H, W) with unit "
+                             "column stride")
         return [d.data_ptr(), d.stride(0), d.stride(1), d.stride(2),
                 self.batch, self.tile0, self.tiles_w, self.step[0],
                 self.step[1]]
 
 
 _VIEW_ARGTYPES = [_P, _L, _L, _L] + [_I] * 5
+#: c_args of no view (a NULL pointer the kernel does not read)
+_NULL_VIEW_ARGS = [None, 0, 0, 0, 1, 0, 1, 0, 0]
 
 
 class EstimateTables(NamedTuple):
@@ -172,12 +175,6 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
                        wd(inv), wd(np.concatenate([cy, sy], axis=1)))
 
 
-def _check_cuda(what: str, *tensors) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
-
-
 # ------------------------------------------------------------- estimation
 
 def _gray_norm_plain(view: TileView) -> torch.Tensor:
@@ -224,7 +221,7 @@ def launch_estimate(view: TileView, stages, name: str,
     """Launch the given stages of ``csrc/estimate.cu`` over the tiles of
     ``view``, each counted under ``name``. Returns (maxima (n, 7) f32,
     est (n, 8) f32); ``est`` is written by stage 3 only."""
-    _check_cuda(name, view.data)
+    check_cuda(name, view.data)
     ph, pw = view.patch
     t = estimate_tables(ph, pw, str(view.data.device))
     dev = view.data.device
@@ -235,7 +232,7 @@ def launch_estimate(view: TileView, stages, name: str,
     if coeffs is None:
         coeffs = torch.zeros(8, dtype=torch.float32, device=dev)
     coeffs = coeffs.float().contiguous()
-    _check_cuda(name, coeffs)
+    check_cuda(name, coeffs)
     lib = library("estimate")
     fn = lib.pb_tile_estimate
     fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 8 + [_P]
@@ -294,7 +291,7 @@ def launch_spectrum(q: torch.Tensor, off: int, coeffs: torch.Tensor,
     """Launch ``pb_kernel_spectrum`` on the rows of ``q`` (n, stride) f32
     whose columns ``off .. off + 2`` hold (qa, qb, qc), counted under
     ``name``; ``coeffs`` starts with [a3, a2, a1, beta]."""
-    _check_cuda(name, q, coeffs, tables.er)
+    check_cuda(name, q, coeffs, tables.er)
     n = q.shape[0]
     h, kp = tables.cyt.shape[0], tables.er.shape[1]
     q = q.float().contiguous()
@@ -327,21 +324,51 @@ def kernel_spectrum(est: torch.Tensor, coeffs: torch.Tensor,
 
 # ------------------------------------------------------ spectral polynomial
 
+class _Geometry(NamedTuple):
+    h: int               # canvas rows
+    wc: int              # canvas columns
+    pad: int             # replicate pad of the input tiles
+    crop: int            # crop of the output planes
+    wd: torch.dtype      # work dtype (the DFT operands)
+    out: tuple           # (n, C, oh, ow) of the output
+
+
+def _geometry(view: TileView, tables: StageTables, pad, crop,
+              name: str) -> _Geometry:
+    """The canvas of ``tables``, the input pad and output crop (default
+    ``tables.pad``), checked against the tiles: (h - 2 pad, wc - 2 pad)
+    must be their patch, and they must be f32 or the work dtype."""
+    h, wc = tables.cysy.shape[0], tables.fwd.shape[0]
+    pad = tables.pad if pad is None else int(pad)
+    crop = tables.pad if crop is None else int(crop)
+    wd = tables.fwd.dtype
+    if view.patch != (h - 2 * pad, wc - 2 * pad) or crop < 0 \
+            or view.data.dtype not in (wd, torch.float32):
+        raise ValueError(f"{name}: {view.patch} {view.data.dtype} tiles do "
+                         f"not match the ({h}, {wc}) {wd} canvas at pad "
+                         f"{pad}")
+    return _Geometry(h, wc, pad, crop, wd,
+                     (view.n, view.channels, h - 2 * crop, wc - 2 * crop))
+
+
 def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
                         tables: StageTables,
                         out: torch.Tensor | None = None,
-                        clip: bool = True) -> torch.Tensor:
+                        clip: bool = True, pad: int | None = None,
+                        crop: int | None = None,
+                        noise: torch.Tensor | None = None,
+                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of :func:`spectral_poly`: the same four products, each
     operand rounded to the work dtype just before its product."""
     require_full_f32(view.data)
+    g = _geometry(view, tables, pad, crop, "spectral_poly")
     x = view.tiles()
-    wd = x.dtype
     n, c, ph, pw = x.shape
-    p = tables.pad
     kp = qhat2.shape[-1] // 2
+    q, oh, ow = g.crop, g.out[2], g.out[3]
 
     def op(u):
-        return u.to(wd).float()
+        return u.to(g.wd).float()
 
     def swap(u):
         return torch.cat([u[..., kp:], u[..., :kp]], -1)
@@ -349,16 +376,18 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
     sgn = torch.ones(2 * kp, dtype=torch.float32, device=x.device)
     sgn[kp:] = -1.0
     cysy = tables.cysy.float()
-    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (p,) * 4,
+    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (g.pad,) * 4,
                mode="replicate")[:, 0]
     r = op(xc) @ tables.fwd.float()
     yf = cysy @ torch.cat([op(r), op(swap(r) * sgn)], 1)
     pq = (yf.reshape(n, c, *yf.shape[1:]) * qhat2[:, None]).reshape(yf.shape)
     yi = cysy @ torch.cat([op(pq), op(swap(pq) * -sgn)], 1)
-    o = op(yi)[:, p:p + ph] @ tables.inv.float()[:, p:p + pw]
+    o = op(yi)[:, q:q + oh] @ tables.inv.float()[:, q:q + ow]
     if clip:
         o = o.clamp(0.0, 1.0)
-    res = o.to(wd).reshape(n, c, ph, pw)
+    if noise is not None:
+        o = (o + noise.reshape(o.shape)).clamp(0.0, 1.0)
+    res = o.to(out_dtype or g.wd).reshape(g.out)
     if out is None:
         return res
     out.copy_(res)
@@ -367,81 +396,110 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
 
 def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
                          tables: StageTables, out: torch.Tensor | None,
-                         clip: bool, name: str) -> torch.Tensor:
+                         clip: bool, name: str, pad: int | None = None,
+                         crop: int | None = None,
+                         noise: torch.Tensor | None = None,
+                         out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
     """The four ``pb_spectral_gemm`` launches of one application, counted
     under ``name``; see :func:`spectral_poly`."""
-    _check_cuda(name, view.data, qhat2, tables.fwd)
-    wd = view.data.dtype
-    ph, pw = view.patch
+    check_cuda(name, view.data, qhat2, tables.fwd)
+    g = _geometry(view, tables, pad, crop, name)
     c = view.channels
-    pad = tables.pad
-    h, wc = ph + 2 * pad, pw + 2 * pad
-    kp = _packed_k(wc)
+    kp = _packed_k(g.wc)
     planes = view.n * c
-    if (qhat2.shape != (view.n, h, 2 * kp) or tables.fwd.dtype != wd
-            or tables.fwd.shape[0] != wc):
+    odt = out_dtype or g.wd
+    if qhat2.shape != (view.n, g.h, 2 * kp) or odt not in (g.wd,
+                                                            torch.float32):
         raise ValueError(f"{name}: qhat2/tables do not match the tiles")
     if planes > 65535:
         raise ValueError(f"{planes} planes exceed the launch grid")
     if out is None:
-        out = torch.empty((view.n, c, ph, pw), dtype=wd,
-                          device=view.data.device)
-    elif out.shape != (view.n, c, ph, pw) or out.dtype != wd \
-            or not out.is_contiguous():
+        out = torch.empty(g.out, dtype=odt, device=view.data.device)
+    elif out.shape != g.out or out.dtype != odt or not out.is_contiguous():
         raise ValueError(f"{name}: bad out tensor")
+    if noise is not None:
+        check_cuda(name, noise)
+        if noise.shape != g.out or noise.dtype != torch.float32 \
+                or not noise.is_contiguous():
+            raise ValueError(f"{name}: bad noise tensor")
     qhat2 = qhat2.contiguous()
-    mid_a = torch.empty((planes, h, 2 * kp), dtype=wd, device=out.device)
+    mid_a = torch.empty((planes, g.h, 2 * kp), dtype=g.wd, device=out.device)
     mid_b = torch.empty_like(mid_a)
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
-    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_P] * 5 + [_I] * 9 + [_P]
+    fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 4 + [_I]
+                   + [_P] * 2 + [_I] * 9 + [_P])
     fn.restype = _I
     view_args = view.c_args()
-    # (mode, A/B source, destination): R -> mid_a, P -> mid_b, Yi -> mid_a
-    for mode, mid, dst in ((1, mid_a, mid_a), (2, mid_a, mid_b),
-                           (3, mid_b, mid_a), (4, mid_a, out)):
-        err = fn(mode, dtype_code(wd), *view_args, tables.cysy.data_ptr(),
+    src_f32 = int(view.data.dtype == torch.float32)
+    dst_f32 = int(odt == torch.float32)
+    noise_ptr = None if noise is None else noise.data_ptr()
+    # (mode, A/B source, destination, tile size, pad or crop):
+    # R -> mid_a, P -> mid_b, Yi -> mid_a, x' -> out
+    for mode, mid, dst, (th, tw), half in (
+            (1, mid_a, mid_a, view.patch, g.pad),
+            (2, mid_a, mid_b, view.patch, g.pad),
+            (3, mid_b, mid_a, view.patch, g.pad),
+            (4, mid_a, out, g.out[2:], g.crop)):
+        err = fn(mode, dtype_code(g.wd), *view_args, src_f32,
+                 tables.cysy.data_ptr(),
                  (tables.fwd if mode == 1 else tables.inv).data_ptr(),
-                 mid.data_ptr(), dst.data_ptr(), qhat2.data_ptr(), planes, c,
-                 ph, pw, h, wc, kp, pad, int(clip), stream_of(out))
+                 mid.data_ptr(), dst.data_ptr(), dst_f32, qhat2.data_ptr(),
+                 noise_ptr, planes, c, th, tw, g.h, g.wc, kp, half,
+                 int(clip), stream_of(out))
         count_launch(name)
         check(lib, err, f"{name} mode {mode}")
     return out
 
 
 def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
-                  out: torch.Tensor | None = None,
-                  clip: bool = True) -> torch.Tensor:
-    """One application of the degree-3 spectral polynomial to every tile
-    and channel: ``clip(crop(p(K) pad(x)), 0, 1)`` in the work dtype, with
-    pad/crop width ``tables.pad``.
+                  out: torch.Tensor | None = None, clip: bool = True,
+                  pad: int | None = None, crop: int | None = None,
+                  noise: torch.Tensor | None = None,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One application of the spectral polynomial ``qhat2`` to every tile
+    and channel: ``crop(p(K) pad(x))`` on the (h, wc) canvas of ``tables``,
+    clipped to [0, 1] when ``clip``, with ``noise`` added and clipped again
+    when given, in ``out_dtype`` (default: the work dtype).
 
-    :param view: the tiles x (work dtype = ``view.data.dtype``)
+    :param view: the tiles x, in the work dtype (``tables.fwd.dtype``) or in
+        f32 (rounded to the work dtype as the first product reads them)
     :param qhat2: (n, h, 2 kp) f32 from :func:`kernel_spectrum`
-    :param out: optional (n, C, ph, pw) destination; it may be the tensor
-        ``view`` reads (the first product consumes x before the last
-        writes).
-    :param clip: clip the result to [0, 1]
+    :param out: optional destination; it may be the tensor ``view`` reads
+        (the first product consumes x before the last writes).
+    :param pad: replicate pad of the tiles onto the canvas (default
+        ``tables.pad``; 0 when the tiles are the canvas)
+    :param crop: crop of the output from the canvas (default
+        ``tables.pad``; 0 keeps the whole canvas)
+    :param noise: f32 planes of the output's shape, added after the clip
     """
     if runs_plain(view.data):
-        return spectral_poly_plain(view, qhat2, tables, out, clip)
+        return spectral_poly_plain(view, qhat2, tables, out, clip, pad, crop,
+                                   noise, out_dtype)
     return launch_spectral_gemm(view, qhat2, tables, out, clip,
-                                "spectral_gemm")
+                                "spectral_gemm", pad, crop, noise, out_dtype)
 
 
 # ------------------------------------------------------------- tiles mode
 
 def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
-                         n_iter: int) -> torch.Tensor:
+                         n_iter: int, do_taper: bool = False,
+                         do_halo: bool = False,
+                         prefilter: str | None = None) -> torch.Tensor:
     """N blind Polyblur iterations on a (T, C, Ht, Wt) tile batch, each
     tile its own blur estimate (rectangles and odd sizes fine): the
     counterpart of the TPU mega kernel's tiles mode
     (polyblur_tpu/ops/pallas/polyblur_fused.py::polyblur_tiles_fused), run
     as the per-tile stages above at the tiles' own shape, 8 launches per
-    iteration.
+    iteration without the feature flags (see ``pipeline.restore_tiles``).
 
     :param coeffs: (8,) f32 from ``pipeline._mega_pack``
+    :param do_taper, do_halo, prefilter: the feature flags (prefilter in
+        {None, 'bilateral', 'dt'})
     """
     from ...pipeline import restore_tiles
 
-    return restore_tiles(TileView.of_tiles(x.contiguous()), coeffs, n_iter)
+    return restore_tiles(TileView.of_tiles(x.contiguous()), coeffs, n_iter,
+                         do_taper=do_taper, do_halo=do_halo,
+                         prefilter=prefilter)

@@ -38,7 +38,8 @@ from .spectral_matmul import require_full_f32
 from .tables import _tap_tables_np
 
 __all__ = ["gaussian_quadratic_coeffs", "quadratic_form", "gaussian_taps",
-           "otf_from_taps", "kernel_spectrum", "compute_polynomial_separable"]
+           "otf_from_taps", "kernel_spectrum", "compute_polynomial_separable",
+           "spectral_blur"]
 
 _TODO_KER = ("ROADMAP A.3 (ker_size other than 25 on the kernels: "
              "csrc/spectral.cu has 25 taps)")
@@ -147,6 +148,17 @@ def compute_polynomial_separable(img: torch.Tensor, sigma, rho, theta,
     a1 = (5.0 - 3.0 * beta + alpha / 2.0)
     return _apply_param_operator(img, sigma, rho, theta, (a3, a2, a1, beta),
                                  prepad=prepad, clip=clip, ker_size=ker_size)
+
+
+def spectral_blur(img: torch.Tensor, sigma, rho, theta,
+                  ker_size: int = 25) -> torch.Tensor:
+    """One application of the sampled-kernel blur K — circular convolution
+    with the estimator's 2D kernel on the given canvas, the reference's
+    ``convolve2d(img, kernel, method='fft')`` — for the edgetaper blend of
+    parametric kernels: the degree-1 spectrum p(z) = z through the same
+    fused or blocked route, with no pad and no clip."""
+    return _apply_param_operator(img, sigma, rho, theta, (0.0, 0.0, 1.0, 0.0),
+                                 prepad=False, clip=False, ker_size=ker_size)
 
 
 def _clip(out: torch.Tensor, clip: bool) -> torch.Tensor:

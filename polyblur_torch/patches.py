@@ -9,10 +9,13 @@ overlap-add. On the card the path is the kernels of ``ops/cuda``:
                   -> blend_overlap_add
 
 Tiles are cut from the padded canvas by index (no extracted tile tensor);
-every regular grid and every batch size takes this one route. Methods
-other than ``'direct_separable'`` (``'fft'``) take the composed route of
-the JAX package (patches.py:479-500): extract the tiles, run
-``pipeline.polyblur_core`` on them, blend.
+every regular grid and every batch size takes this one route, with the
+feature flags (prefilter, edgetaper, halo removal) as stages of
+``pipeline.restore_tiles``. Methods other than ``'direct_separable'``
+(``'fft'``), and feature flags on tiles past the tiles route's edge
+(``pipeline.mega_tile_cap``), take the composed route of the JAX package
+(patches.py:479-500): extract the tiles, run ``pipeline.polyblur_core`` on
+them, blend.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import torch
 from .ops.cuda.overlap_add import blend_overlap_add
 from .ops.cuda.pad_cast import edge_pad_cast
 from .ops.cuda.polyblur_fused import TileView
-from .pipeline import _mega_pack, polyblur_core, resolve_device, restore_tiles
+from .pipeline import (_check_smoother, _mega_pack, mega_tile_cap,
+                       polyblur_core, prefilter_of, resolve_device,
+                       restore_tiles)
 from .utils.imaging import build_window_np
 from .utils.profiling import record_dispatch
 
@@ -35,8 +40,6 @@ __all__ = ["PatchGrid", "plan_patch_grid", "extract_patches", "overlap_add",
            "deblur_patches"]
 
 _TODO_IRREGULAR = "ROADMAP A.6 (irregular tile grids)"
-_TODO_FEATURES = ("ROADMAP B.10 (the mega kernel's feature flags: edgetaper, "
-                  "halo removal, prefilter)")
 _TODO_ESTIMATE = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
 _TODO_METHODS = "ROADMAP A.8 (ops/conv.py: method='direct')"
 
@@ -156,23 +159,28 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         method: str = "direct_separable",
                         smoother: str = "bilateral", remat: bool = False):
     """Validate the staged route's keywords against what the port runs
-    and return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r)).
-    ``smoother`` only matters with prefiltering; ``remat`` is a memory knob
-    of the JAX package's autodiff and has no effect here."""
-    del smoother, remat
+    and return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r), the
+    feature-flag keywords of ``pipeline.restore_tiles``). The prefilter is
+    ``'dt'`` for the domain-transform
+    smoother and ``'bilateral'`` otherwise (polyblur_tpu/patches.py:
+    395-403); ``remat`` is a memory knob of the JAX package's autodiff and
+    has no effect here."""
+    del remat
     if method != "direct_separable":
         raise NotImplementedError(f"method={method!r}: the port runs "
                                   f"'direct_separable' and 'fft'; see "
                                   f"{_TODO_METHODS}")
-    if remove_halo or edgetaping or prefiltering:
-        raise NotImplementedError(f"see {_TODO_FEATURES}")
     if q != 0.0 or discard_saturation or multichannel_kernel:
         raise NotImplementedError(f"see {_TODO_ESTIMATE}")
     if (ker_size, n_angles, n_interpolated_angles) != (25, 6, 30):
         raise NotImplementedError(
             "the per-tile kernels are built for ker_size=25, n_angles=6, "
             f"n_interpolated_angles=30; see {_TODO_ESTIMATE}")
-    return int(n_iter), (c, b, alpha, beta, sigma_s, sigma_r)
+    if prefiltering:
+        _check_smoother(smoother)
+    flags = dict(do_taper=bool(edgetaping), do_halo=bool(remove_halo),
+                 prefilter=prefilter_of(prefiltering, smoother))
+    return int(n_iter), (c, b, alpha, beta, sigma_s, sigma_r), flags
 
 
 def deblur_patches(images, patch_size=400, overlap=0.25,
@@ -194,8 +202,10 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         the stages (the memory ceiling of the reference's host loop);
         ``None`` or ``<= 0`` runs every tile at once
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
-        beta, ...). ``method='direct_separable'`` takes the staged route,
-        ``'fft'`` the composed one.
+        beta, remove_halo, edgetaping, prefiltering, smoother, ...).
+        ``method='direct_separable'`` takes the staged route, ``'fft'``
+        (and the feature flags on tiles past ``mega_tile_cap``) the
+        composed one.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
     dev = resolve_device(device)
@@ -214,7 +224,14 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     n_tiles = len(grid.coords)
     chunk = (n_tiles if batch_size is None or batch_size <= 0
              else min(batch_size, n_tiles))
-    if polyblur_kwargs.get("method", "direct_separable") == "fft":
+    kw = polyblur_kwargs
+    flags_on = (kw.get("remove_halo") or kw.get("edgetaping")
+                or kw.get("prefiltering"))
+    cap = mega_tile_cap(bool(kw.get("prefiltering")),
+                        kw.get("smoother", "bilateral"))
+    if (kw.get("method", "direct_separable") == "fft"
+            or (flags_on and max(grid.patch_size) > cap)):
+        # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
         tiles = extract_patches(x.to(wd), grid)
         restored = torch.cat([
@@ -222,7 +239,7 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
                           **polyblur_kwargs)
             for t0 in range(0, n_tiles, chunk)])
         return overlap_add(restored, grid, b, window_type, out_dtype)
-    n_iter, params = _restoration_params(**polyblur_kwargs)
+    n_iter, params, flags = _restoration_params(**polyblur_kwargs)
     th, tw, sh, sw = reg
     ph, pw = grid.patch_size
     record_dispatch("deblur_patches", "staged_tiles")
@@ -232,10 +249,11 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     for t0 in range(0, n_tiles, chunk):
         nt = min(chunk, n_tiles - t0)
         view = TileView(canvas, b, t0, nt * b, tw, (sh, sw), (ph, pw))
-        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b])
+        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b],
+                      **flags)
     window, inv_wsum = _blend_constants(grid, window_type, dev)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
     return blend_overlap_add(state, window, inv_wsum,
-                             (th, tw, sh, sw, ph, pw), b,
-                      (pt, pl, h, w), out_dtype)
+                             (th, tw, sh, sw, ph, pw), b, (pt, pl, h, w),
+                             out_dtype)

@@ -13,8 +13,18 @@ Two routes, dispatched as the JAX package's ``polyblur_core`` dispatches
   after every iteration, as the TPU kernel stores it. The patch engine
   runs the same loop over its tiles.
 * the scan route: every other image and method, a Python loop of the
-  whole-image estimate (``estimation.gaussian_blur_estimation``) and
-  ``restoration.inverse_filtering_rank3``.
+  whole-image estimate (``estimation.gaussian_blur_estimation``), the
+  optional edge-aware prefilter (:func:`edge_aware_filtering`) and
+  ``restoration.inverse_filtering_rank3`` (with the optional edgetaper and
+  halo masking).
+
+The feature flags run on both routes. On the tiles route they are stages
+of :func:`restore_tiles` (the counterpart of the TPU kernel's in-kernel
+flags, polyblur_fused.py:374-517): the prefilter (``bilateral`` or the
+one-iteration domain transform ``dt``), the taper (3 blends with the
+degree-1 operator), the polynomial, the halo mask and the noise, in the
+TPU kernel's order and rounding (f32 between the stages, the work dtype
+only for the DFT operands and the stored state).
 
 The routes do not depend on the device: a CPU tensor runs every kernel's
 plain version along the route the card would take.
@@ -22,22 +32,29 @@ plain version along the route the card would take.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .envelopes import MEGA_MAX_TILE, MEGA_MAX_TILE_DT
 from .estimation import gaussian_blur_estimation
-from .ops.cuda.polyblur_fused import (TileView, kernel_spectrum,
+from .ops.bilateral import bilateral_filter
+from .ops.cuda.bilateral import bilateral
+from .ops.cuda.features import (halo_grads, halo_mask, taper_blend,
+                                taper_weights)
+from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
+from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
                                       polyblur_tiles_fused, spectral_poly,
                                       stage_tables, tile_estimate)
+from .ops.domain_transform import _TODO_NC, recursive_filter
+from .ops.fourier import spectral_gradients
 from .restoration import inverse_filtering_rank3, polynomial_coefficients
 from .utils.profiling import record_dispatch
 
 __all__ = ["restore_tiles", "_mega_pack", "polyblur_core", "mega_tile_cap",
-           "resolve_device"]
+           "resolve_device", "edge_aware_filtering", "prefilter_of"]
 
-_TODO_PREFILTER = ("ROADMAP B.8-B.10 (the prefilter: bilateral and "
-                   "domain-transform smoothers)")
-_TODO_FEATURES = "ROADMAP B.10 (halo removal and edgetaper)"
+_N_TAPERS = 3
 
 
 def _mega_pack(c, b, alpha, beta, sigma_s, sigma_r,
@@ -50,16 +67,82 @@ def _mega_pack(c, b, alpha, beta, sigma_s, sigma_r,
                         dtype=torch.float32, device=device)
 
 
+def prefilter_of(prefiltering: bool, smoother: str):
+    """The tiles route's prefilter for the pipeline's keywords: None,
+    ``'dt'`` for the domain transform, else ``'bilateral'`` (as
+    polyblur_tpu/patches.py:395-403 and pipeline.py:216-218 map them)."""
+    if not prefiltering:
+        return None
+    return "dt" if smoother == "domain_transform" else "bilateral"
+
+
+@functools.lru_cache(maxsize=4)
+def _unit_horner(device: str) -> torch.Tensor:
+    """Horner coefficients (0, 0, 1, 0): the degree-1 spectrum p(z) = z."""
+    return torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=torch.float32,
+                        device=device)
+
+
+def _restore_iteration(src: TileView, est: torch.Tensor,
+                       qhat2: torch.Tensor, coeffs: torch.Tensor, tables,
+                       out: torch.Tensor, do_taper: bool, grads,
+                       prefilter) -> None:
+    """One iteration's restoration, into ``out`` (polyblur_fused.py:
+    473-517). With no flag it is one ``p(K)`` application, clipped; the
+    flags add their stages: smooth + noise from the iterate, the
+    replicate-padded smooth part tapered 3 times, ``o = crop(p(K) xc)``
+    unclipped, the halo mask against ``crop(xc)``, clip, ``+ noise``,
+    clip. Everything between the stages is f32."""
+    f32 = torch.float32
+    noise = None
+    base = src
+    if prefilter == "bilateral":
+        # the mega kernel's prefilter ignores sigma_s / sigma_r: (5, 5, 0.1)
+        smooth, noise = bilateral(src, out_dtype=f32, with_noise=True)
+        base = TileView.of_tiles(smooth)
+    elif prefilter == "dt":
+        v_h, v_v = dt_coeffs(src, coeffs)
+        smooth, noise = scan_cols(scan_rows(src, v_h), v_v, src=src)
+        base = TileView.of_tiles(smooth)
+    poly_src, pad, ucmp = base, HALF, base
+    if do_taper:
+        n, c = src.n, src.channels
+        h, wc = tables.cysy.shape[0], tables.fwd.shape[0]
+        khat2 = kernel_spectrum(est, _unit_horner(str(est.device)), tables)
+        av, ah = taper_weights(est, h, wc)
+        xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)
+        u, pad = base, HALF
+        for _ in range(_N_TAPERS):
+            ku = spectral_poly(u, khat2, tables, pad=pad, crop=0, clip=False,
+                               out_dtype=f32)
+            taper_blend(u, pad, av, ah, ku, xc)
+            u, pad = TileView.of_tiles(xc), 0
+        poly_src = u
+        ucmp = TileView.of_tiles(xc[:, :, HALF:h - HALF, HALF:wc - HALF])
+    if grads is not None:
+        o = spectral_poly(poly_src, qhat2, tables, pad=pad, clip=False,
+                          out_dtype=f32)
+        halo_mask(o, grads, ucmp, noise, out)
+    else:
+        spectral_poly(poly_src, qhat2, tables, out, pad=pad, noise=noise)
+
+
 def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
-                  out: torch.Tensor | None = None) -> torch.Tensor:
+                  out: torch.Tensor | None = None, do_taper: bool = False,
+                  do_halo: bool = False, prefilter=None) -> torch.Tensor:
     """N blind Polyblur iterations on every tile of ``tiles``.
 
     :param tiles: a :class:`TileView` (tiles cut from a canvas without a
         copy) or an (N, C, ph, pw) tile batch, in the work dtype
     :param coeffs: (8,) f32 from :func:`_mega_pack`, on the tiles' device
     :param out: optional (N, C, ph, pw) destination
+    :param do_taper, do_halo, prefilter: the feature flags (prefilter in
+        {None, 'bilateral', 'dt'}); the halo mask's input gradients come
+        from the tiles as given, once per call
     :returns: the restored (N, C, ph, pw) tiles in the work dtype
     """
+    if prefilter not in (None, "bilateral", "dt"):
+        raise ValueError(f"unknown tiles-route prefilter {prefilter!r}")
     view = tiles if isinstance(tiles, TileView) else TileView.of_tiles(tiles)
     ph, pw = view.patch
     data = view.data
@@ -70,11 +153,13 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
         out.copy_(view.tiles())
         return out
     tables = stage_tables(ph, pw, data.dtype, str(data.device))
+    grads = halo_grads(view) if do_halo else None
     src = view
     for _ in range(n_iter):
         est = tile_estimate(src, coeffs)
         qhat2 = kernel_spectrum(est, coeffs, tables)
-        spectral_poly(src, qhat2, tables, out)
+        _restore_iteration(src, est, qhat2, coeffs, tables, out, do_taper,
+                           grads, prefilter)
         src = TileView.of_tiles(out)
     return out
 
@@ -113,6 +198,29 @@ def _mega_static_ok(method, discard_saturation, multichannel_kernel,
             and max(h, w) <= cap)
 
 
+def _check_smoother(smoother: str) -> None:
+    if smoother == "nc":
+        raise NotImplementedError(f"smoother='nc': see {_TODO_NC}")
+    if smoother not in ("bilateral", "domain_transform"):
+        raise ValueError(f"unknown smoother {smoother!r}")
+
+
+def edge_aware_filtering(img: torch.Tensor, sigma_s, sigma_r,
+                         smoother: str = "bilateral"):
+    """Split an image into smooth + noise components (deblurring.py:99-110):
+    the bilateral filter (5 x 5, sigma_spatial 5, sigma_color 0.1 — it does
+    not read sigma_s / sigma_r) or one iteration of the domain transform's
+    recursive filter. The normalized-convolution smoother (``'nc'``) is not
+    ported."""
+    _check_smoother(smoother)
+    if smoother == "bilateral":
+        smooth = bilateral_filter(img)
+    else:
+        smooth = recursive_filter(img, sigma_s=sigma_s, sigma_r=sigma_r,
+                                  num_iterations=1)
+    return smooth, img - smooth
+
+
 def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                   beta=3.0, sigma_r=0.8, sigma_s=2.0, ker_size: int = 25,
                   q: float = 0.0, n_angles: int = 6,
@@ -124,8 +232,11 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                   _disable_mega: bool = False, device=None) -> torch.Tensor:
     """Blind deblurring of a batch of whole images (deblurring.py:23-96,
     same defaults): per iteration, re-estimate the anisotropic Gaussian
-    blur from the current prediction, apply the degree-3 polynomial
-    inverse filter, clip.
+    blur from the current prediction, optionally split off the noise
+    (``prefiltering`` with ``smoother``), apply the degree-3 polynomial
+    inverse filter (optionally edge-tapered, ``edgetaping``, and
+    halo-masked, ``remove_halo``, against gradients of the original input
+    computed once), add the noise back, clip.
 
     :param img: (B, C, H, W) tensor or array in [0, 1], moved to ``device``
         (default ``"cuda"``; raises without a card — pass ``"cpu"`` for
@@ -140,17 +251,20 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
         raise ValueError(f"expected a (B, C, H, W) image batch, got "
                          f"{tuple(x.shape)}")
     if prefiltering:
-        raise NotImplementedError(f"prefiltering: see {_TODO_PREFILTER}")
-    if remove_halo or edgetaping:
-        raise NotImplementedError(f"see {_TODO_FEATURES}")
+        _check_smoother(smoother)
     if _mega_static_ok(method, discard_saturation, multichannel_kernel,
                        prefiltering, smoother, q, ker_size, n_angles,
                        n_interpolated_angles, x.shape[-2], x.shape[-1],
                        disable=_disable_mega):
         record_dispatch("polyblur_core", "tiles")
         coeffs = _mega_pack(c, b, alpha, beta, sigma_s, sigma_r, device=dev)
-        return polyblur_tiles_fused(x, coeffs, n_iter)
+        return polyblur_tiles_fused(x, coeffs, n_iter, do_taper=edgetaping,
+                                    do_halo=remove_halo,
+                                    prefilter=prefilter_of(prefiltering,
+                                                           smoother))
     record_dispatch("polyblur_core", f"scan/{method}")
+    grad_img = spectral_gradients(x) if remove_halo else None
+    features = prefiltering or remove_halo or edgetaping
     impred = x
     for _ in range(int(n_iter)):
         kernel = gaussian_blur_estimation(
@@ -159,9 +273,18 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
             discard_saturation=discard_saturation,
             multichannel=multichannel_kernel,
             return_2d_filters=method != "direct_separable")
-        impred = inverse_filtering_rank3(impred, kernel, alpha=alpha,
-                                         beta=beta, method=method,
-                                         ker_size=ker_size)
+        noise = None
+        if prefiltering:
+            impred, noise = edge_aware_filtering(impred, sigma_s, sigma_r,
+                                                 smoother=smoother)
+        restored = inverse_filtering_rank3(
+            impred, kernel, alpha=alpha, beta=beta, remove_halo=remove_halo,
+            do_edgetaper=edgetaping, grad_img=grad_img, method=method,
+            ker_size=ker_size)
+        if noise is not None:
+            restored = restored + noise
         # inverse_filtering_rank3 clamps to [0, 1] on every route (the
-        # separable route inside its kernel)
+        # separable route inside its kernel); the noise and the features
+        # take one more clip (pipeline.py:254-258)
+        impred = restored.clamp(0.0, 1.0) if features else restored
     return impred

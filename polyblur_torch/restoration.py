@@ -10,24 +10,26 @@ patch engine evaluates it per tile in the spectral kernels of
 ops/cuda/polyblur_fused.py; the whole-image route through
 :func:`inverse_filtering_rank3`: ``'direct_separable'`` with the
 ``(sigma, rho, theta)`` parameters takes ``ops.sep_poly`` (the fused or
-blocked kernel), ``'fft'`` with the 2D kernel takes ``torch.fft``.
+blocked kernel), ``'fft'`` with the 2D kernel takes ``torch.fft``; the
+optional edgetaper (``edgetaper.py``) and halo masking
+(:func:`halo_masking`) wrap it as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ops.fourier import p2o
+from . import edgetaper as _edgetaper
+from .ops.fourier import p2o, spectral_gradients
 from .ops.sep_poly import compute_polynomial_separable
 from .utils.imaging import crop_with_kernel, pad_with_kernel
 from .utils.profiling import record_dispatch
 
 __all__ = ["polynomial_coefficients", "compute_polynomial",
-           "compute_polynomial_fft", "inverse_filtering_rank3"]
+           "compute_polynomial_fft", "halo_masking",
+           "inverse_filtering_rank3"]
 
 _TODO_DIRECT = "ROADMAP A.8 (ops/conv.py: method='direct')"
-_TODO_FEATURES = ("ROADMAP B.10 (halo removal and edgetaper: remove_halo, "
-                  "do_edgetaper)")
 
 
 def polynomial_coefficients(alpha, beta):
@@ -71,6 +73,25 @@ def compute_polynomial(img, kernel, alpha, beta, method: str = "fft",
     raise ValueError(f"{method!r} not implemented")
 
 
+def halo_masking(img: torch.Tensor, imout: torch.Tensor,
+                 grad_img=None) -> torch.Tensor:
+    """Replace gradient-inverted pixels of the output by the input (Alg. 5):
+    ``M = -<grad u, grad u_hat>`` per pixel, ``nM = sum ||grad u||^2``,
+    ``z = clip(M / (nM + M), 0)``, ``out = z u + (1 - z) u_hat``
+    (deblurring.py:193-208 with the grad_prod_ bug fixed; the 1e-12 guard
+    keeps constant images finite)."""
+    if grad_img is None:
+        grad_x, grad_y = spectral_gradients(img)
+    else:
+        grad_x, grad_y = grad_img
+    gout_x, gout_y = spectral_gradients(imout)
+    m = (-grad_x * gout_x) + (-grad_y * gout_y)
+    nm = torch.sum(grad_x * grad_x + grad_y * grad_y, dim=(-2, -1),
+                   keepdim=True)
+    z = torch.clamp(m / (nm + m + 1e-12), min=0.0)
+    return imout + z * (img - imout)
+
+
 def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
                             correlate: bool = False,
                             remove_halo: bool = False,
@@ -78,26 +99,40 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
                             method: str = "fft",
                             ker_size: int = 25) -> torch.Tensor:
     """One polynomial deconvolution step (deblurring.py:211-239):
-    replicate-pad by half the kernel support, apply p(K), crop back, clamp
-    to [0, 1]. ``ker_size`` sets the support of parametric
-    ``(sigma, rho, theta)`` kernels; 2D kernels carry their own."""
-    del grad_img  # the halo mask's input; remove_halo is not ported yet
-    if remove_halo or do_edgetaper:
-        raise NotImplementedError(f"see {_TODO_FEATURES}")
+    replicate-pad by half the kernel support, optionally edgetaper, apply
+    p(K), crop back, optionally mask halos against the (tapered) padded
+    image cropped back, clamp to [0, 1]. ``ker_size`` sets the support of
+    parametric ``(sigma, rho, theta)`` kernels; 2D kernels carry their
+    own. ``grad_img`` is the halo mask's input gradients (computed from
+    ``img`` when None)."""
     is_param_kernel = isinstance(kernel, (tuple, list))
     ksize = ker_size if is_param_kernel else kernel.shape[-1]
-    fast = is_param_kernel and method == "direct_separable"
+    fast = (is_param_kernel and method == "direct_separable"
+            and not do_edgetaper)
     record_dispatch("inverse_filtering_rank3",
                     "separable_fast" if fast else f"generic/{method}")
     if fast:
-        # padding, crop and the final clamp are fused into the kernel
+        # padding, crop (and the final clamp without the halo mask) are
+        # fused into the kernel
         sigma, rho, theta = kernel
+        if remove_halo:
+            imout = compute_polynomial_separable(img, sigma, rho, theta,
+                                                 alpha, beta, prepad=True,
+                                                 ker_size=ksize)
+            return halo_masking(img, imout, grad_img).clamp(0.0, 1.0)
         return compute_polynomial_separable(img, sigma, rho, theta, alpha,
                                             beta, prepad=True, clip=True,
                                             ker_size=ksize)
     if correlate and not is_param_kernel:
         kernel = torch.rot90(kernel, 2, dims=(-2, -1))
     padded = pad_with_kernel(img, ksize=ksize)
+    if do_edgetaper:
+        padded = _edgetaper.edgetaper(padded, kernel, method=method,
+                                      ksize=ksize)
     imout = compute_polynomial(padded, kernel, alpha, beta, method=method,
                                ker_size=ksize)
-    return crop_with_kernel(imout, ksize=ksize).clamp(0.0, 1.0)
+    imout = crop_with_kernel(imout, ksize=ksize)
+    if remove_halo:
+        imout = halo_masking(crop_with_kernel(padded, ksize=ksize), imout,
+                             grad_img)
+    return imout.clamp(0.0, 1.0)

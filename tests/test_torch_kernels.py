@@ -452,3 +452,161 @@ def test_cuda_tiles_mode_matches_plain(cuda_dev):
         want = polyblur_tiles_fused(x, coeffs, 2)
     mse = float(((got.double() - want.double()) ** 2).mean())
     assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 60.0
+
+
+# ------------------------------------------------ feature-flag kernels (CUDA)
+
+def _canvas_view(dev, dt, seed, size=(300, 420), patch=160):
+    """A (1, 3) image's tile canvas in ``dt`` and the TileView of its
+    tiles (the patch engine's first-iteration input)."""
+    img = torch.rand((1, 3) + size, generator=torch.Generator()
+                     .manual_seed(seed)).to(dev)
+    grid = plan_patch_grid(*size, patch, 32.0 / patch)
+    th, tw, sh, sw = _grid_steps(grid)
+    canvas = edge_pad_cast(img, grid.orig_size, grid.pad, dt)
+    return TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (patch, patch))
+
+
+@pytest.mark.parametrize("dt, tol", [(torch.float32, 1e-5),
+                                     (torch.bfloat16, 2.0 ** -7)])
+def test_cuda_bilateral_matches_plain(cuda_dev, dt, tol):
+    from polyblur_torch.ops.bilateral import bilateral_filter
+    from polyblur_torch.ops.cuda.bilateral import bilateral, bilateral_plain
+
+    x = torch.rand((2, 3, 301, 419), generator=torch.Generator()
+                   .manual_seed(20)).to(cuda_dev).to(dt)
+    before = dict(pcuda.launches)
+    got = bilateral_filter(x)
+    assert _counts(before, "bilateral") == 1 and got.dtype == dt
+    with pcuda.plain_versions():
+        want = bilateral_filter(x)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    view = _canvas_view(cuda_dev, dt, 21)
+    smooth, noise = bilateral(view, out_dtype=torch.float32, with_noise=True)
+    s_p, n_p = bilateral_plain(view, out_dtype=torch.float32, with_noise=True)
+    assert float((smooth - s_p).abs().max()) <= 1e-5
+    assert float((noise - n_p).abs().max()) <= 1e-5
+
+
+def test_cuda_iir_matches_plain(cuda_dev):
+    """Row and column passes and the dt maps; the sequential composition
+    rounds differently from the Hillis-Steele plain version (1e-5)."""
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
+                                             scan_cols, scan_cols_plain,
+                                             scan_rows, scan_rows_plain)
+    from polyblur_torch.ops.domain_transform import iir_scan_rows
+
+    g = torch.Generator().manual_seed(22)
+    x = torch.rand((2, 3, 200, 333), generator=g).to(cuda_dev)
+    v = (0.95 * torch.rand((2, 200, 333), generator=g)).to(cuda_dev)
+    view = TileView.of_tiles(x)
+    before = dict(pcuda.launches)
+    rows = scan_rows(view, v)
+    assert _counts(before, "iir_scan_rows") == 1
+    assert float((rows - scan_rows_plain(view, v)).abs().max()) <= 1e-5
+    out, noise = scan_cols(rows.clone(), v, src=view)
+    out_p, noise_p = scan_cols_plain(rows, v, src=view)
+    assert float((out - out_p).abs().max()) <= 1e-5
+    assert float((noise - noise_p).abs().max()) <= 1e-5
+    vf = v[:, None].expand(x.shape)
+    got = iir_scan_rows(x, vf)
+    with pcuda.plain_versions():
+        want = iir_scan_rows(x, vf)
+    assert float((got - want).abs().max()) <= 1e-5
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    for dt in (torch.float32, torch.bfloat16):
+        cv = _canvas_view(cuda_dev, dt, 23)
+        before = dict(pcuda.launches)
+        vh, vv = dt_coeffs(cv, coeffs)
+        assert _counts(before, "dt_coeffs") == 1
+        vh_p, vv_p = dt_coeffs_plain(cv, coeffs)
+        assert float((vh - vh_p).abs().max()) <= 1e-6
+        assert float((vv - vv_p).abs().max()) <= 1e-6
+
+
+def test_cuda_taper_and_halo_stages_match_plain(cuda_dev):
+    from polyblur_torch.ops.cuda.features import (
+        halo_grads, halo_grads_plain, halo_mask, halo_mask_plain,
+        taper_blend, taper_blend_plain, taper_weights, taper_weights_plain)
+
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    view = _canvas_view(cuda_dev, torch.float32, 24)
+    est = tile_estimate(view, coeffs)
+    h = w = 160 + 2 * HALF
+    before = dict(pcuda.launches)
+    av, ah = taper_weights(est, h, w)
+    av_p, ah_p = taper_weights_plain(est, h, w)
+    assert float((av - av_p).abs().max()) <= 1e-6
+    assert float((ah - ah_p).abs().max()) <= 1e-6
+    ku = torch.rand((view.n, 3, h, w), generator=torch.Generator()
+                    .manual_seed(25)).to(cuda_dev)
+    xc = torch.empty_like(ku)
+    taper_blend(view, HALF, av, ah, ku, xc)
+    want = taper_blend_plain(view, HALF, av, ah, ku, torch.empty_like(ku))
+    assert float((xc - want).abs().max()) <= 1e-6
+    taper_blend(TileView.of_tiles(xc), 0, av, ah, ku, xc)   # in place
+    taper_blend_plain(TileView.of_tiles(want), 0, av, ah, ku, want)
+    assert float((xc - want).abs().max()) <= 1e-6
+    assert _counts(before, "taper") == 3
+    grads = halo_grads(view)
+    grads_p = halo_grads_plain(view)
+    scale = float(grads_p.gx.abs().max())
+    assert float((grads.gx - grads_p.gx).abs().max()) <= 1e-5 * scale
+    assert float((grads.gy - grads_p.gy).abs().max()) <= 1e-5 * scale
+    nm, nm_p = grads.part.sum(-1), grads_p.part.sum(-1)
+    assert float(((nm - nm_p).abs() / nm_p).max()) <= 1e-5
+    o = view.tiles().float() + 0.05 * torch.randn(
+        (view.n, 3, 160, 160), generator=torch.Generator().manual_seed(26)
+    ).to(cuda_dev)
+    noise = 0.01 * torch.randn_like(o)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)):
+        out = torch.empty_like(o, dtype=dt)
+        halo_mask(o, grads, view, noise, out)
+        want = halo_mask_plain(o, grads, view, noise, torch.empty_like(out))
+        assert float((out.float() - want.float()).abs().max()) <= tol
+    assert _counts(before, "halo") == 3
+
+
+def test_cuda_spectral_poly_f32_tiles_and_noise_match_plain(cuda_dev):
+    """The taper's applications: f32 tiles under bf16 operands, the tile
+    padded onto the whole canvas (pad 12, crop 0) and the canvas cropped
+    back (pad 0, crop 12) with the noise epilogue."""
+    view = _canvas_view(cuda_dev, torch.bfloat16, 27)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    est = tile_estimate(view, coeffs)
+    tabs = stage_tables(160, 160, torch.bfloat16, str(cuda_dev))
+    q2 = kernel_spectrum(est, coeffs, tabs)
+    x32 = TileView.of_tiles(view.tiles().float())
+    canvas = spectral_poly(x32, q2, tabs, crop=0, clip=False,
+                           out_dtype=torch.float32)
+    want = spectral_poly_plain(x32, q2, tabs, crop=0, clip=False,
+                               out_dtype=torch.float32)
+    assert canvas.shape == (view.n, 3, 184, 184)
+    assert float((canvas - want).abs().max()) <= 2.0 ** -7
+    noise = 0.01 * torch.randn((view.n, 3, 160, 160), device=cuda_dev)
+    cv = TileView.of_tiles(want)
+    got = spectral_poly(cv, q2, tabs, pad=0, noise=noise)
+    ref = spectral_poly_plain(cv, q2, tabs, pad=0, noise=noise)
+    assert got.dtype == torch.bfloat16 and got.shape == (view.n, 3, 160, 160)
+    assert float((got.float() - ref.float()).abs().max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("dt, prefilter, min_db", [
+    (torch.float32, "dt", 60.0), (torch.float32, "bilateral", 60.0),
+    (torch.bfloat16, "dt", 40.0), (torch.bfloat16, "bilateral", 40.0)])
+def test_cuda_feature_stages_match_plain(cuda_dev, dt, prefilter, min_db):
+    """restore_tiles with every flag on the patch canvas, 2 iterations."""
+    from polyblur_torch.pipeline import restore_tiles
+
+    view = _canvas_view(cuda_dev, dt, 28)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    flags = dict(do_taper=True, do_halo=True, prefilter=prefilter)
+    before = dict(pcuda.launches)
+    got = restore_tiles(view, coeffs, 2, **flags)
+    for name in ("taper", "halo") + (("dt_coeffs", "iir_scan_rows")
+                                     if prefilter == "dt" else ("bilateral",)):
+        assert _counts(before, name) > 0, name
+    with pcuda.plain_versions():
+        want = restore_tiles(view, coeffs, 2, **flags)
+    mse = float(((got.double() - want.double()) ** 2).mean())
+    assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= min_db

@@ -142,12 +142,13 @@ def test_cuda_by_default_and_raises_without_it(img):
 
 
 @pytest.mark.parametrize("call", [
+    lambda x: polyblur_torch.pipeline.polyblur_core(
+        x, device="cpu", prefiltering=True, smoother="nc"),
     lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
-                                                 remove_halo=True),
-    lambda x: PolyblurDeblurring(device="cpu")(x, prefiltering=True),
+                                                 discard_saturation=True),
     lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
                                                  method="direct"),
-    lambda x: deblur_patches(x, device="cpu", edgetaping=True),
+    lambda x: deblur_patches(x, device="cpu", multichannel_kernel=True),
     lambda x: deblur_patches(x, device="cpu", q=0.01),
     lambda x: deblur_patches(x, device="cpu", patch_size=160, overlap=0.6),
 ])

@@ -2,13 +2,18 @@
 """Where the time goes in polyblur_torch's paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
-``python3 tools/torch_profile.py``. For each path (the 12 MP bf16 patch
-engine, the reference demo and the 2 MP corpus photo through the blocked
-route, a 480 x 640 crop through the tiles route and through
-``method='fft'``) it times one warm call on the host clock (ending in a
-synchronize), traces a second with ``torch.profiler`` and prints the
-device time by kernel name, the device busy time (the union of the
-kernels' intervals) and the idle share of the call. Imports no JAX.
+``python3 tools/torch_profile.py [base] [features]`` (both sets by
+default). For each path — ``base``: the 12 MP bf16 patch engine, the
+reference demo and the 2 MP corpus photo through the blocked route, a
+480 x 640 crop through the tiles route and through ``method='fft'``;
+``features``: BASELINE config 2 (the 2 MP photo through the patch engine
+in bf16 with the taper, the domain-transform prefilter and the halo mask),
+config 2c (the same flags through ``method='fft'``) and the 480 x 640
+tiles route with every flag and the bilateral smoother — it times one warm
+call on the host clock (ending in a synchronize), traces a second with
+``torch.profiler`` and prints the device time by kernel name, the device
+busy time (the union of the kernels' intervals) and the idle share of the
+call. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -79,7 +84,9 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 2
     import polyblur_torch as pt
+    from polyblur_torch.pipeline import polyblur_core
 
+    sets = set(sys.argv[1:]) or {"base", "features"}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -95,18 +102,36 @@ def main() -> int:
                             .copy(), device=dev)
     crop = torch.as_tensor(peacock[:480, :640].transpose(2, 0, 1)[None]
                            .copy(), device=dev)
-    profile("12 MP patch engine, bf16 (the main path)", lambda: (
-        pt.deblur_patches(img12, patch_size=448, overlap=64.0 / 448.0,
-                          work_dtype=torch.bfloat16, out_dtype=torch.float32,
-                          device=dev, method="direct_separable", **kw)))
-    profile("demo 700x500, blocked route", lambda: pt.polyblur_deblurring(
-        peacock, device=dev, **kw))
-    profile("2 MP 1600x1200, blocked route", lambda: pt.polyblur_deblurring(
-        photo, device=dev, **kw))
-    profile("480x640 tiles route, f32", lambda: pt.polyblur_deblurring(
-        crop, device=dev, **kw))
-    profile("480x640 method='fft'", lambda: pt.polyblur_deblurring(
-        crop, device=dev, method="fft", **kw))
+    if "base" in sets:
+        profile("12 MP patch engine, bf16 (the main path)", lambda: (
+            pt.deblur_patches(img12, patch_size=448, overlap=64.0 / 448.0,
+                              work_dtype=torch.bfloat16,
+                              out_dtype=torch.float32, device=dev,
+                              method="direct_separable", **kw)))
+        profile("demo 700x500, blocked route",
+                lambda: pt.polyblur_deblurring(peacock, device=dev, **kw))
+        profile("2 MP 1600x1200, blocked route",
+                lambda: pt.polyblur_deblurring(photo, device=dev, **kw))
+        profile("480x640 tiles route, f32",
+                lambda: pt.polyblur_deblurring(crop, device=dev, **kw))
+        profile("480x640 method='fft'", lambda: pt.polyblur_deblurring(
+            crop, device=dev, method="fft", **kw))
+    if "features" in sets:
+        flags = dict(remove_halo=True, edgetaping=True, prefiltering=True)
+        cfg2 = dict(kw, smoother="domain_transform", **flags)
+        # bench_suite's config 2 image: the peacock tiled to 1200 x 1600
+        x2 = torch.as_tensor(np.tile(peacock, (3, 3, 1))[:1200, :1600]
+                             .transpose(2, 0, 1)[None].copy(), device=dev)
+        profile("config 2: 2 MP patch engine, bf16, taper + dt + halo",
+                lambda: pt.deblur_patches(
+                    x2, patch_size=448, overlap=1.0 / 7.0,
+                    work_dtype=torch.bfloat16, out_dtype=torch.float32,
+                    device=dev, method="direct_separable", **cfg2), top=14)
+        profile("config 2c: 2 MP method='fft', taper + dt + halo",
+                lambda: polyblur_core(x2, device=dev, method="fft", **cfg2))
+        profile("480x640 tiles route, every flag (bilateral), f32",
+                lambda: pt.polyblur_deblurring(crop, device=dev, **kw,
+                                               **flags), top=14)
     print(card)
     return 0
 
