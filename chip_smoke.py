@@ -143,7 +143,9 @@ def require(cond: bool, what: str) -> None:
 
 def make_12mp_image(rng) -> np.ndarray:
     """bench.py's 12 MP test image: the tiled peacock + N(0, 0.005) noise,
-    clipped, as (1, 3, 3000, 4000) f32."""
+    clipped, as (1, 3, 3000, 4000) f32, dense in that layout (as bench.py's
+    ``jnp.asarray`` puts it on the device; a channel-interleaved view would
+    cost the patch engine a layout copy)."""
     from PIL import Image
 
     peacock = np.asarray(Image.open("tests/data/peacock_defocus.png"))
@@ -152,7 +154,8 @@ def make_12mp_image(rng) -> np.ndarray:
     reps = (h // peacock.shape[0] + 1, w // peacock.shape[1] + 1, 1)
     big = np.tile(peacock, reps)[:h, :w]
     big += rng.normal(0.0, 0.005, big.shape).astype(np.float32)
-    return np.clip(big, 0.0, 1.0).astype(np.float32).transpose(2, 0, 1)[None]
+    return np.ascontiguousarray(
+        np.clip(big, 0.0, 1.0).astype(np.float32).transpose(2, 0, 1)[None])
 
 
 def make_config2_image() -> np.ndarray:
@@ -232,21 +235,25 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median per-call device time of ``fn`` in ms (CUDA events)."""
+    """Per-call device time of ``fn`` in ms: CUDA events around ``reps``
+    back-to-back calls, the median of three such runs. Back to back, the
+    device queue stays ahead of the host, so a wrapper's host time counts
+    only where it exceeds its kernels' time."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(reps):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / reps)
     return statistics.median(times)
 
 
@@ -255,6 +262,126 @@ def bound_ms(nbytes: float, flops: float, kind: str):
     tb = nbytes / PEAK_BYTES * 1e3
     to = flops / PEAK_FLOPS[kind] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def spectral_modes(view, q2, tabs, label: str, clip: bool = True) -> float:
+    """Print each ``spectral_gemm`` product's CUDA-event time and achieved
+    TFLOP/s of its dense-GEMM formulation (2 x MACs / time), then the whole
+    application's; returns the application's ms. The launches are counted
+    under a name of their own, which no path check reads."""
+    from polyblur_torch.ops.cuda.polyblur_fused import spectral_gemm_launches
+
+    _, runs = spectral_gemm_launches(view, q2, tabs, None, clip,
+                                     "spectral_gemm_timing")
+    for run in runs:
+        run()  # the intermediates of a real application
+    h, wc, kp = tabs.h, tabs.wc, tabs.er.shape[1]
+    oh, ow = h - 2 * tabs.pad, wc - 2 * tabs.pad
+    planes = view.n * view.channels
+    macs = (2 * kp * h * wc, kp * 2 * h * 2 * h, 2 * h * kp * 2 * h,
+            oh * ow * 2 * kp)
+    for mode, (run, m) in enumerate(zip(runs, macs), 1):
+        ms = cuda_ms(run)
+        print(f"  {label} mode {mode}: {ms:.4f} ms, "
+              f"{2e-9 * m * planes / ms:.1f} TFLOP/s ({m * planes / 1e9:.2f} "
+              f"G MACs)")
+
+    def application():
+        for run in runs:
+            run()
+
+    ms = cuda_ms(application)
+    print(f"  {label} application: {ms:.4f} ms, "
+          f"{2e-9 * sum(macs) * planes / ms:.1f} TFLOP/s")
+    return ms
+
+
+def redesign_checks(dev, img2) -> None:
+    """The shapes the Hopper redesign of ``spectral_gemm`` (TMA boxes,
+    128 x 128 x 64 tiles, stacked layouts) and of ``edge_pad_cast``
+    (16-byte chunks) make risky, each against its plain version at config
+    2's tile shapes: the taper's pair (the tile padded onto the whole
+    canvas with f32 out, the canvas cropped back), the noise epilogue with
+    f32 and work-dtype out, an output aliasing the input, bf16 blocks of
+    the blocked route; ``edge_pad_cast`` with odd left pads, an odd source
+    width and a source off a 16-byte boundary, in both input dtypes."""
+    import torch
+
+    from polyblur_torch.ops.cuda.pad_cast import (edge_pad_cast,
+                                                   edge_pad_cast_plain)
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, kernel_spectrum, spectral_poly, spectral_poly_plain,
+        spectrum_plain, stage_tables, tile_estimate)
+    from polyblur_torch.patches import _grid_steps, plan_patch_grid
+    from polyblur_torch.pipeline import _mega_pack
+
+    f32 = torch.float32
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    grid = plan_patch_grid(img2.shape[-2], img2.shape[-1], 448, 1.0 / 7.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    for wd, tol in ((torch.bfloat16, TOL_SPEC_BF16), (f32, TOL_SPEC_F32)):
+        canvas = edge_pad_cast(img2, grid.orig_size, grid.pad, wd)
+        view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
+        tabs = stage_tables(448, 448, wd, str(dev))
+        q2 = kernel_spectrum(tile_estimate(view, coeffs), coeffs, tabs)
+        errs = {}
+        xc = spectral_poly(view, q2, tabs, crop=0, clip=False, out_dtype=f32)
+        xc_p = spectral_poly_plain(view, q2, tabs, crop=0, clip=False,
+                                   out_dtype=f32)
+        errs["pad onto canvas, f32 out"] = float((xc - xc_p).abs().max())
+        cv = TileView.of_tiles(xc_p)
+        noise = 0.01 * torch.randn((view.n, 3, 448, 448), device=dev,
+                                   generator=torch.Generator(dev)
+                                   .manual_seed(5))
+        for odt in (f32, wd):
+            o = spectral_poly(cv, q2, tabs, pad=0, noise=noise,
+                              out_dtype=odt)
+            o_p = spectral_poly_plain(cv, q2, tabs, pad=0, noise=noise,
+                                      out_dtype=odt)
+            errs[f"crop back + noise, {odt} out"] = float(
+                (o.float() - o_p.float()).abs().max())
+        x = view.tiles().clone()
+        ref = spectral_poly_plain(TileView.of_tiles(x), q2, tabs)
+        spectral_poly(TileView.of_tiles(x), q2, tabs, out=x)
+        errs["aliased out"] = float((x.float() - ref.float()).abs().max())
+        for what, err in errs.items():
+            require(err <= tol, f"spectral_gemm {wd} {what}: error {err}")
+        print(f"spectral_gemm[{wd}, {view.n} x 3 x 448^2, risky shapes]: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    # bf16 blocks of the blocked route (M = 280, K = 240: ragged tiles)
+    blocks = img2[0, :, :280, :240].contiguous().to(torch.bfloat16)
+    tabs = stage_tables(280, 240, torch.bfloat16, str(dev), 0)
+    params = torch.tensor([[0.3, 0.05, 0.4]] * 3, device=dev)
+    q2 = spectrum_plain(params[:, 0], params[:, 1], params[:, 2], coeffs,
+                        tabs)
+    bv = TileView.of_tiles(blocks[:, None])
+    err = float((spectral_poly(bv, q2, tabs, clip=False).float()
+                 - spectral_poly_plain(bv, q2, tabs, clip=False).float())
+                .abs().max())
+    require(err <= TOL_SPEC_BF16, f"spectral_gemm bf16 blocks error {err}")
+    print(f"spectral_gemm[bf16, 3 x 280x240 blocks, pad 0]: max_abs_err "
+          f"{err:.3e}")
+    # edge_pad_cast: odd pads and widths, unaligned source rows
+    src = img2[..., :1199, :1599]
+    cases = 0
+    for x in (src.contiguous(), img2[..., 1:, 3:].contiguous()):
+        for idt in (f32, torch.bfloat16):
+            xi = x.to(idt)
+            for pads in ((3, 4, 5, 7), (68, 69, 145, 144), (0, 1, 1, 0)):
+                for odt in (f32, torch.bfloat16):
+                    got = edge_pad_cast(xi, xi.shape[-2:], pads, odt)
+                    want = edge_pad_cast_plain(xi, xi.shape[-2:], pads, odt)
+                    require(bool(torch.equal(got, want)),
+                            f"edge_pad_cast {tuple(xi.shape)} {idt} -> {odt}"
+                            f" pads {pads} differs")
+                    cases += 1
+    off = img2.reshape(-1)[1:1 + 3 * 1199 * 1601].reshape(1, 3, 1199, 1601)
+    got = edge_pad_cast(off, (1198, 1600), (5, 6, 3, 4), torch.bfloat16)
+    require(bool(torch.equal(got, edge_pad_cast_plain(
+        off, (1198, 1600), (5, 6, 3, 4), torch.bfloat16))),
+        "edge_pad_cast from a source off a 16-byte boundary differs")
+    print(f"edge_pad_cast: {cases + 1} odd-pad / odd-width / unaligned "
+          "cases bit-equal")
 
 
 def whole_image_kernels(dev, report: dict) -> None:
@@ -307,6 +434,11 @@ def whole_image_kernels(dev, report: dict) -> None:
 
     ferr = float((fft_blocks() - out[:, 0]).abs().max())
     print(f"  FFT yardstick vs kernel: max_abs_err {ferr:.3e}")
+    q2b = spectrum_plain(params[:, 0], params[:, 1], params[:, 2], coeffs,
+                         tabs)
+    spectral_modes(view, q2b, tabs,
+                   f"spectral_gemm[f32, {view.n} blocks {bh}x{bw}, pad 0]",
+                   clip=False)
     flops = view.n * (spectrum_flops(bh, bw) + application_flops(bh, bw))
     report["fused_polynomial"] = dict(
         max_abs_err=err,
@@ -914,6 +1046,8 @@ def main() -> int:
         require(err <= tol, f"spectral_gemm {tag} error {err}")
         print(f"spectral_gemm[{tag}]: max_abs_err {err:.3e} "
               f"(PSNR {psnr(out, out_p):.1f} dB)")
+        spectral_modes(view, q2, tabs, f"spectral_gemm[{tag}, {n_tiles * b}"
+                       f" x {c} planes, h {h}, kp {tabs.er.shape[1]}]")
         if tag == "bf16":
             nb = 2 * out.numel() * esz + q2.numel() * 4
             # the same function through the FFT: rfft2 -> * p(K) -> irfft2
@@ -1055,6 +1189,7 @@ def main() -> int:
     img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
                            .copy(), device=dev)
     feature_kernels(dev, img2, report)
+    redesign_checks(dev, img2)
     torch.cuda.empty_cache()
     feature_paths(dev, img2, card, launches)
     print(f"[{time.perf_counter() - t_start:.1f} s] done")

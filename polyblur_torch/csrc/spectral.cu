@@ -19,38 +19,48 @@
 // spectra and the DFT tables in VMEM; a Hopper SM has 227 KB of shared
 // memory, so the application is four batched GEMM launches over (tile,
 // channel) planes with the intermediates in device memory, stored in the
-// work dtype (exactly where the TPU kernel rounds its product operands):
-//   mode 1  R  = pad(x) @ F                       replicate pad in the A-load
-//   mode 2  P  = qhat2 * ([Cy|Sy] @ [R ; swap(R) sgn])   one K = 2h product;
-//                the B-load does the half-swap and sign, the epilogue the
-//                spectrum multiply (before the cast, never after)
-//   mode 3  Yi = [Cy|Sy] @ [P ; -swap(P) sgn]
-//   mode 4  x' = cast(clip?(crop(Yi @ G)))        only the cropped block
-// The pad/crop width `half` is 12 (the patch engine, the tiles route and
-// the fused whole-image polynomial pad by the kernel half-support) or 0
-// (the overlap-save blocks of the blocked route, whose canvas is the block
-// itself); the clip to [0, 1] is a flag (the blocked route applies p(K)
-// unclipped and clips after reassembly). The feature flags of the mega
-// kernel (polyblur_fused.py:473-517) use the same launches: mode 1 may read
-// f32 planes (the prefilter's smooth part, the taper's canvas) and round
-// them to the work dtype as it loads them, mode 4 may write f32 (the
-// taper's blur K u, the output the halo mask reads) and add the
-// prefilter's noise after the clip, and the pad of mode 1 and the crop of
-// mode 4 are separate launch arguments (the taper pads the tile onto the
-// whole canvas, then crops the canvas back).
-// Accumulation is f32. bf16 operands run on the tensor cores (WMMA
-// m16n16k16 fragments, the mma.sync path); f32 operands run plain f32 FMA,
-// never TF32 or a bf16 split.
+// work dtype (exactly where the TPU kernel rounds its product operands).
+// The y-DFT runs on stacked real/imaginary parts, Rst = [Rr ; Ri] (2h x kp),
+// so that each product is a plain GEMM against a constant table (no
+// half-swap or sign in any operand load):
+//   mode 1  R^T = F^T pad(x)^T       -> RS = Rst^T (kp x 2h)
+//   mode 2  Pst = q * (T2 Rst),  T2 = [[Cy, Sy], [-Sy, Cy]]  -> PS = Pst^T;
+//           the spectrum multiply in the epilogue, before the cast
+//   mode 3  Zst = T3 Pst,        T3 = [[Cy, -Sy], [Sy, Cy]]  -> ZZ = [Zr | Zi]
+//   mode 4  x' = cast(clip?(crop(ZZ G)))    only the cropped block
+// The pad width of mode 1 and the crop of mode 4 are launch arguments: 12
+// (the patch engine, the tiles route and the fused whole-image polynomial
+// pad by the kernel half-support), 0 (the overlap-save blocks of the
+// blocked route, whose canvas is the block itself), or one of each (the
+// taper pads the tile onto the whole canvas, then crops the canvas back).
+// The clip to [0, 1] is a flag. Mode 1 may read f32 planes (the
+// prefilter's smooth part, the taper's canvas) and round them to the work
+// dtype as it loads them; mode 4 may write f32 (the taper's blur K u, the
+// output the halo mask reads) and add the prefilter's noise after the
+// clip.
 //
 // Bound on the H100: operations — 684 M MACs per (tile, channel) plane at
-// 448 px tiles, ~115 M per 280 x 240 block of the 2 MP blocked route,
-// against 989 TFLOP/s dense bf16 (67 TFLOP/s f32). Design: 128 x 128
-// block tiles through shared memory, 8 warps of 64 x 32; loads are
-// synchronous scalar loads (no cp.async/TMA pipeline yet), which is the
-// first thing a faster version changes.
-#include <mma.h>
+// 448 px tiles, ~115 M per 280 x 240 block of the 2 MP blocked route.
+// Design: A and B are K-major everywhere; TMA brings 128-byte-swizzled
+// tiles through an mbarrier ring from one producer thread, and two
+// consumer warpgroups run wgmma m64n128 on them with f32 accumulators in
+// registers, one MMA group in flight; bf16 products other than mode 1 run
+// two blocks per SM so that one block's epilogue overlaps the other's
+// MMAs. The epilogues (layout change, the spectrum multiply, crop / clip /
+// noise / cast) load what they need first, then store straight from the
+// registers, two elements per store. Mode 1's B operand (the tiles, any
+// stride, replicate-padded, f32 or work dtype) is written into the stages
+// by the producer warpgroups. bf16 operands run on bf16 wgmma; f32
+// operands run 3xTF32 (a = hi + lo, hi = a rounded to tf32; a b ~ hi hi +
+// hi lo + lo hi on tf32 wgmma, ~2^-22 relative per product), the
+// counterpart of the TPU kernel's error-compensated bf16 split
+// (sep_poly_fused.py::_split_bf16); the split is made in shared memory by
+// the consumers.
+#include <cstdio>
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -137,257 +147,517 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
 }
 
 // ------------------------------------------------------------------- GEMM
+//
+// Every product is C = A B^T with A (M x K) and B (N x K) both K-major
+// (row-major with K contiguous), the one layout wgmma takes for tf32 and
+// its fastest for bf16. Block tile BM x BN = 128 x 128; K in steps of 128
+// bytes (64 bf16 / 32 f32) through a ring of shared-memory stages. Warps
+// 0-7 are two consumer warpgroups (64 rows each) running wgmma; after
+// them comes the producer: one thread starts the TMA loads, and in mode 1
+// two warpgroups write B (the replicate-padded tiles, any stride or dtype)
+// into the swizzled stage themselves.
+
+constexpr int BM = 128, BN = 128;
+constexpr int NCONS = 256;            // two consumer warpgroups
+constexpr int ACC = BN / 2;           // accumulator floats per thread
+
+// Per (product, dtype): bf16 modes 2-4 run two blocks per SM (3 stages,
+// one producer warp, 96 registers a thread), so that one block's
+// prologue and epilogue overlap the other's MMAs; mode 1 (whose producer
+// is two warpgroups writing B) and the f32 split (twice the stage bytes)
+// run one block per SM with a deeper ring.
+template <int MODE, typename T>
+struct Cfg {
+  static constexpr int BK = 128 / sizeof(T);       // K per stage
+  static constexpr bool kSplit = sizeof(T) == 4;   // 3xTF32
+  static constexpr bool kPair = !kSplit && MODE != 1;
+  // producer threads: mode 1 writes B with two warpgroups
+  static constexpr int NPROD = MODE == 1 ? 256 : kPair ? 32 : 128;
+  static constexpr int NT = NCONS + NPROD;
+  static constexpr int BLOCKS = kPair ? 2 : 1;     // per SM
+  static constexpr int STAGES = kSplit || kPair ? 3 : 4;
+  static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_BYTES = BN * 128;
+  // per stage: A, B, and for the split their small parts
+  static constexpr int STAGE = (A_BYTES + B_BYTES) * (kSplit ? 2 : 1);
+  static constexpr int SMEM = STAGES * STAGE + 1024;
+};
 
 struct GemmParams {
   pb::TileView src;     // mode 1: the tiles (canvas, state or f32 planes)
-  const void* tab_a;    // modes 2, 3: [Cy | Sy] (h, 2h)
-  const void* tab_b;    // mode 1: F (wc, 2kp); mode 4: G (2kp, wc)
-  const void* mid;      // modes 2, 3: R / P; mode 4: Yi — (planes, h, 2kp)
-  void* dst;            // modes 1-3: (planes, h, 2kp); mode 4: (planes, ph, pw)
+  void* dst;            // the product's destination
   const float* qhat2;   // mode 2: (n, h, 2kp)
   const float* noise;   // mode 4: (planes, ph, pw) f32 added after the clip
   int C, ph, pw, h, wc, kp, half, clip;
   int M, N, K;
+  int ldd;              // destination row length, elements
+  long long dplane;     // destination plane stride, elements
 };
 
-// IO flags, template parameters so that the plain instantiations keep
-// their loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them
-// to the work dtype on load, mode 4 writes f32 instead of the work dtype;
-// kNoise — mode 4 adds the noise plane after the clip and clips again.
+// IO flags, template parameters so that each instantiation keeps only its
+// own loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them to
+// the work dtype, mode 4 writes f32 instead of the work dtype; kNoise —
+// mode 4 adds the noise plane after the clip and clips again.
 constexpr int kF32IO = 1, kNoise = 2;
 
-// Per-plane base pointers, resolved once per block.
+__device__ __forceinline__ uint32_t pack2(bf16 a, bf16 b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// Lane `idx` of the 16-byte vectors r[], as f32 (idx a compile-time
+// constant after unrolling).
+template <typename TS>
+__device__ __forceinline__ float lane(const uint4* r, int idx) {
+  constexpr int VI = 16 / sizeof(TS);
+  const uint4 v = r[idx / VI];
+  const int e = idx % VI;
+  if constexpr (sizeof(TS) == 4) {
+    const uint32_t w = e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+    return __uint_as_float(w);
+  } else {
+    const int wi = e / 2;
+    const uint32_t w = wi == 0 ? v.x : wi == 1 ? v.y : wi == 2 ? v.z : v.w;
+    return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
+  }
+}
+
+// 32-bit word `idx` of the 16-byte vectors r[] (idx a compile-time
+// constant after unrolling).
+__device__ __forceinline__ uint32_t word(const uint4* r, int idx) {
+  const uint4 v = r[idx / 4];
+  const int e = idx % 4;
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Mode 1's B stage: rows n0.. of the (h x wc) replicate-padded canvas of
+// plane pl, columns k0 .. k0 + BK, zero outside it, in 16-byte chunks of
+// the 128B-swizzled rows (chunk c of row r sits at c ^ (r % 8)); each of
+// the PT producer threads writes BN * 8 / PT chunks, in batches of CB whose
+// loads are all in flight before any is used. K >= 0: every source row
+// starts K elements past a 16-byte boundary (the rows' stride is whole
+// 16-byte blocks), so a chunk inside the tile is NV aligned 16-byte
+// loads; chunks that reach into the replicated margins (and every chunk
+// for K < 0) load element-wise.
+template <typename T, typename TS, int K, int NV, int CB, int PT>
+__device__ __forceinline__ void fill_batch(const GemmParams& p,
+                                           const TS* base, int n0, int k0,
+                                           uint8_t* sb, int t) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CH = CB;
+  uint4 raw[CH][NV];
+  bool vec[CH];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int q = t + j * PT, r = q >> 3;
+    const int y = n0 + r, sx0 = k0 + (q & 7) * E - p.half;
+    vec[j] = K >= 0 && y < p.h && sx0 >= 0 && sx0 + E <= p.pw;
+    if (vec[j]) {
+      const int sy = min(max(y - p.half, 0), p.ph - 1);
+      const uint4* a = reinterpret_cast<const uint4*>(
+          base + static_cast<long long>(sy) * p.src.sR + sx0 -
+          (K < 0 ? 0 : K));
+#pragma unroll
+      for (int v = 0; v < NV; ++v) raw[j][v] = __ldg(a + v);
+    }
+  }
+  // same dtype and a shift of whole 32-bit words: the chunk is four of
+  // the loaded words, moved without conversion
+  constexpr bool kMove =
+      sizeof(TS) == sizeof(T) && K >= 0 && (K * sizeof(T)) % 4 == 0;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int q = t + j * PT, r = q >> 3, cc = q & 7;
+    uint8_t* dst = sb + r * 128 + ((cc ^ (r & 7)) << 4);
+    if constexpr (kMove) {
+      if (vec[j]) {
+        constexpr int W0 = (K < 0 ? 0 : K) * sizeof(T) / 4;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(word(raw[j], W0), word(raw[j], W0 + 1),
+                       word(raw[j], W0 + 2), word(raw[j], W0 + 3));
+        continue;
+      }
+    }
+    const int y = n0 + r, x0 = k0 + cc * E;
+    float v[E];
+    if (vec[j]) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[e] = lane<TS>(raw[j], (K < 0 ? 0 : K) + e);
+    } else if (y < p.h) {
+      const int sy = min(max(y - p.half, 0), p.ph - 1);
+      const TS* row = base + static_cast<long long>(sy) * p.src.sR;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int x = x0 + e;
+        v[e] = x < p.wc ? pb::to_f32(row[min(max(x - p.half, 0), p.pw - 1)])
+                        : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = 0.f;
+    }
+    uint4 w;
+    if constexpr (E == 8) {
+      w.x = pack2(__float2bfloat16_rn(v[0]), __float2bfloat16_rn(v[1]));
+      w.y = pack2(__float2bfloat16_rn(v[2]), __float2bfloat16_rn(v[3]));
+      w.z = pack2(__float2bfloat16_rn(v[4]), __float2bfloat16_rn(v[5]));
+      w.w = pack2(__float2bfloat16_rn(v[6]), __float2bfloat16_rn(v[7]));
+    } else {
+      w = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                     __float_as_uint(v[2]), __float_as_uint(v[3]));
+    }
+    *reinterpret_cast<uint4*>(dst) = w;
+  }
+}
+
+template <typename T, typename TS, int K, int PT>
+__device__ __forceinline__ void fill_padded(const GemmParams& p,
+                                            const TS* base, int n0, int k0,
+                                            uint8_t* sb, int t) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int VI = 16 / sizeof(TS);
+  constexpr int CH = BN * 8 / PT;
+  constexpr int NV = K < 0 ? 1 : (K + E + VI - 1) / VI;
+  constexpr int CB = NV > 2 ? CH / 2 : CH;  // chunks per batch of loads
+#pragma unroll
+  for (int j0 = 0; j0 < CH; j0 += CB)
+    fill_batch<T, TS, K, NV, CB, PT>(p, base, n0, k0, sb, t + j0 * PT);
+}
+
+// The shift K of fill_padded for plane pl's tile: -1 unless every row
+// starts at the same offset from a 16-byte boundary.
+template <typename TS>
+__device__ __forceinline__ int fill_shift(const GemmParams& p,
+                                          const TS* base) {
+  constexpr int VI = 16 / sizeof(TS);
+  if ((p.src.sR * static_cast<long long>(sizeof(TS))) % 16 != 0) return -1;
+  const long long e =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(base) / sizeof(TS)) -
+      p.half;
+  return static_cast<int>(((e % VI) + VI) % VI);
+}
+
+template <typename T, typename TS, int PT>
+__device__ __forceinline__ void fill_stage(const GemmParams& p,
+                                           const TS* base, int shift, int n0,
+                                           int k0, uint8_t* sb, int t) {
+  switch (shift) {
+    case 0: fill_padded<T, TS, 0, PT>(p, base, n0, k0, sb, t); break;
+    case 1: fill_padded<T, TS, 1, PT>(p, base, n0, k0, sb, t); break;
+    case 2: fill_padded<T, TS, 2, PT>(p, base, n0, k0, sb, t); break;
+    case 3: fill_padded<T, TS, 3, PT>(p, base, n0, k0, sb, t); break;
+    case 4: fill_padded<T, TS, 4, PT>(p, base, n0, k0, sb, t); break;
+    case 5: fill_padded<T, TS, 5, PT>(p, base, n0, k0, sb, t); break;
+    case 6: fill_padded<T, TS, 6, PT>(p, base, n0, k0, sb, t); break;
+    case 7: fill_padded<T, TS, 7, PT>(p, base, n0, k0, sb, t); break;
+    default: fill_padded<T, TS, -1, PT>(p, base, n0, k0, sb, t); break;
+  }
+}
+
+// x rounded to the nearest tf32 (low 13 mantissa bits zero)
+__device__ __forceinline__ float tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// 3xTF32: the raw f32 tile at `raw` becomes its tf32 part in place, its
+// remainder (also rounded to tf32) goes to `lo`; 128 threads, 16 B each
+// step.
+__device__ __forceinline__ void split_tf32(uint8_t* raw, uint8_t* lo,
+                                           int bytes, int t) {
+  for (int o = t * 16; o < bytes; o += 128 * 16) {
+    float4 v = *reinterpret_cast<float4*>(raw + o);
+    float4 h = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z),
+                           tf32_hi(v.w));
+    *reinterpret_cast<float4*>(raw + o) = h;
+    *reinterpret_cast<float4*>(lo + o) =
+        make_float4(tf32_hi(v.x - h.x), tf32_hi(v.y - h.y),
+                    tf32_hi(v.z - h.z), tf32_hi(v.w - h.w));
+  }
+}
+
 template <typename T>
-struct Plane {
-  const T* a;
-  const float* af;      // mode 1 with f32 tiles
-  const T* b;
-  const float* q;
-  const float* nz;      // mode 4 noise plane
-  T* d;
-  float* df;            // mode 4 with an f32 destination
-};
-
-template <int MODE, typename T>
-__device__ __forceinline__ Plane<T> plane_ptrs(const GemmParams& p, int pl) {
-  Plane<T> r;
-  const int n = pl / p.C, c = pl - n * p.C;
-  const long long mid_plane = (long long)p.h * 2 * p.kp;
-  r.q = p.qhat2 + (long long)n * mid_plane;
-  r.af = nullptr;
-  r.nz = nullptr;
-  if (MODE == 1) {
-    const long long o = p.src.offset(n, c, 0, 0);
-    r.a = static_cast<const T*>(p.src.ptr) + o;
-    r.af = static_cast<const float*>(p.src.ptr) + o;
-    r.b = static_cast<const T*>(p.tab_b);
-  } else if (MODE == 4) {
-    r.a = static_cast<const T*>(p.mid) + pl * mid_plane;
-    r.b = static_cast<const T*>(p.tab_b);
-    if (p.noise != nullptr) r.nz = p.noise + pl * (long long)p.ph * p.pw;
-  } else {
-    r.a = static_cast<const T*>(p.tab_a);
-    r.b = static_cast<const T*>(p.mid) + pl * mid_plane;
-  }
-  const long long dplane = MODE == 4 ? (long long)p.ph * p.pw : mid_plane;
-  r.d = static_cast<T*>(p.dst) + pl * dplane;
-  r.df = static_cast<float*>(p.dst) + pl * dplane;
-  return r;
-}
-
-// A(i, k), i < M, k < K
-template <int MODE, typename T, int IO>
-__device__ __forceinline__ T load_a(const GemmParams& p, const Plane<T>& P,
-                                    int i, int k) {
-  if (MODE == 1) {
-    const int y = min(max(i - p.half, 0), p.ph - 1);
-    const int x = min(max(k - p.half, 0), p.pw - 1);
-    const long long o = (long long)y * p.src.sR + x;
-    if (IO & kF32IO) return pb::from_f32<T>(P.af[o]);
-    return P.a[o];
-  } else if (MODE == 4) {
-    return P.a[(long long)(i + p.half) * 2 * p.kp + k];
-  } else {
-    return P.a[(long long)i * 2 * p.h + k];
-  }
-}
-
-// B(k, j), k < K, j < N
-template <int MODE, typename T>
-__device__ __forceinline__ T load_b(const GemmParams& p, const Plane<T>& P,
-                                    int k, int j) {
-  if (MODE == 1) {
-    return P.b[(long long)k * 2 * p.kp + j];
-  } else if (MODE == 4) {
-    return P.b[(long long)k * p.wc + j + p.half];
-  } else {
-    if (k < p.h) return P.b[(long long)k * 2 * p.kp + j];
-    const bool lo = j < p.kp;
-    const T v = P.b[(long long)(k - p.h) * 2 * p.kp + (lo ? j + p.kp : j - p.kp)];
-    // mode 2: swap(R) * sgn (sgn = +1 on the re half); mode 3: * -sgn
-    return (MODE == 2 ? !lo : lo) ? pb::negate(v) : v;
-  }
-}
-
-template <int MODE, typename T, int IO>
-__device__ __forceinline__ void store_c(const GemmParams& p,
-                                        const Plane<T>& P, int i, int j,
-                                        float acc) {
-  if (MODE == 4) {
-    const long long o = (long long)i * p.pw + j;
-    if (p.clip) acc = fminf(fmaxf(acc, 0.f), 1.f);
-    if (IO & kNoise) acc = fminf(fmaxf(__fadd_rn(acc, P.nz[o]), 0.f), 1.f);
-    if (IO & kF32IO)
-      P.df[o] = acc;
+__device__ __forceinline__ void store2(T* d, float a, float b, bool pair) {
+  if (pair) {
+    if constexpr (sizeof(T) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
     else
-      P.d[o] = pb::from_f32<T>(acc);
+      *reinterpret_cast<float2*>(d) = make_float2(a, b);
   } else {
-    const long long o = (long long)i * 2 * p.kp + j;
-    if (MODE == 2) acc = __fmul_rn(P.q[o], acc);
-    P.d[o] = pb::from_f32<T>(acc);
+    d[0] = pb::from_f32<T>(a);
   }
 }
 
-constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
-
-// bf16 operands, f32 accumulate on the tensor cores.
+// The epilogue of one accumulator pair C[i, j], C[i, j + 1] (j even),
+// in two passes so that every load of the tile's epilogue (the spectrum,
+// the noise) is in flight before its first store: the stores may alias
+// nothing, but the compiler cannot know that.
+//   mode 1: C = R^T (2kp x h)   -> RS[i % kp][(i >= kp) h + j]
+//   mode 2: C = (T2 Rst)^T      -> PS[i][j] = q[j mod h][i] C
+//   mode 3: C = T3 Pst (2h x kp) -> ZZ[i mod h][(i >= h) kp + j]
+//   mode 4: C = x' (oh x ow)    -> clip, noise, cast, out[i][j]
 template <int MODE, int IO>
-__global__ void __launch_bounds__(NT) gemm_bf16_kernel(GemmParams p) {
-  using namespace nvcuda;
-  constexpr int LDA = BK + 8, LDB = BN + 8;
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[NT / 32][16 * 16];
-  const Plane<bf16> P = plane_ptrs<MODE, bf16>(p, blockIdx.z);
+__device__ __forceinline__ void finish_pair(const GemmParams& p, int pl,
+                                            int i, int j, float& a,
+                                            float& b) {
+  if (i >= p.M || j >= p.N) return;
+  if (MODE == 2) {
+    const float* q =
+        p.qhat2 + static_cast<long long>(pl / p.C) * p.h * 2 * p.kp + i;
+    const int y0 = j < p.h ? j : j - p.h;
+    const int y1 = j + 1 < p.h ? j + 1 : j + 1 - p.h;
+    a = __fmul_rn(__ldg(q + static_cast<long long>(y0) * 2 * p.kp), a);
+    b = __fmul_rn(__ldg(q + static_cast<long long>(y1) * 2 * p.kp), b);
+  } else if (MODE == 4) {
+    if (p.clip) {
+      a = fminf(fmaxf(a, 0.f), 1.f);
+      b = fminf(fmaxf(b, 0.f), 1.f);
+    }
+    if (IO & kNoise) {
+      const float* nz =
+          p.noise + pl * p.dplane + static_cast<long long>(i) * p.ldd + j;
+      a = fminf(fmaxf(__fadd_rn(a, __ldg(nz)), 0.f), 1.f);
+      if (j + 1 < p.N) b = fminf(fmaxf(__fadd_rn(b, __ldg(nz + 1)), 0.f), 1.f);
+    }
+  }
+}
+
+template <int MODE, typename T, int IO>
+__device__ __forceinline__ void store_pair(const GemmParams& p, int pl, int i,
+                                           int j, float a, float b) {
+  if (i >= p.M || j >= p.N) return;
+  const bool two = j + 1 < p.N;
+  if (MODE == 4) {
+    const long long o = pl * p.dplane + static_cast<long long>(i) * p.ldd + j;
+    const bool pair = two && (o & 1) == 0;
+    if (IO & kF32IO) {
+      float* d = static_cast<float*>(p.dst) + o;
+      store2(d, a, b, pair);
+      if (two && !pair) d[1] = b;
+    } else {
+      T* d = static_cast<T*>(p.dst) + o;
+      store2(d, a, b, pair);
+      if (two && !pair) d[1] = pb::from_f32<T>(b);
+    }
+    return;
+  }
+  T* d = static_cast<T*>(p.dst) + pl * p.dplane;
+  long long o;
+  if (MODE == 1) {
+    const bool im = i >= p.kp;
+    o = static_cast<long long>(im ? i - p.kp : i) * p.ldd + (im ? p.h : 0) + j;
+  } else if (MODE == 2) {
+    o = static_cast<long long>(i) * p.ldd + j;
+  } else {
+    const bool im = i >= p.h;
+    o = static_cast<long long>(im ? i - p.h : i) * p.ldd + (im ? p.kp : 0) + j;
+  }
+  const bool pair = two && ((pl * p.dplane + o) & 1) == 0;
+  store2(d + o, a, b, pair);
+  if (two && !pair) d[o + 1] = pb::from_f32<T>(b);
+}
+
+// One (BM x BN) tile of one plane's product. tma_a / tma_b: the A and B
+// operands as (planes, rows, K) maps (mode 1 has no B map: the producer
+// warpgroup writes B).
+template <int MODE, typename T, int IO>
+__global__ void __launch_bounds__(Cfg<MODE, T>::NT, Cfg<MODE, T>::BLOCKS)
+gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+            const __grid_constant__ CUtensorMap tma_b, const GemmParams p) {
+  using Cf = Cfg<MODE, T>;
+  constexpr bool kPadB = MODE == 1;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cf::STAGES], empty[Cf::STAGES];
+  const uint32_t raw_u32 = pb::smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - raw_u32);
+  const int tid = threadIdx.x;
+  const int pl = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int fi = 0; fi < 4; ++fi)
-#pragma unroll
-    for (int fj = 0; fj < 2; ++fj) wmma::fill_fragment(acc[fi][fj], 0.f);
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-#pragma unroll 4
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int i = m0 + e / BK, k = k0 + e % BK;
-      As[(e / BK) * LDA + e % BK] =
-          (i < p.M && k < p.K) ? load_a<MODE, bf16, IO>(p, P, i, k) : zero;
+  const int nk = (p.K + Cf::BK - 1) / Cf::BK;
+  if (tid == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      pb::mbar_init(pb::smem_u32(&full[s]), kPadB ? 1 + Cf::NPROD : 1);
+      pb::mbar_init(pb::smem_u32(&empty[s]), NCONS);
     }
-#pragma unroll 4
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int k = k0 + e / BN, j = n0 + e % BN;
-      Bs[(e / BN) * LDB + e % BN] =
-          (k < p.K && j < p.N) ? load_b<MODE, bf16>(p, P, k, j) : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int fi = 0; fi < 4; ++fi)
-        wmma::load_matrix_sync(a[fi], As + (wm * 64 + fi * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int fj = 0; fj < 2; ++fj)
-        wmma::load_matrix_sync(b[fj], Bs + kk * LDB + wn * 32 + fj * 16, LDB);
-#pragma unroll
-      for (int fi = 0; fi < 4; ++fi)
-#pragma unroll
-        for (int fj = 0; fj < 2; ++fj)
-          wmma::mma_sync(acc[fi][fj], a[fi], b[fj], acc[fi][fj]);
-    }
-    __syncthreads();
+    pb::mbar_fence_init();
   }
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int fi = 0; fi < 4; ++fi)
-#pragma unroll
-    for (int fj = 0; fj < 2; ++fj) {
-      wmma::store_matrix_sync(cs, acc[fi][fj], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int i = m0 + wm * 64 + fi * 16 + e / 16;
-        const int j = n0 + wn * 32 + fj * 16 + e % 16;
-        if (i < p.M && j < p.N) store_c<MODE, bf16, IO>(p, P, i, j, cs[e]);
+  __syncthreads();
+
+  if (tid >= NCONS) {
+    // ------------------------------------------------------- producer
+    const int t = tid - NCONS;
+    if (!kPadB && t != 0) return;
+    // mode 4 reads the rows of the canvas the crop keeps
+    const int ra = MODE == 4 ? p.half : 0;
+    const int pa = (MODE == 2 || MODE == 4) ? pl : 0;
+    const int pbp = MODE == 3 ? pl : 0;
+    using TS = typename std::conditional<(IO & kF32IO) != 0, float, T>::type;
+    const int n = pl / p.C, c = pl - n * p.C;
+    const TS* src =
+        static_cast<const TS*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+    int shift = -1;
+    if constexpr (kPadB) shift = fill_shift<TS>(p, src);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % Cf::STAGES;
+      const uint32_t par = ((kt / Cf::STAGES) & 1) ^ 1;
+      pb::mbar_wait(pb::smem_u32(&empty[s]), par);
+      const uint32_t sa = base + s * Cf::STAGE;
+      const uint32_t fb = pb::smem_u32(&full[s]);
+      if (t == 0) {
+        pb::mbar_arrive_tx(fb, kPadB ? Cf::A_BYTES
+                                     : Cf::A_BYTES + Cf::B_BYTES);
+        pb::tma_load_3d(sa, &tma_a, kt * Cf::BK, m0 + ra, pa, fb);
+        if (!kPadB)
+          pb::tma_load_3d(sa + Cf::A_BYTES, &tma_b, kt * Cf::BK, n0 + ra,
+                          pbp, fb);
       }
-      __syncwarp();
+      if constexpr (kPadB) {
+        fill_stage<T, TS, Cf::NPROD>(p, src, shift, n0, kt * Cf::BK,
+                                     sbase + s * Cf::STAGE + Cf::A_BYTES, t);
+        pb::fence_proxy_async();
+        pb::mbar_arrive(fb);
+      }
     }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  const int wg = tid >> 7, t = tid & 127;
+  float acc[ACC];
+#pragma unroll
+  for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % Cf::STAGES;
+    pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
+    const uint32_t sa = base + s * Cf::STAGE + wg * (64 * 128);
+    const uint32_t sb = base + s * Cf::STAGE + Cf::A_BYTES;
+    if (Cf::kSplit) {
+      uint8_t* st = sbase + s * Cf::STAGE;
+      uint8_t* lo = st + Cf::A_BYTES + Cf::B_BYTES;
+      split_tf32(st + wg * (64 * 128), lo + wg * (64 * 128), 64 * 128, t);
+      split_tf32(st + Cf::A_BYTES + wg * (BN / 2 * 128),
+                 lo + Cf::A_BYTES + wg * (BN / 2 * 128), BN / 2 * 128, t);
+      pb::fence_proxy_async();
+      pb::named_barrier(1, NCONS);
+    }
+    pb::fence_regs(acc);
+    pb::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = pb::sw128_desc(sa) + 2 * kk;
+      const uint64_t db = pb::sw128_desc(sb) + 2 * kk;
+      if (Cf::kSplit) {
+        const uint32_t lo = Cf::A_BYTES + Cf::B_BYTES;
+        pb::wgmma_tf32(acc, da, pb::sw128_desc(sb + lo) + 2 * kk);
+        pb::wgmma_tf32(acc, pb::sw128_desc(sa + lo) + 2 * kk, db);
+        pb::wgmma_tf32(acc, da, db);
+      } else {
+        pb::wgmma_bf16(acc, da, db);
+      }
+    }
+    pb::wgmma_commit();
+    // one group stays in flight: the previous step's is done, so its
+    // stage goes back to the producer
+    pb::wgmma_wait<1>();
+    pb::fence_regs(acc);
+    if (kt > 0)
+      pb::mbar_arrive(pb::smem_u32(&empty[(kt - 1) % Cf::STAGES]));
+  }
+  pb::wgmma_wait<0>();
+  pb::fence_regs(acc);
+  const int warp = t >> 5, lane = t & 31;
+  const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int j0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < ACC; r += 2)
+    finish_pair<MODE, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
+                          acc[r], acc[r + 1]);
+#pragma unroll
+  for (int r = 0; r < ACC; r += 2)
+    store_pair<MODE, T, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
+                            acc[r], acc[r + 1]);
 }
 
-// f32 operands, plain f32 FMA (no TF32): 16 x 16 threads, 8 x 8 outputs each.
-template <int MODE, int IO>
-__global__ void __launch_bounds__(NT) gemm_f32_kernel(GemmParams p) {
-  __shared__ float As[BK][BM + 1];  // transposed A: conflict-free stores
-  __shared__ float Bs[BK][BN];
-  const Plane<float> P = plane_ptrs<MODE, float>(p, blockIdx.z);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int s = 0; s < 8; ++s) acc[r][s] = 0.f;
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-#pragma unroll 4
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int i = m0 + e / BK, k = k0 + e % BK;
-      As[e % BK][e / BK] =
-          (i < p.M && k < p.K) ? load_a<MODE, float, IO>(p, P, i, k) : 0.f;
-    }
-#pragma unroll 4
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int k = k0 + e / BN, j = n0 + e % BN;
-      Bs[e / BN][e % BN] =
-          (k < p.K && j < p.N) ? load_b<MODE, float>(p, P, k, j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        a[r] = As[kk][ty + 16 * r];
-        b[r] = Bs[kk][tx + 16 * r];
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int s = 0; s < 8; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int i = m0 + ty + 16 * r, j = n0 + tx + 16 * s;
-      if (i < p.M && j < p.N) store_c<MODE, float, IO>(p, P, i, j, acc[r][s]);
-    }
-}
-
-template <int MODE, int IO>
-void launch_io(int dtype, const GemmParams& p, dim3 grid, cudaStream_t s) {
-  if (dtype == pb::kBF16)
-    gemm_bf16_kernel<MODE, IO><<<grid, NT, 0, s>>>(p);
-  else  // f32 work dtype: the tiles and the output are f32 anyway
-    gemm_f32_kernel<MODE, IO & ~kF32IO><<<grid, NT, 0, s>>>(p);
+template <int MODE, typename T, int IO>
+int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
+              int planes, cudaStream_t s) {
+  auto kern = gemm_kernel<MODE, T, IO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<MODE, T>::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
+  kern<<<grid, Cfg<MODE, T>::NT, Cfg<MODE, T>::SMEM, s>>>(a, b, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it
-template <int MODE>
-void launch_gemm(int dtype, bool f32io, bool noise, const GemmParams& p,
-                 int planes, cudaStream_t s) {
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
+template <int MODE, typename T>
+int launch_gemm(bool f32io, bool noise, const CUtensorMap& a,
+                const CUtensorMap& b, const GemmParams& p, int planes,
+                cudaStream_t s) {
+  if (sizeof(T) == 4) f32io = false;  // f32 work dtype: f32 anyway
   if (f32io && noise)
-    launch_io<MODE, kF32IO | kNoise>(dtype, p, grid, s);
-  else if (f32io)
-    launch_io<MODE, kF32IO>(dtype, p, grid, s);
-  else if (noise)
-    launch_io<MODE, kNoise>(dtype, p, grid, s);
-  else
-    launch_io<MODE, 0>(dtype, p, grid, s);
+    return launch_io<MODE, T, kF32IO | kNoise>(a, b, p, planes, s);
+  if (f32io) return launch_io<MODE, T, kF32IO>(a, b, p, planes, s);
+  if (noise) return launch_io<MODE, T, kNoise>(a, b, p, planes, s);
+  return launch_io<MODE, T, 0>(a, b, p, planes, s);
+}
+
+// Padded row lengths, shared with ops/cuda/polyblur_fused.py: K widths of
+// the tables and of RS / PS round up to a whole number of 64-element rows.
+inline int pad64(int n) { return (n + 63) / 64 * 64; }
+
+template <typename T>
+int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
+                  const void* mid, GemmParams& p, int planes,
+                  cudaStream_t s) {
+  const bool f32 = sizeof(T) == 4;
+  const int h = p.h, kp = p.kp, l2 = pad64(2 * h);
+  const long long rs = static_cast<long long>(kp) * l2;  // RS / PS plane
+  const long long zz = static_cast<long long>(h) * 2 * kp;
+  CUtensorMap a, b;
+  bool ok = true;
+  switch (mode) {
+    case 1:  // A = F^T (2kp x wc); B from the tiles
+      p.M = 2 * kp; p.N = h; p.K = p.wc; p.ldd = l2; p.dplane = rs;
+      ok = pb::tma_map_3d(&a, tab, f32, p.wc, 2 * kp, 1, pad64(p.wc),
+                          2LL * kp * pad64(p.wc), BM);
+      b = a;
+      if (!ok) break;
+      return launch_gemm<1, T>(src_f32, false, a, b, p, planes, s);
+    case 2:  // A = RS (kp x 2h), B = T2 (2h x 2h)
+      p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
+      ok = pb::tma_map_3d(&a, mid, f32, 2 * h, kp, planes, l2, rs, BM) &&
+           pb::tma_map_3d(&b, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
+                          BN);
+      if (!ok) break;
+      return launch_gemm<2, T>(false, false, a, b, p, planes, s);
+    case 3:  // A = T3 (2h x 2h), B = PS (kp x 2h)
+      p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
+      ok = pb::tma_map_3d(&a, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
+                          BM) &&
+           pb::tma_map_3d(&b, mid, f32, 2 * h, kp, planes, l2, rs, BN);
+      if (!ok) break;
+      return launch_gemm<3, T>(false, false, a, b, p, planes, s);
+    case 4:  // A = ZZ (h x 2kp) from row `half`, B = G^T (wc x 2kp)
+      p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
+      p.dplane = static_cast<long long>(p.ph) * p.pw;
+      ok = pb::tma_map_3d(&a, mid, f32, 2 * kp, h, planes, 2 * kp, zz, BM) &&
+           pb::tma_map_3d(&b, tab, f32, 2 * kp, p.wc, 1, 2 * kp,
+                          2LL * kp * p.wc, BN);
+      if (!ok) break;
+      return launch_gemm<4, T>(dst_f32, p.noise != nullptr, a, b, p, planes,
+                               s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fprintf(stderr, "spectral_gemm mode %d: cuTensorMapEncodeTiled refused a "
+                  "map (pointer alignment or stride)\n", mode);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -407,37 +677,37 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // One of the four products of a spectral application over `planes`
 // (tile, channel) planes; see the modes above. Shapes: canvas (h, wc),
 // packed half-spectrum kp; mode 1 reads (ph, pw) tiles replicate-padded by
 // `half` (= (h - ph) / 2), mode 4 writes (ph, pw) planes cropped by `half`
 // from the canvas, so the two may differ (the taper reads the tile padded
 // and writes the whole canvas, then reads the canvas and writes the tile).
-// src_f32 (mode 1): the tiles are f32 and rounded to the work dtype on
-// load; dst_f32 (mode 4): write f32; clip != 0 clips mode 4's output to
-// [0, 1]; noise (mode 4, f32 (planes, ph, pw) or null) is then added and
-// the sum clipped again.
+// tab: the mode's table — mode 1 F^T (2kp, pad64(wc)), mode 2 T2 and mode
+// 3 T3 (2h, pad64(2h)), mode 4 G^T (wc, 2kp); mid: mode 2 RS, mode 3 PS
+// (planes, kp, pad64(2h)), mode 4 ZZ (planes, h, 2kp); dst: mode 1 RS,
+// mode 2 PS, mode 3 ZZ, mode 4 the (planes, ph, pw) output. src_f32 (mode
+// 1): the tiles are f32 and rounded to the work dtype on load; dst_f32
+// (mode 4): write f32; clip != 0 clips mode 4's output to [0, 1]; noise
+// (mode 4, f32 (planes, ph, pw) or null) is then added and the sum clipped
+// again.
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
-                                int step_w, int src_f32, const void* tab_a,
-                                const void* tab_b, const void* mid, void* dst,
-                                int dst_f32, const float* qhat2,
-                                const float* noise, int planes, int C, int ph,
-                                int pw, int h, int wc, int kp, int half,
-                                int clip, void* stream) {
+                                int step_w, int src_f32, const void* tab,
+                                const void* mid, void* dst, int dst_f32,
+                                const float* qhat2, const float* noise,
+                                int planes, int C, int ph, int pw, int h,
+                                int wc, int kp, int half, int clip,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != pb::kBF16 && dtype != pb::kF32)
-    return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p;
-  p.noise = noise;
   p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
                         step_w);
-  p.tab_a = tab_a;
-  p.tab_b = tab_b;
-  p.mid = mid;
   p.dst = dst;
   p.qhat2 = qhat2;
+  p.noise = mode == 4 ? noise : nullptr;
   p.C = C;
   p.ph = ph;
   p.pw = pw;
@@ -446,25 +716,11 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.kp = kp;
   p.half = half;
   p.clip = clip;
-  switch (mode) {
-    case 1:
-      p.M = h; p.N = 2 * kp; p.K = wc;
-      launch_gemm<1>(dtype, src_f32 != 0, false, p, planes, s);
-      break;
-    case 2:
-      p.M = h; p.N = 2 * kp; p.K = 2 * h;
-      launch_gemm<2>(dtype, false, false, p, planes, s);
-      break;
-    case 3:
-      p.M = h; p.N = 2 * kp; p.K = 2 * h;
-      launch_gemm<3>(dtype, false, false, p, planes, s);
-      break;
-    case 4:
-      p.M = ph; p.N = pw; p.K = 2 * kp;
-      launch_gemm<4>(dtype, dst_f32 != 0, noise != nullptr, p, planes, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == pb::kBF16)
+    return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, tab, mid, p,
+                               planes, s);
+  if (dtype == pb::kF32)
+    return spectral_gemm<float>(mode, false, dst_f32 != 0, tab, mid, p,
+                                planes, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

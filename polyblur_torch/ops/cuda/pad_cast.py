@@ -1,8 +1,9 @@
 """Fused even-crop + replicate edge-pad + dtype cast onto the tile canvas.
 
 Kernel: ``csrc/pad_cast.cu`` (replaces polyblur_tpu/ops/pallas/pad_cast.py::
-edge_pad_cast). The patch engine's ingest: the f32 -> work-dtype cast rides
-the pad's single pass over device memory. Replicate padding commutes with an
+edge_pad_cast): bands of canvas rows, 16-byte stores and loads. The patch
+engine's ingest: the f32 -> work-dtype cast rides the pad's single pass
+over device memory. Replicate padding commutes with an
 elementwise cast, so the result is bit-identical to
 ``F.pad(x.to(dtype), mode='replicate')``.
 """
@@ -56,9 +57,6 @@ def edge_pad_cast(x: torch.Tensor, crop_hw, pads,
     x = x.contiguous()
     b, c, H_in, W_in = x.shape
     Hp, Wp = h + pt + pb, w + pl + pr
-    if Hp > 65535 or b * c > 65535:
-        raise ValueError(f"canvas {Hp} rows x {b * c} planes exceeds the "
-                         "launch grid")
     out = torch.empty((b, c, Hp, Wp), dtype=odt, device=x.device)
     lib = library("pad_cast")
     fn = lib.pb_edge_pad_cast

@@ -23,7 +23,9 @@ reuse these kernels with counters of their own.
 
 Each has a plain PyTorch version beside it that rounds where the kernel
 (and the TPU kernel) rounds: the state and every DFT-product operand in the
-work dtype, accumulation and spectra in f32. The plain estimate and
+work dtype, accumulation and spectra in f32 (with f32 operands the
+kernel's products run 3xTF32, ~2^-22 relative per product, against the
+plain version's full f32). The plain estimate and
 spectrum are composed of the steps of ``estimation`` and ``ops.sep_poly``,
 fed with the kernels' host tables. The wrappers take the plain version for
 CPU tensors (and inside ``plain_versions()``); for CUDA tensors they launch
@@ -57,7 +59,7 @@ __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
            "spectral_poly", "spectral_poly_plain", "polyblur_tiles_fused",
            "launch_estimate", "launch_spectrum", "launch_spectral_gemm",
-           "HALF"]
+           "spectral_gemm_launches", "HALF", "pad64"]
 
 HALF = 12            # kernel half-support (ker_size 25)
 _N_EST = 8           # est row: [idx, mn, mo, sigma2, rho2, qa, qb, qc]
@@ -143,15 +145,40 @@ def estimate_tables(ph: int, pw: int, device: str) -> EstimateTables:
 
 class StageTables(NamedTuple):
     """Constant tables of the spectral polynomial on one canvas and dtype:
-    (ph, pw) tiles replicate-padded by ``pad`` to an (h, wc) canvas."""
+    (ph, pw) tiles replicate-padded by ``pad`` to an (h, wc) canvas. The
+    product tables are the GEMM operands of ``csrc/spectral.cu`` as they
+    lie in memory: K-major, K zero-padded to a multiple of 64
+    (:func:`pad64`)."""
     pad: int             # pad/crop width: HALF, or 0 (canvas = the tile)
     er: torch.Tensor     # (128, kp) f32 x tap phases (cos)
     ei: torch.Tensor     # (128, kp) f32 x tap phases (-sin)
     cyt: torch.Tensor    # (h, 32) f32 y tap phases (cos)
     syt: torch.Tensor    # (h, 32) f32 y tap phases (sin)
-    fwd: torch.Tensor    # (wc, 2 kp) work dtype, packed x-rDFT [Cf | -Sf]
-    inv: torch.Tensor    # (2 kp, wc) work dtype, packed inverse [Ai ; Bi]
-    cysy: torch.Tensor   # (h, 2 h) work dtype, y-DFT pair [Cy | Sy]
+    fwd_t: torch.Tensor  # (2 kp, pad64(wc)) work dtype, x-rDFT [Cf | -Sf]^T
+    inv_t: torch.Tensor  # (wc, 2 kp) work dtype, inverse [Ai ; Bi]^T
+    ydft: torch.Tensor   # (2 h, pad64(2 h)) work dtype, [[Cy, Sy], [-Sy, Cy]]
+    ydft_inv: torch.Tensor  # (2 h, pad64(2 h)), [[Cy, -Sy], [Sy, Cy]]
+
+    @property
+    def h(self) -> int:
+        return self.cyt.shape[0]
+
+    @property
+    def wc(self) -> int:
+        return self.inv_t.shape[0]
+
+
+def pad64(n: int) -> int:
+    """``n`` rounded up to a whole number of 64 elements: the K widths of
+    the GEMM tables and of the stacked y-DFT intermediates (one 128-byte
+    bf16 row of a shared-memory stage)."""
+    return -(-n // 64) * 64
+
+
+def _k_padded(a: np.ndarray) -> np.ndarray:
+    out = np.zeros((a.shape[0], pad64(a.shape[1])), np.float32)
+    out[:, :a.shape[1]] = a
+    return out
 
 
 @functools.lru_cache(maxsize=16)
@@ -159,11 +186,19 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
                  pad: int = HALF) -> StageTables:
     """The spectral tables for (ph, pw) tiles padded by ``pad`` in work
     dtype ``dtype`` on ``device`` (built once on the host from
-    ops/tables.py and cached). The kernel taps always span 2 HALF + 1."""
+    ops/tables.py and cached). The kernel taps always span 2 HALF + 1.
+
+    The y-DFT pair acts on stacked real and imaginary parts: the forward
+    ``[Yr ; Yi] = [[Cy, Sy], [-Sy, Cy]] [Rr ; Ri]`` and the inverse
+    ``[[Cy, -Sy], [Sy, Cy]]``, so that no product needs a half-swap or a
+    sign in its operand loads; every entry is +-Cy or +-Sy, rounded to the
+    work dtype alike."""
     h, wc = ph + 2 * pad, pw + 2 * pad
     er, ei, cyt, syt = _tap_tables_np(h, wc, HALF)
     fwd, inv = _dft_operands_packed(wc)
     cy, sy = _ydft_mats_np(h)
+    t2 = np.block([[cy, sy], [-sy, cy]])
+    t3 = np.block([[cy, -sy], [sy, cy]])
 
     def f32(a):
         return torch.tensor(np.ascontiguousarray(a), device=device)
@@ -171,8 +206,9 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
     def wd(a):
         return f32(a).to(dtype)
 
-    return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt), wd(fwd),
-                       wd(inv), wd(np.concatenate([cy, sy], axis=1)))
+    return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt),
+                       wd(_k_padded(fwd.T)), wd(inv.T), wd(_k_padded(t2)),
+                       wd(_k_padded(t3)))
 
 
 # ------------------------------------------------------------- estimation
@@ -338,10 +374,10 @@ def _geometry(view: TileView, tables: StageTables, pad, crop,
     """The canvas of ``tables``, the input pad and output crop (default
     ``tables.pad``), checked against the tiles: (h - 2 pad, wc - 2 pad)
     must be their patch, and they must be f32 or the work dtype."""
-    h, wc = tables.cysy.shape[0], tables.fwd.shape[0]
+    h, wc = tables.h, tables.wc
     pad = tables.pad if pad is None else int(pad)
     crop = tables.pad if crop is None else int(crop)
-    wd = tables.fwd.dtype
+    wd = tables.fwd_t.dtype
     if view.patch != (h - 2 * pad, wc - 2 * pad) or crop < 0 \
             or view.data.dtype not in (wd, torch.float32):
         raise ValueError(f"{name}: {view.patch} {view.data.dtype} tiles do "
@@ -358,31 +394,29 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
                         crop: int | None = None,
                         noise: torch.Tensor | None = None,
                         out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Plain version of :func:`spectral_poly`: the same four products, each
-    operand rounded to the work dtype just before its product."""
+    """Plain version of :func:`spectral_poly`: the same four products on
+    the same tables and stacked layout, each operand rounded to the work
+    dtype just before its product."""
     require_full_f32(view.data)
     g = _geometry(view, tables, pad, crop, "spectral_poly")
     x = view.tiles()
     n, c, ph, pw = x.shape
     kp = qhat2.shape[-1] // 2
-    q, oh, ow = g.crop, g.out[2], g.out[3]
+    h, q, oh, ow = g.h, g.crop, g.out[2], g.out[3]
 
     def op(u):
         return u.to(g.wd).float()
 
-    def swap(u):
-        return torch.cat([u[..., kp:], u[..., :kp]], -1)
-
-    sgn = torch.ones(2 * kp, dtype=torch.float32, device=x.device)
-    sgn[kp:] = -1.0
-    cysy = tables.cysy.float()
     xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (g.pad,) * 4,
                mode="replicate")[:, 0]
-    r = op(xc) @ tables.fwd.float()
-    yf = cysy @ torch.cat([op(r), op(swap(r) * sgn)], 1)
-    pq = (yf.reshape(n, c, *yf.shape[1:]) * qhat2[:, None]).reshape(yf.shape)
-    yi = cysy @ torch.cat([op(pq), op(swap(pq) * -sgn)], 1)
-    o = op(yi)[:, q:q + oh] @ tables.inv.float()[:, q:q + ow]
+    r = op(xc) @ tables.fwd_t[:, :g.wc].float().T            # (P, h, 2kp)
+    rst = torch.cat([r[..., :kp], r[..., kp:]], 1)           # [Rr ; Ri]
+    y = tables.ydft[:, :2 * h].float() @ op(rst)             # [Yr ; Yi]
+    qs = qhat2[..., :kp].repeat(1, 2, 1)                     # (n, 2h, kp)
+    pst = (y.reshape(n, c, 2 * h, kp) * qs[:, None]).reshape(y.shape)
+    z = tables.ydft_inv[:, :2 * h].float() @ op(pst)         # [Zr ; Zi]
+    zz = torch.cat([z[:, :h], z[:, h:]], -1)                 # [Zr | Zi]
+    o = op(zz)[:, q:q + oh] @ tables.inv_t.float()[q:q + ow].T
     if clip:
         o = o.clamp(0.0, 1.0)
     if noise is not None:
@@ -394,16 +428,18 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
     return out
 
 
-def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
-                         tables: StageTables, out: torch.Tensor | None,
-                         clip: bool, name: str, pad: int | None = None,
-                         crop: int | None = None,
-                         noise: torch.Tensor | None = None,
-                         out_dtype: torch.dtype | None = None
-                         ) -> torch.Tensor:
-    """The four ``pb_spectral_gemm`` launches of one application, counted
-    under ``name``; see :func:`spectral_poly`."""
-    check_cuda(name, view.data, qhat2, tables.fwd)
+def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
+                           tables: StageTables, out: torch.Tensor | None,
+                           clip: bool, name: str, pad: int | None = None,
+                           crop: int | None = None,
+                           noise: torch.Tensor | None = None,
+                           out_dtype: torch.dtype | None = None):
+    """The four ``pb_spectral_gemm`` launches of one application, not yet
+    run: (out, [mode 1, mode 2, mode 3, mode 4]), each a callable that
+    launches its product and counts it under ``name``; see
+    :func:`spectral_poly`. Run in order they are the application; one alone
+    is a product on the intermediates the last run left."""
+    check_cuda(name, view.data, qhat2, tables.fwd_t)
     g = _geometry(view, tables, pad, crop, name)
     c = view.channels
     kp = _packed_k(g.wc)
@@ -424,32 +460,56 @@ def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
                 or not noise.is_contiguous():
             raise ValueError(f"{name}: bad noise tensor")
     qhat2 = qhat2.contiguous()
-    mid_a = torch.empty((planes, g.h, 2 * kp), dtype=g.wd, device=out.device)
-    mid_b = torch.empty_like(mid_a)
+    # RS / PS: (planes, kp, pad64(2h)); ZZ: (planes, h, 2kp), in mid_a
+    # after RS has been read
+    l2 = pad64(2 * g.h)
+    dev = out.device
+    mid_a = torch.empty(planes * max(kp * l2, g.h * 2 * kp), dtype=g.wd,
+                        device=dev)
+    mid_b = torch.empty(planes * kp * l2, dtype=g.wd, device=dev)
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
-    fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 4 + [_I]
+    fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 3 + [_I]
                    + [_P] * 2 + [_I] * 9 + [_P])
     fn.restype = _I
-    view_args = view.c_args()
-    src_f32 = int(view.data.dtype == torch.float32)
-    dst_f32 = int(odt == torch.float32)
-    noise_ptr = None if noise is None else noise.data_ptr()
-    # (mode, A/B source, destination, tile size, pad or crop):
-    # R -> mid_a, P -> mid_b, Yi -> mid_a, x' -> out
-    for mode, mid, dst, (th, tw), half in (
-            (1, mid_a, mid_a, view.patch, g.pad),
-            (2, mid_a, mid_b, view.patch, g.pad),
-            (3, mid_b, mid_a, view.patch, g.pad),
-            (4, mid_a, out, g.out[2:], g.crop)):
-        err = fn(mode, dtype_code(g.wd), *view_args, src_f32,
-                 tables.cysy.data_ptr(),
-                 (tables.fwd if mode == 1 else tables.inv).data_ptr(),
-                 mid.data_ptr(), dst.data_ptr(), dst_f32, qhat2.data_ptr(),
-                 noise_ptr, planes, c, th, tw, g.h, g.wc, kp, half,
-                 int(clip), stream_of(out))
-        count_launch(name)
-        check(lib, err, f"{name} mode {mode}")
+    args = [dtype_code(g.wd)] + view.c_args() + [
+        int(view.data.dtype == torch.float32)]
+    rest = [int(odt == torch.float32), qhat2.data_ptr(),
+            None if noise is None else noise.data_ptr(), planes, c]
+    stream = stream_of(out)
+
+    def launch(mode, tab, mid, dst, tile, half):
+        def run():
+            err = fn(mode, *args, tab.data_ptr(),
+                     None if mid is None else mid.data_ptr(),
+                     dst.data_ptr(), *rest, *tile, g.h, g.wc, kp, half,
+                     int(clip), stream)
+            count_launch(name)
+            check(lib, err, f"{name} mode {mode}")
+        return run
+
+    # (mode, table, operand read, destination, tile size, pad or crop):
+    # RS -> mid_a, PS -> mid_b, ZZ -> mid_a, x' -> out
+    return out, [
+        launch(1, tables.fwd_t, None, mid_a, view.patch, g.pad),
+        launch(2, tables.ydft, mid_a, mid_b, view.patch, g.pad),
+        launch(3, tables.ydft_inv, mid_b, mid_a, view.patch, g.pad),
+        launch(4, tables.inv_t, mid_a, out, g.out[2:], g.crop)]
+
+
+def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
+                         tables: StageTables, out: torch.Tensor | None,
+                         clip: bool, name: str, pad: int | None = None,
+                         crop: int | None = None,
+                         noise: torch.Tensor | None = None,
+                         out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
+    """One application: the four launches of
+    :func:`spectral_gemm_launches` in order."""
+    out, launches = spectral_gemm_launches(view, qhat2, tables, out, clip,
+                                           name, pad, crop, noise, out_dtype)
+    for run in launches:
+        run()
     return out
 
 
@@ -463,8 +523,9 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
     clipped to [0, 1] when ``clip``, with ``noise`` added and clipped again
     when given, in ``out_dtype`` (default: the work dtype).
 
-    :param view: the tiles x, in the work dtype (``tables.fwd.dtype``) or in
-        f32 (rounded to the work dtype as the first product reads them)
+    :param view: the tiles x, in the work dtype (``tables.fwd_t.dtype``)
+        or in f32 (rounded to the work dtype as the first product reads
+        them)
     :param qhat2: (n, h, 2 kp) f32 from :func:`kernel_spectrum`
     :param out: optional destination; it may be the tensor ``view`` reads
         (the first product consumes x before the last writes).

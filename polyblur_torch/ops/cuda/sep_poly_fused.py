@@ -18,8 +18,9 @@ without it on the overlap-save blocks of larger images, cut from the
 wrap-extended canvas through a :class:`TileView` (no copy).
 
 Bound on the H100: operations — ~115 M MACs per 280 x 240 block of the
-2 MP blocked route (180 planes, 20.6 G MACs per application), in f32
-plain FMA (67 TFLOP/s) or on the bf16 tensor cores.
+2 MP blocked route (180 planes, 20.6 G MACs per application), on the
+tensor cores: bf16 wgmma, or for f32 three tf32 wgmma products per step
+(3xTF32, the counterpart of the TPU kernel's compensated bf16 split).
 """
 
 from __future__ import annotations

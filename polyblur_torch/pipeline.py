@@ -107,7 +107,7 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
     poly_src, pad, ucmp = base, HALF, base
     if do_taper:
         n, c = src.n, src.channels
-        h, wc = tables.cysy.shape[0], tables.fwd.shape[0]
+        h, wc = tables.h, tables.wc
         khat2 = kernel_spectrum(est, _unit_horner(str(est.device)), tables)
         av, ah = taper_weights(est, h, wc)
         xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)

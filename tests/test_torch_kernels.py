@@ -174,6 +174,77 @@ def test_spectral_poly_plain_matches_jax_spectral2d():
                                atol=1e-5, rtol=0)
 
 
+def _spectral_poly_old_formulation(x, q2, h, wc, pad, crop):
+    """The spectral application in the half-swap / sign formulation:
+    R = pad(x) F with F = [Cf | -Sf], the y-DFT as one K = 2h product of
+    [Cy | Sy] with [R ; swap(R) sgn], the inverse the same with -sgn, then
+    crop(Yi G) clipped; all f32."""
+    from polyblur_torch.ops.tables import (_dft_operands_packed, _packed_k,
+                                           _ydft_mats_np)
+
+    n, c, ph, pw = x.shape
+    kp = _packed_k(wc)
+    fwd, inv = (torch.tensor(a) for a in _dft_operands_packed(wc))
+    cysy = torch.tensor(np.concatenate(_ydft_mats_np(h), axis=1))
+
+    def swap(u):
+        return torch.cat([u[..., kp:], u[..., :kp]], -1)
+
+    sgn = torch.ones(2 * kp)
+    sgn[kp:] = -1.0
+    xc = torch.nn.functional.pad(x.reshape(n * c, 1, ph, pw), (pad,) * 4,
+                                 mode="replicate")[:, 0]
+    r = xc @ fwd
+    yf = cysy @ torch.cat([r, swap(r) * sgn], 1)
+    pq = (yf.reshape(n, c, h, 2 * kp) * q2[:, None]).reshape(yf.shape)
+    yi = cysy @ torch.cat([pq, swap(pq) * -sgn], 1)
+    oh, ow = h - 2 * crop, wc - 2 * crop
+    o = yi[:, crop:crop + oh] @ inv[:, crop:crop + ow]
+    return o.clamp(0.0, 1.0).reshape(n, c, oh, ow)
+
+
+@pytest.mark.parametrize("pad, crop", [(12, 12), (0, 0), (12, 0), (0, 12)])
+def test_stacked_tables_match_old_formulation(pad, crop):
+    """The stacked y-DFT tables ([[Cy, Sy], [-Sy, Cy]] and its inverse on
+    [Re ; Im]) and the K-major transposed x-DFT tables reproduce the
+    half-swap / sign formulation in f32, on a 40 x 56 tile at every
+    pad / crop pair the callers use (the taper pads onto the canvas and
+    crops back)."""
+    from polyblur_torch.ops.cuda.polyblur_fused import pad64
+
+    rng = np.random.default_rng(12)
+    ph, pw = 40, 56
+    if pad == 0:
+        ph, pw = ph + 24, pw + 24  # the same canvas, the tile is the canvas
+    h, wc = ph + 2 * pad, pw + 2 * pad
+    x = torch.as_tensor(rng.uniform(size=(2, 3, ph, pw)).astype(np.float32))
+    a, b, cq = _quad_forms(rng, 2)
+    tabs = stage_tables(ph, pw, torch.float32, "cpu", pad)
+    q2 = kernel_spectrum(_est_rows(a, b, cq), _mega_pack(*COEFFS), tabs)
+    got = spectral_poly(TileView.of_tiles(x), q2, tabs, crop=crop)
+    want = _spectral_poly_old_formulation(x, q2, h, wc, pad, crop)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+    # the kernel operands: K-major, K zero-padded to 64, and each entry one
+    # of the old tables' entries (so bf16 rounds them alike)
+    kp = tabs.er.shape[1]
+    assert tabs.fwd_t.shape == (2 * kp, pad64(wc))
+    assert tabs.inv_t.shape == (wc, 2 * kp)
+    assert tabs.ydft.shape == tabs.ydft_inv.shape == (2 * h, pad64(2 * h))
+    assert (tabs.h, tabs.wc) == (h, wc)
+    for t, k in ((tabs.fwd_t, wc), (tabs.ydft, 2 * h), (tabs.ydft_inv, 2 * h)):
+        assert not bool(t[:, k:].any())
+    b16 = stage_tables(ph, pw, torch.bfloat16, "cpu", pad)
+    from polyblur_torch.ops.tables import _ydft_mats_np
+
+    cy, sy = (torch.tensor(m).to(torch.bfloat16) for m in _ydft_mats_np(h))
+    assert torch.equal(b16.ydft[:h, :h], cy) and torch.equal(
+        b16.ydft[:h, h:2 * h], sy)
+    assert torch.equal(b16.ydft[h:, :h], -sy) and torch.equal(
+        b16.ydft_inv[:h, h:2 * h], -sy)
+    assert torch.equal(b16.ydft_inv.T[:2 * h], b16.ydft[:, :2 * h])
+
+
 def test_tile_estimate_plain_matches_jax(peacock):
     import jax.numpy as jnp
     from polyblur_tpu.estimation import gaussian_blur_estimation as jest
@@ -610,3 +681,78 @@ def test_cuda_feature_stages_match_plain(cuda_dev, dt, prefilter, min_db):
         want = restore_tiles(view, coeffs, 2, **flags)
     mse = float(((got.double() - want.double()) ** 2).mean())
     assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= min_db
+
+
+@pytest.mark.parametrize("shape, pad, dt, tol", [
+    ((1, 3, 481, 637), 12, torch.float32, 1e-4),     # tiles stage, ragged
+    ((1, 3, 481, 637), 12, torch.bfloat16, 2.0 ** -7),
+    ((6, 1, 280, 240), 0, torch.float32, 1e-4),      # blocked-route blocks
+    ((6, 1, 280, 240), 0, torch.bfloat16, 2.0 ** -7),
+])
+def test_cuda_spectral_poly_ragged_matches_plain(cuda_dev, shape, pad, dt,
+                                                 tol):
+    """Ragged M / N / K against the 128 x 128 x 64 GEMM tiles: odd canvas
+    rows (h = 505) and an M that is no multiple of 128 (280)."""
+    n, c, ph, pw = shape
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(30))
+    view = TileView.of_tiles(x.to(cuda_dev).to(dt))
+    a, b, cq = _quad_forms(np.random.default_rng(31), n)
+    tabs = stage_tables(ph, pw, dt, str(cuda_dev), pad)
+    q2 = kernel_spectrum(_est_rows(a, b, cq).to(cuda_dev),
+                         _mega_pack(*COEFFS, device=cuda_dev), tabs)
+    before = dict(pcuda.launches)
+    got = spectral_poly(view, q2, tabs, clip=False)
+    assert _counts(before, "spectral_gemm") == 4
+    want = spectral_poly_plain(view, q2, tabs, clip=False)
+    assert got.shape == shape and got.dtype == dt
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dt, tol", [(torch.float32, 1e-4),
+                                     (torch.bfloat16, 2.0 ** -7)])
+def test_cuda_spectral_poly_taper_pair_noise_alias(cuda_dev, dt, tol):
+    """The taper's pair (the tile padded onto the whole canvas, f32 out;
+    the canvas cropped back), the noise epilogue with f32 and work-dtype
+    out, and an output that aliases the input."""
+    view = _canvas_view(cuda_dev, dt, 32)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    tabs = stage_tables(160, 160, dt, str(cuda_dev))
+    q2 = kernel_spectrum(tile_estimate(view, coeffs), coeffs, tabs)
+    f32 = torch.float32
+    canvas = spectral_poly(view, q2, tabs, crop=0, clip=False, out_dtype=f32)
+    want = spectral_poly_plain(view, q2, tabs, crop=0, clip=False,
+                               out_dtype=f32)
+    assert canvas.shape == (view.n, 3, 184, 184)
+    assert float((canvas - want).abs().max()) <= tol
+    cv = TileView.of_tiles(want)
+    noise = 0.01 * torch.randn((view.n, 3, 160, 160), generator=torch
+                               .Generator().manual_seed(33)).to(cuda_dev)
+    for odt in (f32, dt):
+        got = spectral_poly(cv, q2, tabs, pad=0, noise=noise, out_dtype=odt)
+        ref = spectral_poly_plain(cv, q2, tabs, pad=0, noise=noise,
+                                  out_dtype=odt)
+        assert got.dtype == odt
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+    x = view.tiles().clone()
+    ref = spectral_poly_plain(TileView.of_tiles(x), q2, tabs)
+    got = spectral_poly(TileView.of_tiles(x), q2, tabs, out=x)
+    assert got.data_ptr() == x.data_ptr()
+    assert float((x.float() - ref.float()).abs().max()) <= tol
+
+
+def test_cuda_edge_pad_cast_unaligned(cuda_dev):
+    """Odd left pads and source widths, a source that starts off a
+    16-byte boundary, rows of the canvas that start off one, every pair
+    of dtypes: bit-equal to the plain version."""
+    g = torch.Generator().manual_seed(34)
+    big = torch.rand((2, 3, 41, 133), generator=g).to(cuda_dev)
+    for src in (big, big[1:], big[:, :, :, 3:].contiguous()):
+        h, w = src.shape[-2] - 1, src.shape[-1] - 1
+        for pads in ((3, 4, 5, 7), (0, 1, 1, 0), (68, 68, 144, 144)):
+            for idt in (torch.float32, torch.bfloat16):
+                for odt in (torch.float32, torch.bfloat16):
+                    x = src.to(idt)
+                    got = edge_pad_cast(x, (h, w), pads, odt)
+                    want = edge_pad_cast_plain(x, (h, w), pads, odt)
+                    assert torch.equal(got, want), (tuple(x.shape), pads,
+                                                    idt, odt)
