@@ -9,7 +9,12 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (the 12 MP bench image, 448 px tiles, C = 3) in bf16
    and f32, and times kernel, plain version and — where one PyTorch call
-   computes the same function — that call;
+   computes the same function — that call; for the blur estimate also the
+   smallest relative tie margin of the blur direction over the 88 tiles,
+   each of its four launches (the gray pass's min/max and normalize, the
+   derivative GEMM pair with its TFLOP/s, the final stage) at 12 MP, config
+   2 and 480 x 640, and ``torch.matmul`` of the same GEMM pair as its
+   yardstick;
 4. drives the main path once through ``polyblur_torch.deblur_patches``
    (bench.py's image and arguments: 448/384 tiles, bf16 work dtype, f32
    output, 3 iterations) with every launch counter zeroed just before and
@@ -35,7 +40,8 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    3 x 4 = 12 tiles on a 1216 x 1600 canvas): ``bilateral`` on the whole
    image and on the tiles, ``iir_scan_rows`` (row and column passes) on the
    whole image and on the tiles, ``dt_coeffs``, the taper (weights and
-   blends) and the halo (input gradients and mask) stages on the tiles;
+   blends) and the halo (input gradients and mask, each GEMM launch timed
+   with its TFLOP/s) stages on the tiles;
    then drives config 2 (``deblur_patches``, bf16 work dtype, taper + dt
    prefilter + halo), 2b (the same in f32), 2c (``polyblur_core(method=
    'fft')``), ``polyblur_deblurring`` with every flag (the bilateral
@@ -101,6 +107,8 @@ CFG2_KW = dict(PATH_KW, remove_halo=True, edgetaping=True, prefiltering=True,
                smoother="domain_transform")
 FLAGS_KW = dict(remove_halo=True, edgetaping=True, prefiltering=True)
 BILATERAL_FLOPS_PX = 25 * 8 + 2  # per tap: sub, 2 mul, exp, 2 mul, 2 add
+LIBRARY_GEMM_PAIR = ("GEMM pair only: torch.matmul of x Dw^T and Dh x in f32, "
+                     "TF32 off")
 SOURCES = {
     "edge_pad_cast": ("polyblur_torch/csrc/pad_cast.cu",
                       "polyblur_tpu/ops/pallas/pad_cast.py:200"),
@@ -296,6 +304,60 @@ def spectral_modes(view, q2, tabs, label: str, clip: bool = True) -> float:
     return ms
 
 
+def gemm_pair_flops(n: int, ph: int, pw: int) -> float:
+    """Flops of the derivative GEMM pair gx = g Dw^T, gy = Dh g on n
+    (ph, pw) planes, as dense f32 GEMMs."""
+    return 2.0 * n * ph * pw * (ph + pw)
+
+
+def estimate_stages(view, coeffs, label: str) -> dict:
+    """Print the CUDA-event time of each launch of the estimate kernel on
+    ``view`` — the gray pass's min/max and normalize launches, the
+    derivative GEMM pair (with its TFLOP/s as dense f32 GEMMs) and the
+    final stage — and return them. The launches are counted under a name
+    of their own, which no path check reads."""
+    from polyblur_torch.ops.cuda.polyblur_fused import estimate_launches
+
+    _, _, runs = estimate_launches(view, "estimate_timing", coeffs)
+    for run in runs:
+        run()  # the scratch of a real estimate
+    ms = {k: cuda_ms(run) for k, run in zip(("minmax", "norm", "gemm",
+                                              "final"), runs)}
+    ph, pw = view.patch
+    print(f"  {label}: gray pass {ms['minmax'] + ms['norm']:.4f} ms (min/max "
+          f"{ms['minmax']:.4f}, normalize {ms['norm']:.4f}), GEMM pair "
+          f"{ms['gemm']:.4f} ms = "
+          f"{gemm_pair_flops(view.n, ph, pw) / ms['gemm'] / 1e9:.1f} TFLOP/s"
+          f", final {ms['final']:.4f} ms")
+    return ms
+
+
+def gemm_pair_library_ms(x) -> float:
+    """``torch.matmul`` of the derivative pair on the (..., ph, pw) f32
+    planes ``x`` (TF32 off): the yardstick of the kernels' GEMM pair."""
+    import torch
+
+    from polyblur_torch.ops.cuda.polyblur_fused import estimate_tables
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    t = estimate_tables(x.shape[-2], x.shape[-1], str(x.device))
+    dwt = t.dw.T.contiguous()
+    return cuda_ms(lambda: (torch.matmul(x, dwt), torch.matmul(t.dh, x)))
+
+
+def tie_margins(view):
+    """Per tile, the relative gap between the second-smallest and the
+    smallest interpolated directional maximum (the plain version's): how
+    far the theta argmin is from a tie."""
+    import torch
+
+    from polyblur_torch.ops.cuda.polyblur_fused import _directional_vals_plain
+
+    vals = _directional_vals_plain(view)
+    srt = torch.sort(vals, -1).values
+    return vals, (srt[:, 1] - srt[:, 0]) / srt[:, 0]
+
+
 def redesign_checks(dev, img2) -> None:
     """The shapes the Hopper redesign of ``spectral_gemm`` (TMA boxes,
     128 x 128 x 64 tiles, stacked layouts) and of ``edge_pad_cast``
@@ -395,9 +457,9 @@ def whole_image_kernels(dev, report: dict) -> None:
     from polyblur_torch.ops.cuda.est_fused import (directional_maxima,
                                                    directional_maxima_plain)
     from polyblur_torch.ops.cuda.polyblur_fused import (
-        TileView, kernel_spectrum, kernel_spectrum_plain, spectral_poly,
-        spectral_poly_plain, spectrum_plain, stage_tables, tile_estimate,
-        tile_estimate_plain)
+        TileView, _gray_norm_plain, kernel_spectrum, kernel_spectrum_plain,
+        spectral_poly, spectral_poly_plain, spectrum_plain, stage_tables,
+        tile_estimate, tile_estimate_plain)
     from polyblur_torch.ops.cuda.sep_poly_fused import (
         fused_polynomial, fused_polynomial_plain)
     from polyblur_torch.pipeline import _mega_pack
@@ -474,13 +536,22 @@ def whole_image_kernels(dev, report: dict) -> None:
               f"{cuda_ms(lambda: directional_maxima(xs)):.3f} ms")
         if shape[0] == 1:
             _, _, hh, ww = shape
+            estimate_stages(TileView.of_tiles(xs), coeffs,
+                            f"directional_maxima[{shape}]")
             report["directional_maxima"] = dict(
                 max_abs_err=float((m - m_p).abs().max()),
                 ms=cuda_ms(lambda: directional_maxima(xs)),
                 plain_ms=cuda_ms(lambda: directional_maxima_plain(xs)),
-                library_ms=None,
+                library_ms=gemm_pair_library_ms(
+                    _gray_norm_plain(TileView.of_tiles(xs))),
+                library_what=LIBRARY_GEMM_PAIR,
                 bound=bound_ms(xs.numel() * 4 + m.numel() * 4,
                                maxima_flops(shape[1], hh, ww), "f32"))
+
+    # -- the estimate of the 480 x 640 tiles route (one tile, n = 1)
+    estimate_stages(TileView.of_tiles(photo[:, :, :480, :640].contiguous()),
+                    coeffs, "tile_estimate[f32, 1 x 3 x 480 x 640, tiles "
+                    "route]")
 
     # -- tiles mode: one iteration's stages on an odd rectangle whose 2h is
     # not a multiple of 16 (h = 505, wc = 661, kp = 384)
@@ -777,6 +848,9 @@ def feature_kernels(dev, img2, report: dict) -> None:
           f"[{view.n} x 3 x 448^2, smooth + noise]: max_abs_err {err:.3e}, "
           f"{cuda_ms(lambda: scan_cols(scan_rows(view, vh), vv, src=view)):.3f} ms")
 
+    estimate_stages(view, coeffs, f"tile_estimate[bf16, {view.n} x 3 x "
+                    "448^2, config 2]")
+
     # -- taper: the weights and the 3 blends of one iteration on the tiles,
     # each blend with its own K u, made as the path makes it (K applied to
     # the previous blend)
@@ -840,12 +914,22 @@ def feature_kernels(dev, img2, report: dict) -> None:
     def halo(g=halo_grads, m=halo_mask):
         return m(o, g(view), smooth, nz, out)
 
+    pair = gemm_pair_flops(view.n * 3, 448, 448)
+    for what, fn in (("input gradients (epi 1)", lambda: halo_grads(view)),
+                     ("mask (epi 2)", lambda: halo_mask(o, grads, smooth, nz,
+                                                        out))):
+        ms = cuda_ms(fn)
+        print(f"  halo GEMM pair, {what}, {view.n} x 3 x 448^2: {ms:.4f} ms "
+              f"= {pair / ms / 1e9:.1f} TFLOP/s")
+    xin = view.tiles().float()
     grad_flops = 3.0 * fft_flops(448, 448) + 4.0 * 448 * (448 // 2 + 1)
     report["halo"] = dict(
         max_abs_err=err, ms=cuda_ms(halo),
         plain_ms=cuda_ms(lambda: halo(halo_grads_plain, halo_mask_plain),
                          reps=3),
-        library_ms=None,
+        # the pair on the input planes and on o
+        library_ms=gemm_pair_library_ms(xin) + gemm_pair_library_ms(o),
+        library_what=LIBRARY_GEMM_PAIR + ", on the input planes and on o",
         # the canvas, o, u_cmp and the noise read once, the bf16 tiles
         # written once; the gradients are intermediates
         bound=bound_ms(canvas.numel() * 2 + tiles_el * (4 + 4 + 4 + 2),
@@ -928,7 +1012,7 @@ def main() -> int:
     from polyblur_torch.ops.cuda.pad_cast import (edge_pad_cast,
                                                    edge_pad_cast_plain)
     from polyblur_torch.ops.cuda.polyblur_fused import (
-        HALF, TileView, _directional_vals_plain, kernel_spectrum,
+        HALF, TileView, _gray_norm_plain, kernel_spectrum,
         kernel_spectrum_plain, spectral_poly, spectral_poly_plain,
         stage_tables, tile_estimate, tile_estimate_plain)
     from polyblur_torch.patches import (_blend_constants, _grid_steps,
@@ -995,8 +1079,11 @@ def main() -> int:
         est = tile_estimate(view, coeffs)
         est_p = tile_estimate_plain(view, coeffs)
         same = est[:, 0] == est_p[:, 0]
+        vals, margins = tie_margins(view)
+        print(f"tile_estimate[{tag}]: smallest relative tie margin "
+              f"{float(margins.min()):.3e} (tile {int(margins.argmin())}) "
+              f"over {n_tiles} tiles")
         if not bool(same.all()):
-            vals = _directional_vals_plain(view)
             for t in torch.nonzero(~same).flatten().tolist():
                 ik, ip = int(est[t, 0]), int(est_p[t, 0])
                 margin = float((vals[t, ik] - vals[t, ip]) / vals[t, ip])
@@ -1009,13 +1096,17 @@ def main() -> int:
         require(rel <= TOL_REL_EST, f"tile_estimate {tag} rel error {rel}")
         print(f"tile_estimate[{tag}]: theta idx identical on {n_tiles} "
               f"tiles, max rel err {rel:.3e}")
+        estimate_stages(view, coeffs, f"tile_estimate[{tag}, {n_tiles} x "
+                        f"{c} x {ph}^2, 12 MP]")
         if tag == "bf16":
+            g = _gray_norm_plain(view)
             report["tile_estimate"] = dict(
                 max_abs_err=float((est[:, 1:] - est_p[:, 1:]).abs().max()),
                 ms=cuda_ms(lambda: tile_estimate(view, coeffs)),
                 plain_ms=cuda_ms(lambda: tile_estimate_plain(view, coeffs),
                                  reps=3),
-                library_ms=None,
+                library_ms=gemm_pair_library_ms(g),
+                library_what=LIBRARY_GEMM_PAIR,
                 bound=bound_ms(n_tiles * b * c * ph * pw * esz
                                + est.numel() * 4,
                                n_tiles * b * maxima_flops(c, ph, pw), "f32"))
@@ -1093,7 +1184,7 @@ def main() -> int:
                     reps=3),
                 library_ms=None,
                 bound=bound_ms(nb, 0.0, tag))
-        del canvas, ref, view, est, est_p, q2, q2_p, out, out_p, o, o_p
+        del canvas, ref, view, est, est_p, q2, q2_p, out, out_p, o, o_p, vals
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- main path
@@ -1125,7 +1216,7 @@ def main() -> int:
     sec = statistics.median(times)
     print(f"main path 12 MP bf16: {sec * 1e3:.2f} ms median of 5 = "
           f"{H * W / 1e6 / sec:.2f} MP/s on {card}")
-    per_call = dict(tile_estimate=3, spectral_gemm=4)
+    per_call = dict(tile_estimate=4, spectral_gemm=4)
     floor = sum(report[k]["bound"][0] * launches[k] / per_call.get(k, 1)
                 for k in NAMES)
     print(f"main path bound: {floor:.4f} ms (the kernel rows' bounds times "
@@ -1206,8 +1297,9 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
-        if "tile_stage" in r:
-            rows[-1]["tile_stage"] = r["tile_stage"]
+        for extra in ("library_what", "tile_stage"):
+            if extra in r:
+                rows[-1][extra] = r[extra]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,65 +9,162 @@
 //
 // The TPU program keeps the whole tile in VMEM; a 448 px tile's f32
 // gradient fields do not fit an SM's shared memory, so the stage runs as
-// three launches over the tile batch:
-//   (1) tile_gray_norm   one block per tile: gray = mean over channels,
-//                        block-reduced min/max, normalized gray g written
-//                        to an f32 scratch; zeroes the tile's 7 maxima;
-//   (2) tile_est_gemm    gx = g Dw^T and gy = Dh g as one hand-tiled f32
-//                        GEMM pair over the same 64 x 64 output block; the
-//                        epilogue reduces max |cos t gx - sin t gy| for the
-//                        7 angles and atomicMax-es the float bits (valid:
-//                        the values are >= 0);
-//   (3) tile_est_final   one warp per tile: interpolation, argmin, model.
+// four launches over the tile batch:
+//   (1) gray_minmax   grid (bands, tiles): each block takes a band of rows
+//                     of one tile, forms gray = (sum of channels) * (1/C)
+//                     and writes its (min, max) to an (n, bands, 2)
+//                     scratch; the band height is chosen so that the grid
+//                     has ~1024 blocks at any tile count (one 480 x 640
+//                     image: 480 one-row bands). Band 0 zeroes the tile's 7
+//                     maxima;
+//   (2) gray_norm     32 x 32 blocks: g = clip((gray - min) / range), min
+//                     and max folded from the band partials, split for the
+//                     tensor cores and written as g and its transpose (the
+//                     K-major operands of gx's A and gy's B);
+//   (3) est_gemm      gx = g Dw^T and gy = Dh g on the tensor cores; the
+//                     epilogue reduces max |cos t gx - sin t gy| for the 7
+//                     angles and atomicMax-es the float bits (valid: the
+//                     values are >= 0);
+//   (4) tile_est_final one warp per tile: interpolation, argmin, model.
+// The gray value, its min/max and the normalization keep the plain
+// version's operations in its order (__fadd_rn / __fmul_rn / __fdiv_rn),
+// so g is bit-equal to it. Passes (1)-(2) are elementwise with a
+// reduction, which Triton would serve as well; they stay CUDA C++ because
+// (2) writes the layout of the TMA maps (tf32 hi / lo planes, 16-byte
+// rows) that (3) encodes in C++.
 //
-// Stages (1)-(2) alone are also the directional-maxima reduction of the
+// Stages (1)-(3) alone are also the directional-maxima reduction of the
 // whole-image estimate, replacing polyblur_tpu/ops/pallas/est_fused.py::
 // directional_maxima_pallas (the (B, 7) maxima of the normalized channel
 // mean, for C = 1 or 3): the wrapper ops/cuda/est_fused.py launches stages
-// 1 and 2 and reads `maxima`. Stage (1) is one block per image, so at
-// B = 1 it runs on one SM: correct, and slow at whole-image sizes (a split
-// reduction is later work).
+// 1-3 and reads `maxima`.
 //
-// The same GEMM pair, with other epilogues, is the halo mask of the mega
+// The same GEMM, with other epilogues, is the halo mask of the mega
 // kernel's do_halo flag (polyblur_fused.py:288-302, :503-512): once per
-// call the input tiles' gradients and the per-plane sum nM of
-// |grad|^2 (`pb_halo_gemm` epi 1; the TPU hoists them when they fit VMEM,
-// here they always fit device memory), then per iteration the gradients
-// of the output o fed straight into the mask, clip, noise and store
-// (epi 2), so the output gradients never leave registers.
+// call the input tiles' gradients and the per-plane sum nM of |grad|^2
+// (`pb_halo_gemm` epi 1; the TPU hoists them when they fit VMEM, here
+// they always fit device memory), then per iteration the gradients of the
+// output o fed straight into the mask, clip, noise and store (epi 2), so
+// the output gradients never leave registers.
 //
-// Bound on the H100: operations — 2 * ph^3 f32 MACs per tile in (2)
-// against the 67 TFLOP/s f32 rate (the products stay f32, as in the TPU
-// kernel's f32 estimation path); (1) and (3) are small. Design: (2) is a
-// shared-memory tiled FMA GEMM (4 x 4 outputs per thread for both gx and
-// gy), the maxima never leave registers except for one atomic per angle
-// and block.
+// Bound on the H100: operations — 2 ph pw (ph + pw) MACs per plane in (3),
+// 0.36 G per 448 px tile; (1) reads the tiles once, (2) reads them and
+// writes 16 bytes per pixel (g and g^T, hi and lo: 282 MB per 12 MP call,
+// read back by (3) through L2), (4) is small.
+// Design of (3): 64 x 64 output tiles (448 = 7 x 64; ragged edges masked in
+// the epilogue), one persistent block per SM walking them, so that the
+// next tile's loads overlap this tile's epilogue. Four warpgroups: two
+// consumers running wgmma m64n64k8 on tf32, one for gx and one for gy of
+// the same tile (gy reaches the first through shared memory for the
+// epilogue, which combines them per pixel), and two producers. K steps of
+// 32 through a ring of 3 shared-memory stages of 64 KB, all operands
+// K-major in the 128-byte swizzle: the constant tables Dw and Dh arrive by
+// TMA from a host-split hi/lo copy; the estimate's g and g^T by TMA from
+// stage 2's planes (one producer thread issues all 8 boxes). The halo's
+// operand planes (the input tiles through any TileView, bf16 or f32, or
+// the f32 iterate o) are written by the two producer warpgroups, each
+// filling alternate K steps so that two steps' loads are in flight:
+// 16-byte vector loads, all of a thread's issued before the first is
+// used, where every tile origin and row pitch allows it (a template case;
+// scalar loads otherwise), split into hi/lo and transposed for gy's B as
+// they are stored. That keeps the halo at one launch per epilogue and adds
+// no device-memory bytes (each row band of a plane is read by the 7
+// output tiles along it, all but the first from L2); TMA could not take
+// those planes: bf16, or views whose origin or pitch is not 16-byte
+// aligned, and tf32 wgmma cannot transpose from shared memory (it takes
+// K-major operands only).
+//
+// Precision: 3xTF32 (a = hi + lo, hi = a rounded to the nearest tf32, lo =
+// tf32(a - hi); a b ~ hi lo + lo hi + hi hi in f32): each product is off by
+// at most ~3 * 2^-22 of |a b| (the dropped lo lo and the rounding of lo),
+// against the plain version's exact-f32 products; the counterpart of the
+// TPU kernel's error-compensated bf16x3 estimate (_EST_DOT_COMPENSATED),
+// whose ~2^-17 split error would not keep the gates.
+// tests/test_torch_estimate_precision.py emulates this split on the CPU.
+#include <cstdio>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kAngles = 7;   // n_angles + 1
 constexpr int kInterp = 30;  // n_interpolated_angles
 
-template <typename T>
-__global__ void tile_gray_norm_kernel(pb::TileView v, int C, int ph, int pw,
-                                      float* __restrict__ g,
-                                      float* __restrict__ maxima) {
-  const int n = blockIdx.x;
-  const T* src = static_cast<const T*>(v.ptr);
-  const int npx = ph * pw;
-  const float inv_c = 1.0f / static_cast<float>(C);
-  __shared__ float smin[32], smax[32];
-  float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
-  for (int e = threadIdx.x; e < npx; e += blockDim.x) {
-    const int y = e / pw, x = e - (e / pw) * pw;
-    float gray = pb::to_f32(src[v.offset(n, 0, y, x)]);
-    for (int c = 1; c < C; ++c)
-      gray = __fadd_rn(gray, pb::to_f32(src[v.offset(n, c, y, x)]));
-    gray = __fmul_rn(gray, inv_c);
-    lo = fminf(lo, gray);
-    hi = fmaxf(hi, gray);
+// ---------------------------------------------------------------- gray
+
+// 8 consecutive source values at p as f32 (16-byte aligned p).
+__device__ __forceinline__ void load8(const pb::bf16* p, float (&f)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// The gray values (sum of C channels sC apart, times inv_c) of the nv <= 8
+// pixels at p; the others 0. VEC: p is 16-byte aligned and, when nv == 8,
+// read as vectors.
+template <typename S, bool VEC>
+__device__ __forceinline__ void gray8(const S* p, long long sC, int C,
+                                      float inv_c, int nv, float (&g)[8]) {
+  if (VEC && nv == 8) {
+    load8(p, g);
+    for (int c = 1; c < C; ++c) {
+      float f[8];
+      load8(p + c * sC, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g[e] = __fadd_rn(g[e], f[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float v = 0.f;
+      if (e < nv) {
+        v = pb::to_f32(p[e]);
+        for (int c = 1; c < C; ++c)
+          v = __fadd_rn(v, pb::to_f32(p[c * sC + e]));
+      }
+      g[e] = v;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) g[e] = __fmul_rn(g[e], inv_c);
+}
+
+// Stage 1: per (band, tile) the min and max of the gray values.
+template <typename S, bool VEC>
+__global__ void __launch_bounds__(256)
+gray_minmax_kernel(pb::TileView v, int C, int ph, int pw, int rows,
+                   float* __restrict__ mm, float* __restrict__ maxima) {
+  const int band = blockIdx.x, n = blockIdx.y, bands = gridDim.x;
+  const S* base = static_cast<const S*>(v.ptr) + v.offset(n, 0, 0, 0);
+  const float inv_c = 1.0f / static_cast<float>(C);
+  const int r0 = band * rows, nr = min(ph, r0 + rows) - r0;
+  const int segs = (pw + 7) / 8;
+  float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
+  for (int e = threadIdx.x; e < nr * segs; e += blockDim.x) {
+    const int y = r0 + e / segs, x = (e % segs) * 8;
+    const int nv = min(8, pw - x);
+    float g[8];
+    gray8<S, VEC>(base + (long long)y * v.sR + x, v.sC, C, inv_c, nv, g);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < nv) {
+        lo = fminf(lo, g[k]);
+        hi = fmaxf(hi, g[k]);
+      }
+  }
+  __shared__ float smin[8], smax[8];
   for (int o = 16; o > 0; o >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
@@ -78,60 +175,146 @@ __global__ void tile_gray_norm_kernel(pb::TileView v, int C, int ph, int pw,
     smax[warp] = hi;
   }
   __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x / 32;
-    lo = lane < nw ? smin[lane] : __int_as_float(0x7f800000);
-    hi = lane < nw ? smax[lane] : -__int_as_float(0x7f800000);
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < blockDim.x / 32; ++w) {
+      lo = fminf(lo, smin[w]);
+      hi = fmaxf(hi, smax[w]);
     }
-    if (lane == 0) {
-      smin[0] = lo;
-      smax[0] = hi;
-    }
+    mm[((long long)n * bands + band) * 2] = lo;
+    mm[((long long)n * bands + band) * 2 + 1] = hi;
   }
-  __syncthreads();
-  const float vmin = smin[0];
-  const float range = fmaxf(__fsub_rn(smax[0], vmin), 1e-8f);
-  float* gt = g + (long long)n * npx;
-  for (int e = threadIdx.x; e < npx; e += blockDim.x) {
-    const int y = e / pw, x = e - (e / pw) * pw;
-    float gray = pb::to_f32(src[v.offset(n, 0, y, x)]);
-    for (int c = 1; c < C; ++c)
-      gray = __fadd_rn(gray, pb::to_f32(src[v.offset(n, c, y, x)]));
-    gray = __fmul_rn(gray, inv_c);
-    gt[e] = fminf(fmaxf(__fdiv_rn(__fsub_rn(gray, vmin), range), 0.f), 1.f);
-  }
-  if (threadIdx.x < kAngles) maxima[n * kAngles + threadIdx.x] = 0.f;
+  if (band == 0 && threadIdx.x < kAngles) maxima[n * kAngles + threadIdx.x] = 0.f;
 }
 
-constexpr int EB = 64;   // output block edge
-constexpr int EK = 16;   // k step
-constexpr int ET = 256;  // threads: 16 x 16, 4 x 4 outputs each
+// Row pitch of the normalized planes: a whole number of 16 bytes, as TMA
+// needs.
+__host__ __device__ inline int pitch4(int n) { return (n + 3) / 4 * 4; }
+
+// Stage 2: g = clip((gray - min) / range) of every tile (min and max folded
+// from the band partials), split into tf32 hi and lo and written in both
+// layouts the GEMM's TMA maps read: g (n, 2, ph, pitch4(pw)) and its
+// transpose g^T (n, 2, pw, pitch4(ph)), hi then lo. One 32 x 32 block of a
+// tile per thread block; the transpose goes through shared memory.
+template <typename S>
+__global__ void __launch_bounds__(256)
+gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
+                 const float* __restrict__ mm, float* __restrict__ g2,
+                 float* __restrict__ gt2) {
+  __shared__ float sh[32][33], sl[32][33];
+  __shared__ float sr[8][2];
+  const int n = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * 32 + tx;
+  float lo = __int_as_float(0x7f800000), hi = -lo;
+  for (int b = tid; b < bands; b += 256) {
+    lo = fminf(lo, mm[((long long)n * bands + b) * 2]);
+    hi = fmaxf(hi, mm[((long long)n * bands + b) * 2 + 1]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (tx == 0) {
+    sr[ty][0] = lo;
+    sr[ty][1] = hi;
+  }
+  __syncthreads();
+  for (int w = 0; w < 8; ++w) {
+    lo = fminf(lo, sr[w][0]);
+    hi = fmaxf(hi, sr[w][1]);
+  }
+  const float vmin = lo, range = fmaxf(__fsub_rn(hi, lo), 1e-8f);
+  const S* base = static_cast<const S*>(v.ptr) + v.offset(n, 0, 0, 0);
+  const float inv_c = 1.0f / static_cast<float>(C);
+  const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
+  const int ldp = pitch4(pw), ldq = pitch4(ph);
+  const long long pg = (long long)ph * ldp, pt = (long long)pw * ldq;
+  float* gh = g2 + 2 * n * pg;
+  const int x = x0 + tx;
+  float raw[4][3];  // the loads of 3 channels in flight before any is used
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = y0 + ty + 8 * i;
+    const S* q = base + (long long)y * v.sR + x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      raw[i][c] = y < ph && x < pw && c < C ? pb::to_f32(q[c * v.sC]) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = y0 + ty + 8 * i;
+    float h = 0.f, l = 0.f;
+    if (y < ph && x < pw) {
+      float g = raw[i][0];
+#pragma unroll
+      for (int c = 1; c < 3; ++c)
+        if (c < C) g = __fadd_rn(g, raw[i][c]);
+      const S* q = base + (long long)y * v.sR + x;
+      for (int c = 3; c < C; ++c) g = __fadd_rn(g, pb::to_f32(q[c * v.sC]));
+      g = __fmul_rn(g, inv_c);
+      g = fminf(fmaxf(__fdiv_rn(__fsub_rn(g, vmin), range), 0.f), 1.f);
+      h = pb::tf32_hi(g);
+      l = pb::tf32_hi(g - h);
+      gh[(long long)y * ldp + x] = h;
+      gh[pg + (long long)y * ldp + x] = l;
+    }
+    sh[ty + 8 * i][tx] = h;
+    sl[ty + 8 * i][tx] = l;
+  }
+  __syncthreads();
+  float* th = gt2 + 2 * n * pt;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int xr = x0 + ty + 8 * i, yc = y0 + tx;
+    if (xr < pw && yc < ph) {
+      th[(long long)xr * ldq + yc] = sh[tx][ty + 8 * i];
+      th[pt + (long long)xr * ldq + yc] = sl[tx][ty + 8 * i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- GEMM
+
+constexpr int TM = 64, TN = 64;   // output tile
+constexpr int TK = 32;            // K per stage: one 128-byte f32 row
+constexpr int STAGES = 3;
+constexpr int WG = 128;           // threads of a warpgroup
+// warpgroups: 0 gx consumer, 1 gy consumer, 2 and 3 producers of the even
+// and odd K steps
+constexpr int NCONS = 2 * WG;
+constexpr int NT = 4 * WG;
+constexpr int BUF = 64 * 128;     // one 64-row x 32 f32 operand, 8 KB
+// the buffers of a stage: data operand hi / lo as gx's A (g rows y0..) and
+// as gy's B (g^T rows x0..), then the tables by TMA
+enum { kAh = 0, kAl, kBh, kBl, kDwh, kDwl, kDhh, kDhl, kBufs };
+constexpr int STAGE = kBufs * BUF;
+constexpr int XCHG = TM * TN * 4;  // gy of a tile, handed to warpgroup 0
+constexpr int SMEM = STAGES * STAGE + XCHG + 1024;
+// named barriers: 1 both consumer warpgroups, 2 warpgroup 0
+constexpr int kBarCons = 1, kBarWg0 = 2;
 
 // Epilogues of the derivative GEMM pair (gx = g Dw^T, gy = Dh g):
 //   kMaxima  the 7 directional maxima of the estimate (atomicMax per tile);
+//            the operand is the normalized gray of the tile's C channels;
 //   kGrads   the halo mask's input gradients: gx, gy written in f32, and
-//            per block the partial sum of gx^2 + gy^2 (its plane's nM is
-//            the sum of the partials, taken in block order);
+//            per output tile the partial sum of gx^2 + gy^2 (its plane's
+//            nM is the sum of the partials, taken in tile order);
 //   kHalo    the gradient-inversion mask of the output o (the GEMM's
 //            operand): M = -(gx0 gox) - (gy0 goy), z = max(M / (nM + M +
 //            1e-12), 0), o + z (u - o), clipped to [0, 1], plus the
 //            prefilter's noise and clipped again when given, stored in the
 //            work dtype (polyblur_fused.py:503-517).
+// The halo's operand planes are p = (p / C, p % C) of the view.
 enum Epilogue { kMaxima = 0, kGrads = 1, kHalo = 2 };
 
 struct EstGemm {
-  pb::TileView src;   // the operand planes; plane p = (p / C, p % C)
+  pb::TileView src;   // the operand tiles
   int C, ph, pw;
-  const float* dw;    // (pw, pw)
-  const float* dh;    // (ph, ph)
+  int planes;         // kMaxima: tiles; halo: tiles x C
   const float* cs;    // kMaxima: (7, 2) cos, sin
   float* maxima;      // kMaxima: (n, 7)
   float* gx;          // kGrads: (planes, ph, pw) out; kHalo: gx0 in
   float* gy;          //   "  gy0
-  float* part;        // kGrads: (planes, nblk) out; kHalo: in
+  float* part;        // kGrads: (planes, ntile) out; kHalo: in
   pb::TileView ucmp;  // kHalo: the unfiltered planes u
   int ucmp_dtype;
   const float* noise; // kHalo: (planes, ph, pw) f32 or null
@@ -139,117 +322,410 @@ struct EstGemm {
   int out_dtype;
 };
 
-template <int EPI, typename S>
-__global__ void __launch_bounds__(ET) tile_est_gemm_kernel(EstGemm p) {
-  // transposed A tiles padded to EB + 1 columns: conflict-free stores
-  __shared__ float Ag[EK][EB + 1];  // g[y0 + i][k]
-  __shared__ float Aw[EK][EB + 1];  // Dw[x0 + j][k]   (B of gx, transposed)
-  __shared__ float Ah[EK][EB + 1];  // Dh[y0 + i][k]
-  __shared__ float Bg[EK][EB];      // g[k][x0 + j]    (B of gy)
-  __shared__ float red[ET / 32][kAngles];
-  __shared__ float s_nm;
-  const int ph = p.ph, pw = p.pw;
-  const float* __restrict__ dw = p.dw;
-  const float* __restrict__ dh = p.dh;
-  const int pl = blockIdx.z;
-  const int n = pl / p.C, c = pl - (pl / p.C) * p.C;
-  const int y0 = blockIdx.y * EB, x0 = blockIdx.x * EB;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const S* gt = static_cast<const S*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
-  const long long sR = p.src.sR;
-  float ax[4][4], ay[4][4];
+// 8 f32 of the 16-byte words r (bf16: one word, f32: two).
+__device__ __forceinline__ void unpack8(const uint4* r, pb::bf16, float (&f)[8]) {
+  const uint32_t w[4] = {r[0].x, r[0].y, r[0].z, r[0].w};
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) ax[r][s] = ay[r][s] = 0.f;
-  const int kmax = max(ph, pw);
-  for (int k0 = 0; k0 < kmax; k0 += EK) {
-#pragma unroll
-    for (int q = 0; q < (EB * EK) / ET; ++q) {
-      const int e = tid + q * ET;
-      const int r = e / EK, kk = e % EK, k = k0 + kk;
-      const int yi = y0 + r, xj = x0 + r;
-      Ag[kk][r] =
-          (yi < ph && k < pw) ? pb::to_f32(gt[(long long)yi * sR + k]) : 0.f;
-      Aw[kk][r] = (xj < pw && k < pw) ? dw[(long long)xj * pw + k] : 0.f;
-      Ah[kk][r] = (yi < ph && k < ph) ? dh[(long long)yi * ph + k] : 0.f;
-      const int kr = k0 + e / EB, cj = x0 + e % EB;
-      Bg[e / EB][e % EB] =
-          (kr < ph && cj < pw) ? pb::to_f32(gt[(long long)kr * sR + cj]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < EK; ++kk) {
-      float a1[4], a2[4], b1[4], b2[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a1[r] = Ag[kk][ty + 16 * r];
-        a2[r] = Ah[kk][ty + 16 * r];
-        b1[r] = Aw[kk][tx + 16 * r];
-        b2[r] = Bg[kk][tx + 16 * r];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          ax[r][s] = fmaf(a1[r], b1[s], ax[r][s]);
-          ay[r][s] = fmaf(a2[r], b2[s], ay[r][s]);
-        }
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  const int warp = tid / 32, lane = tid % 32;
-  const long long plane = (long long)pl * ph * pw;
-  if (EPI == kGrads) {
-    float part = 0.f;
+}
+
+__device__ __forceinline__ void unpack8(const uint4* r, float, float (&f)[8]) {
+  f[0] = __uint_as_float(r[0].x); f[1] = __uint_as_float(r[0].y);
+  f[2] = __uint_as_float(r[0].z); f[3] = __uint_as_float(r[0].w);
+  f[4] = __uint_as_float(r[1].x); f[5] = __uint_as_float(r[1].y);
+  f[6] = __uint_as_float(r[1].z); f[7] = __uint_as_float(r[1].w);
+}
+
+// The producer's part of one K step of the halo: a 4-row x 8-column block
+// of the plane at src, rows y.., columns x.., as f32 (zero outside the
+// plane). With VEC, whole 8-pixel groups are read as 16-byte words by
+// operand_prefetch, issued a step ahead, and unpacked by operand_values;
+// the other groups are read element-wise by operand_values.
+template <typename S>
+struct OperandBlock {
+  const S* src;
+  int y, x;
+  uint4 raw[4][sizeof(S) / 2];  // 16-byte words per 8 pixels
+};
+
+template <typename S, bool VEC>
+__device__ __forceinline__ void operand_prefetch(const EstGemm& p,
+                                                 OperandBlock<S>& b) {
+  if (!VEC || b.x + 8 > p.pw) return;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 4; ++i)
+    if (b.y + i < p.ph) {
+      const uint4* a = reinterpret_cast<const uint4*>(
+          b.src + (long long)(b.y + i) * p.src.sR + b.x);
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int y = y0 + ty + 16 * r, x = x0 + tx + 16 * s;
-        if (y < ph && x < pw) {
-          const long long o = plane + (long long)y * pw + x;
-          p.gx[o] = ax[r][s];
-          p.gy[o] = ay[r][s];
-          part = __fadd_rn(part, __fadd_rn(__fmul_rn(ax[r][s], ax[r][s]),
-                                           __fmul_rn(ay[r][s], ay[r][s])));
+      for (int w = 0; w < (int)(sizeof(S) / 2); ++w) b.raw[i][w] = __ldg(a + w);
+    }
+}
+
+template <typename S, bool VEC>
+__device__ __forceinline__ void operand_values(const EstGemm& p,
+                                               const OperandBlock<S>& b,
+                                               float (&v)[4][8]) {
+  const int nv = max(0, min(8, p.pw - b.x));
+  if (VEC && nv == 8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (b.y + i < p.ph) {
+        unpack8(b.raw[i], S(), v[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const S* row = b.src + (long long)(b.y + i) * p.src.sR + b.x;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[i][e] = b.y + i < p.ph && e < nv ? pb::to_f32(row[e]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void store16(uint8_t* d, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+// hi / lo of 4 values
+__device__ __forceinline__ void split4(const float (&a)[4], float (&h)[4],
+                                       float (&l)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    h[e] = pb::tf32_hi(a[e]);
+    l[e] = pb::tf32_hi(a[e] - h[e]);
+  }
+}
+
+// One K step of one product on the stage at sa into the fresh accumulator
+// t: 3xTF32 over 32 of K, the small terms first; one MMA group.
+//   warpgroup 0: t = A_g Dw^T    (A = g rows, B = Dw rows)
+//   warpgroup 1: t = Dh B_g^T    (A = Dh rows, B = g^T rows)
+__device__ __forceinline__ void mma_step(uint32_t sa, int wg, float (&t)[32]) {
+  const uint32_t ah = sa + (wg ? kDhh : kAh) * BUF;
+  const uint32_t al = sa + (wg ? kDhl : kAl) * BUF;
+  const uint32_t bh = sa + (wg ? kBh : kDwh) * BUF;
+  const uint32_t bl = sa + (wg ? kBl : kDwl) * BUF;
+  pb::fence_regs(t);
+  pb::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dah = pb::sw128_desc(ah) + 2 * kk;
+    const uint64_t dal = pb::sw128_desc(al) + 2 * kk;
+    const uint64_t dbh = pb::sw128_desc(bh) + 2 * kk;
+    const uint64_t dbl = pb::sw128_desc(bl) + 2 * kk;
+    pb::wgmma_tf32_n64(t, dah, dbl, kk);  // kk == 0 starts from zero
+    pb::wgmma_tf32_n64(t, dal, dbh);
+    pb::wgmma_tf32_n64(t, dah, dbh);
+  }
+  pb::wgmma_commit();
+}
+
+// A tile's output coordinates from the persistent walk index.
+struct TileAt {
+  int pl, y0, x0;
+};
+
+__device__ __forceinline__ TileAt tile_at(const EstGemm& p, int t) {
+  const int tx = (p.pw + TN - 1) / TN, ty = (p.ph + TM - 1) / TM;
+  const int pl = t / (tx * ty), r = t - pl * (tx * ty);
+  return {pl, (r / tx) * TM, (r % tx) * TN};
+}
+
+// Step it of this block's walk (it = j nk + kt: K step kt of its j-th
+// tile) for producer thread t: gx's A block (t < 64: rows y0 + 4 rg ..,
+// columns = k k0 + 8 cg .., rg = t / 4, cg = t % 4) or gy's B block
+// (rows = k k0 + 4 rg .., columns x0 + 8 cg .., stored transposed; rg =
+// (t - 64) % 8, cg = (t - 64) / 8, so that the 8 threads of a
+// quarter-warp store to 8 different 16-byte columns of the swizzle).
+template <typename S>
+__device__ __forceinline__ OperandBlock<S> step_block(const EstGemm& p,
+                                                      int it, int nk, int t,
+                                                      TileAt& at) {
+  const int j = it / nk, k0 = (it - j * nk) * TK;
+  at = tile_at(p, blockIdx.x + j * gridDim.x);
+  const int n = at.pl / p.C, c = at.pl - n * p.C;
+  OperandBlock<S> b;
+  b.src = static_cast<const S*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+  if (t < 64) {
+    b.y = at.y0 + 4 * (t >> 2);
+    b.x = k0 + 8 * (t & 3);
+  } else {
+    b.y = k0 + 4 * ((t - 64) & 7);
+    b.x = at.x0 + 8 * ((t - 64) >> 3);
+  }
+  return b;
+}
+
+// tdw, tdh: the split tables; tg, tgt (kMaxima): the split normalized
+// gray planes g and g^T, (2 n) planes of hi and lo.
+template <int EPI, typename S, bool VEC>
+__global__ void __launch_bounds__(NT, 1)
+est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
+                const __grid_constant__ CUtensorMap tdh,
+                const __grid_constant__ CUtensorMap tg,
+                const __grid_constant__ CUtensorMap tgt, const EstGemm p) {
+  // kMaxima: the whole stage arrives by TMA; the halo's planes are
+  // written by the producer warpgroups
+  constexpr bool TMAD = EPI == kMaxima;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ float red[4][kAngles];
+  __shared__ float s_nm;
+  const uint32_t raw_u32 = pb::smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - raw_u32);
+  float* xchg = reinterpret_cast<float*>(sbase + STAGES * STAGE);
+  const int tid = threadIdx.x, wg = tid / WG, t = tid % WG;
+  const int warp = t / 32, lane = t % 32;
+  const int tiles = p.planes * ((p.ph + TM - 1) / TM) * ((p.pw + TN - 1) / TN);
+  const int mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int nk = (max(p.ph, p.pw) + TK - 1) / TK;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      pb::mbar_init(pb::smem_u32(&full[s]), TMAD ? 1 : 1 + WG / 32);
+      pb::mbar_init(pb::smem_u32(&empty[s]), NCONS);
+    }
+    pb::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg >= 2) {
+    // ------------------------------------------------------- producers
+    if (TMAD) {
+      // one thread: the tables and the gray planes, 8 boxes a step
+      if (tid != 2 * WG) return;
+      for (int it = 0; it < mine * nk; ++it) {
+        const int j = it / nk, kt = it - j * nk;
+        const TileAt at = tile_at(p, blockIdx.x + j * gridDim.x);
+        const int s = it % STAGES, k0 = kt * TK;
+        pb::mbar_wait(pb::smem_u32(&empty[s]), ((it / STAGES) & 1) ^ 1);
+        const uint32_t sa = base + s * STAGE;
+        const uint32_t fb = pb::smem_u32(&full[s]);
+        pb::mbar_arrive_tx(fb, kBufs * BUF);
+        pb::tma_load_3d(sa + kAh * BUF, &tg, k0, at.y0, 2 * at.pl, fb);
+        pb::tma_load_3d(sa + kAl * BUF, &tg, k0, at.y0, 2 * at.pl + 1, fb);
+        pb::tma_load_3d(sa + kBh * BUF, &tgt, k0, at.x0, 2 * at.pl, fb);
+        pb::tma_load_3d(sa + kBl * BUF, &tgt, k0, at.x0, 2 * at.pl + 1, fb);
+        pb::tma_load_3d(sa + kDwh * BUF, &tdw, k0, at.x0, 0, fb);
+        pb::tma_load_3d(sa + kDwl * BUF, &tdw, k0, at.x0, 1, fb);
+        pb::tma_load_3d(sa + kDhh * BUF, &tdh, k0, at.y0, 0, fb);
+        pb::tma_load_3d(sa + kDhl * BUF, &tdh, k0, at.y0, 1, fb);
+      }
+      return;
+    }
+    // warpgroup 2 + q fills the steps it = q, q + 2, .. of this block's
+    // walk; the loads of its next step are in flight while it waits for
+    // a free stage and stores this one
+    const int q = wg - 2, total = mine * nk;
+    const int rg = t < 64 ? t >> 2 : (t - 64) & 7;
+    const int cg = t < 64 ? t & 3 : (t - 64) >> 3;
+    TileAt at, at_next;
+    OperandBlock<S> blk;
+    if (q < total) {
+      blk = step_block<S>(p, q, nk, t, at);
+      operand_prefetch<S, VEC>(p, blk);
+    }
+    for (int it = q; it < total; it += 2) {
+      const int k0 = (it % nk) * TK;
+      float v[4][8];
+      operand_values<S, VEC>(p, blk, v);
+      const TileAt cur = at;
+      if (it + 2 < total) {
+        blk = step_block<S>(p, it + 2, nk, t, at_next);
+        operand_prefetch<S, VEC>(p, blk);
+        at = at_next;
+      }
+      const int s = it % STAGES;
+      pb::mbar_wait(pb::smem_u32(&empty[s]), ((it / STAGES) & 1) ^ 1);
+      const uint32_t sa = base + s * STAGE;
+      const uint32_t fb = pb::smem_u32(&full[s]);
+      if (t == 0) {
+        pb::mbar_arrive_tx(fb, 4 * BUF);
+        pb::tma_load_3d(sa + kDwh * BUF, &tdw, k0, cur.x0, 0, fb);
+        pb::tma_load_3d(sa + kDwl * BUF, &tdw, k0, cur.x0, 1, fb);
+        pb::tma_load_3d(sa + kDhh * BUF, &tdh, k0, cur.y0, 0, fb);
+        pb::tma_load_3d(sa + kDhl * BUF, &tdh, k0, cur.y0, 1, fb);
+      }
+      uint8_t* st = sbase + s * STAGE;
+      float h[4], l[4];
+      if (t < 64) {
+        // odd row groups store their second half first, so that a
+        // quarter-warp's 8 stores meet 8 different 16-byte columns
+        const bool swap = rg & 1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * rg + i;
+#pragma unroll
+          for (int step = 0; step < 2; ++step) {
+            const int hf = step ^ swap;
+            const int off = r * 128 + (((2 * cg + hf) ^ (r & 7)) << 4);
+            float a[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              a[e] = swap ? v[i][4 * (1 - step) + e] : v[i][4 * step + e];
+            split4(a, h, l);
+            store16(st + kAh * BUF + off, h);
+            store16(st + kAl * BUF + off, l);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int jr = 8 * cg + e;
+          const int off = jr * 128 + ((rg ^ (jr & 7)) << 4);
+          const float a[4] = {v[0][e], v[1][e], v[2][e], v[3][e]};
+          split4(a, h, l);
+          store16(st + kBh * BUF + off, h);
+          store16(st + kBl * BUF + off, l);
         }
       }
-    for (int o = 16; o > 0; o >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-    if (lane == 0) red[warp][0] = part;
-    __syncthreads();
-    if (tid == 0) {
-      float v = 0.f;
-      for (int w = 0; w < ET / 32; ++w) v = __fadd_rn(v, red[w][0]);
-      const int nblk = gridDim.x * gridDim.y;
-      p.part[(long long)pl * nblk + blockIdx.y * gridDim.x + blockIdx.x] = v;
+      // one arrival per warp, after every lane's stores are ordered for
+      // the tensor cores
+      pb::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) pb::mbar_arrive(fb);
     }
     return;
   }
-  if (EPI == kHalo) {
-    if (tid == 0) {
-      const int nblk = gridDim.x * gridDim.y;
-      float v = 0.f;
-      for (int b = 0; b < nblk; ++b)
-        v = __fadd_rn(v, p.part[(long long)pl * nblk + b]);
-      s_nm = v;
+
+  // --------------------------------------------------------- consumers
+  // Warpgroup 0 runs gx, 1 runs gy, over the same 64 x 64 output tile.
+  // Each K step's products go to a fresh accumulator, which is then added
+  // to the running sum with a rounded f32 add: the tensor cores' f32
+  // accumulation truncates, and over a whole 448-deep K its bias reached
+  // 2e-4 of the estimate's values; within a step of 32 it stays far below
+  // the split's own error. The step's group is waited for before its
+  // accumulator is read, so that no wgmma is serialized; the other
+  // warpgroup's MMAs keep the tensor cores busy meanwhile.
+  int it = 0;
+  for (int j = 0; j < mine; ++j) {
+    const TileAt at = tile_at(p, blockIdx.x + j * gridDim.x);
+    float acc[32], tmp[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % STAGES;
+      pb::mbar_wait(pb::smem_u32(&full[s]), (it / STAGES) & 1);
+      mma_step(base + s * STAGE, wg, tmp);
+      pb::wgmma_wait<0>();
+      pb::fence_regs(tmp);
+      pb::mbar_arrive(pb::smem_u32(&empty[s]));
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
     }
-    __syncthreads();
-    const float nm = s_nm;
-    const long long ub = p.ucmp.offset(n, c, 0, 0);
+    // gy to warpgroup 0, in the accumulator layout (thread t, register r
+    // at xchg[r * 128 + t]), once warpgroup 0 has read the last tile's
+    pb::named_barrier(kBarCons, NCONS);
+    if (wg == 1) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 32; ++r) xchg[r * WG + t] = acc[r];
+    }
+    pb::named_barrier(kBarCons, NCONS);
+    if (wg == 1) continue;
+    const float(&ax)[32] = acc;
+    float ay[32];
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int y = y0 + ty + 16 * r, x = x0 + tx + 16 * s;
-        if (y < ph && x < pw) {
-          const long long o = plane + (long long)y * pw + x;
-          const float M = __fsub_rn(-__fmul_rn(p.gx[o], ax[r][s]),
-                                    __fmul_rn(p.gy[o], ay[r][s]));
+    for (int r = 0; r < 32; ++r) ay[r] = xchg[r * WG + t];
+
+    // accumulator r of this thread: row i0 + 8 ((r / 2) % 2), column
+    // j0 + 8 (r / 4) + r % 2
+    const int i0 = 16 * warp + (lane >> 2), j0 = 2 * (lane & 3);
+    const int pl = at.pl;
+    const long long plane = (long long)pl * p.ph * p.pw;
+    if (EPI == kMaxima) {
+      const float* __restrict__ cs = p.cs;
+      float m[kAngles];
+#pragma unroll
+      for (int a = 0; a < kAngles; ++a) m[a] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int y = at.y0 + i0 + 8 * ((r >> 1) & 1);
+        const int x = at.x0 + j0 + 8 * (r >> 2) + (r & 1);
+        if (y < p.ph && x < p.pw) {
+#pragma unroll
+          for (int a = 0; a < kAngles; ++a) {
+            const float d = __fsub_rn(__fmul_rn(cs[2 * a], ax[r]),
+                                      __fmul_rn(cs[2 * a + 1], ay[r]));
+            m[a] = fmaxf(m[a], fabsf(d));
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kAngles; ++a) {
+        float v = m[a];
+        for (int o = 16; o > 0; o >>= 1)
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+        if (lane == 0) red[warp][a] = v;
+      }
+      pb::named_barrier(kBarWg0, WG);
+      if (t < kAngles) {
+        const float v = fmaxf(fmaxf(red[0][t], red[1][t]),
+                              fmaxf(red[2][t], red[3][t]));
+        // non-negative floats order like their bit patterns
+        atomicMax(reinterpret_cast<int*>(p.maxima) + pl * kAngles + t,
+                  __float_as_int(v));
+      }
+      pb::named_barrier(kBarWg0, WG);
+    } else if (EPI == kGrads) {
+      float part = 0.f;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int y = at.y0 + i0 + 8 * ((r >> 1) & 1);
+        const int x = at.x0 + j0 + 8 * (r >> 2) + (r & 1);
+        if (y < p.ph && x < p.pw) {
+          const long long o = plane + (long long)y * p.pw + x;
+          p.gx[o] = ax[r];
+          p.gy[o] = ay[r];
+          part = __fadd_rn(part, __fadd_rn(__fmul_rn(ax[r], ax[r]),
+                                           __fmul_rn(ay[r], ay[r])));
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+      if (lane == 0) red[warp][0] = part;
+      pb::named_barrier(kBarWg0, WG);
+      if (t == 0) {
+        const int tx = (p.pw + TN - 1) / TN;
+        const int ntile = ((p.ph + TM - 1) / TM) * tx;
+        p.part[(long long)pl * ntile + (at.y0 / TM) * tx + at.x0 / TN] =
+            __fadd_rn(__fadd_rn(red[0][0], red[1][0]),
+                      __fadd_rn(red[2][0], red[3][0]));
+      }
+      pb::named_barrier(kBarWg0, WG);
+    } else {
+      if (t == 0) {
+        const int ntile = ((p.ph + TM - 1) / TM) * ((p.pw + TN - 1) / TN);
+        float v = 0.f;
+        for (int b = 0; b < ntile; ++b)
+          v = __fadd_rn(v, p.part[(long long)pl * ntile + b]);
+        s_nm = v;
+      }
+      pb::named_barrier(kBarWg0, WG);
+      const float nm = s_nm;
+      const int n = pl / p.C, c = pl - n * p.C;
+      const float* gt = static_cast<const float*>(p.src.ptr) +
+                        p.src.offset(n, c, 0, 0);
+      const long long ub = p.ucmp.offset(n, c, 0, 0);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int y = at.y0 + i0 + 8 * ((r >> 1) & 1);
+        const int x = at.x0 + j0 + 8 * (r >> 2) + (r & 1);
+        if (y < p.ph && x < p.pw) {
+          const long long o = plane + (long long)y * p.pw + x;
+          const float M = __fsub_rn(-__fmul_rn(p.gx[o], ax[r]),
+                                    __fmul_rn(p.gy[o], ay[r]));
           const float z = fmaxf(
               __fdiv_rn(M, __fadd_rn(__fadd_rn(nm, M), 1e-12f)), 0.f);
-          const float ov = pb::to_f32(gt[(long long)y * sR + x]);
+          const float ov = gt[(long long)y * p.src.sR + x];
           const long long uo = ub + (long long)y * p.ucmp.sR + x;
           const float u =
               p.ucmp_dtype == pb::kBF16
@@ -265,39 +741,10 @@ __global__ void __launch_bounds__(ET) tile_est_gemm_kernel(EstGemm p) {
             static_cast<float*>(p.out)[o] = v;
         }
       }
-    return;
-  }
-  const float* __restrict__ cs = p.cs;
-  float m[kAngles];
-#pragma unroll
-  for (int a = 0; a < kAngles; ++a) m[a] = 0.f;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (y0 + ty + 16 * r < ph && x0 + tx + 16 * s < pw) {
-#pragma unroll
-        for (int a = 0; a < kAngles; ++a) {
-          const float d = __fsub_rn(__fmul_rn(cs[2 * a], ax[r][s]),
-                                    __fmul_rn(cs[2 * a + 1], ay[r][s]));
-          m[a] = fmaxf(m[a], fabsf(d));
-        }
-      }
+      // s_nm is rewritten for the next tile only after every thread of
+      // warpgroup 0 has read it
+      pb::named_barrier(kBarWg0, WG);
     }
-#pragma unroll
-  for (int a = 0; a < kAngles; ++a) {
-    float v = m[a];
-    for (int o = 16; o > 0; o >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (lane == 0) red[warp][a] = v;
-  }
-  __syncthreads();
-  if (tid < kAngles) {
-    float v = 0.f;
-    for (int w = 0; w < ET / 32; ++w) v = fmaxf(v, red[w][tid]);
-    // non-negative floats order like their bit patterns
-    atomicMax(reinterpret_cast<int*>(p.maxima) + pl * kAngles + tid,
-              __float_as_int(v));
   }
 }
 
@@ -346,94 +793,192 @@ __global__ void tile_est_final_kernel(const float* __restrict__ maxima,
   e[7] = __fadd_rn(__fmul_rn(cc2, il2), __fmul_rn(ss2, il1));
 }
 
+// ---------------------------------------------------------------- host
+
+// Whether every tile of the view starts on a 16-byte boundary and its rows
+// are whole 16-byte blocks apart, so that 8-pixel groups at multiples of 8
+// columns load as vectors.
+bool vec_ok(const pb::TileView& v, int esz) {
+  const long long a = static_cast<long long>(
+      reinterpret_cast<uintptr_t>(v.ptr));
+  return a % 16 == 0 && (v.sR * esz) % 16 == 0 && (v.sC * esz) % 16 == 0 &&
+         (v.batch == 1 || (v.sB * esz) % 16 == 0) &&
+         (static_cast<long long>(v.step_w) * esz) % 16 == 0;
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
+}
+
+template <int EPI, typename S, bool VEC>
+int launch_gemm_io(const EstGemm& p, const CUtensorMap (&m)[4],
+                   cudaStream_t s) {
+  auto kern = est_gemm_kernel<EPI, S, VEC>;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const int tiles =
+      p.planes * ((p.ph + TM - 1) / TM) * ((p.pw + TN - 1) / TN);
+  kern<<<min(tiles, num_sms()), NT, SMEM, s>>>(m[0], m[1], m[2], m[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The derivative GEMM pair over p.planes planes; g2, gt2 (kMaxima): the
+// split normalized planes of stage 2, else null (the halo's planes are
+// read from p.src).
+template <int EPI, typename S>
+int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
+                const float* g2, const float* gt2, cudaStream_t s) {
+  // the tables: (2, n, pad64(n)) f32, hi then lo, read as K = n columns
+  const long long lw = (p.pw + 63) / 64 * 64, lh = (p.ph + 63) / 64 * 64;
+  const long long ldp = pitch4(p.pw), ldq = pitch4(p.ph);
+  CUtensorMap m[4];
+  bool ok = pb::tma_map_3d(&m[0], dw2, true, p.pw, p.pw, 2, lw, lw * p.pw,
+                           TN) &&
+            pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, 2, lh, lh * p.ph,
+                           TM);
+  if (EPI == kMaxima)
+    ok = ok &&
+         pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, 2LL * p.planes, ldp,
+                        ldp * p.ph, TM) &&
+         pb::tma_map_3d(&m[3], gt2, true, p.ph, p.pw, 2LL * p.planes, ldq,
+                        ldq * p.pw, TN);
+  else
+    m[2] = m[3] = m[0];  // not read
+  if (!ok) {
+    fprintf(stderr, "estimate GEMM: cuTensorMapEncodeTiled refused a map\n");
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (EPI == kMaxima) {
+    return launch_gemm_io<EPI, S, true>(p, m, s);
+  } else {
+    if (vec_ok(p.src, sizeof(S)))
+      return launch_gemm_io<EPI, S, true>(p, m, s);
+    return launch_gemm_io<EPI, S, false>(p, m, s);
+  }
+}
+
+template <typename S>
+int launch_minmax(const pb::TileView& v, int C, int ph, int pw, int rows,
+                  int n, float* mm, float* maxima, cudaStream_t s) {
+  dim3 grid((ph + rows - 1) / rows, n);
+  if (vec_ok(v, sizeof(S)))
+    gray_minmax_kernel<S, true><<<grid, 256, 0, s>>>(v, C, ph, pw, rows, mm,
+                                                     maxima);
+  else
+    gray_minmax_kernel<S, false><<<grid, 256, 0, s>>>(v, C, ph, pw, rows, mm,
+                                                      maxima);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// view: the n tiles (canvas or tile batch, dtype `dtype`); g: (n, ph, pw)
-// f32 scratch; maxima: (n, 7) f32 scratch; est: (n, 8) f32 output.
-// stage selects the launch (1, 2 or 3) so the wrapper can count each; the
-// directional maxima launch stages 1 and 2 only (wts, coeffs, est unused).
+// view: the n tiles (canvas or tile batch, dtype `dtype`); dw2, dh2: the
+// split derivative tables (2, pw, pad64(pw)) and (2, ph, pad64(ph)) f32
+// (hi, lo); mm: (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2,
+// gt2: (n, 2, ph, pitch4(pw)) and (n, 2, pw, pitch4(ph)) f32 scratch;
+// maxima: (n, 7) f32 scratch; est: (n, 8) f32 output. stage selects the
+// launch (1 min/max, 2 normalize, 3 GEMM, 4 final) so the wrapper can
+// count each; the directional maxima launch stages 1-3 only (wts, coeffs,
+// est unused).
 extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
                                 int step_w, int n, int C, int ph, int pw,
-                                const float* dw, const float* dh,
+                                int rows, const float* dw2, const float* dh2,
                                 const float* cs, const float* wts,
-                                const float* coeffs, float* g, float* maxima,
-                                float* est, void* stream) {
+                                const float* coeffs, float* mm, float* g2,
+                                float* gt2, float* maxima, float* est,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stage == 1) {
-    const pb::TileView v = pb::make_view(ptr, sB, sC, sR, batch, tile0,
-                                         tiles_w, step_h, step_w);
-    if (dtype == pb::kBF16)
-      tile_gray_norm_kernel<pb::bf16><<<n, 1024, 0, s>>>(v, C, ph, pw, g,
-                                                         maxima);
-    else if (dtype == pb::kF32)
-      tile_gray_norm_kernel<float><<<n, 1024, 0, s>>>(v, C, ph, pw, g,
-                                                      maxima);
+  if (n > 65535 || rows < 1 || (dtype != pb::kBF16 && dtype != pb::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool b16 = dtype == pb::kBF16;
+  const pb::TileView v = pb::make_view(ptr, sB, sC, sR, batch, tile0,
+                                       tiles_w, step_h, step_w);
+  const int bands = (ph + rows - 1) / rows;
+  if (stage == 1)
+    return b16 ? launch_minmax<pb::bf16>(v, C, ph, pw, rows, n, mm, maxima, s)
+               : launch_minmax<float>(v, C, ph, pw, rows, n, mm, maxima, s);
+  if (stage == 2) {
+    dim3 grid((pw + 31) / 32, (ph + 31) / 32, n);
+    if (b16)
+      gray_norm_kernel<pb::bf16><<<grid, dim3(32, 8), 0, s>>>(
+          v, C, ph, pw, bands, mm, g2, gt2);
     else
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else if (stage == 2) {
+      gray_norm_kernel<float><<<grid, dim3(32, 8), 0, s>>>(
+          v, C, ph, pw, bands, mm, g2, gt2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (stage == 3) {
     EstGemm p = {};
-    // the normalized gray scratch as n one-channel tiles
-    p.src = pb::make_view(g, (long long)ph * pw, (long long)ph * pw, pw, n, 0,
-                          1, 0, 0);
-    p.C = 1;
+    p.src = v;
+    p.C = C;
     p.ph = ph;
     p.pw = pw;
-    p.dw = dw;
-    p.dh = dh;
+    p.planes = n;
     p.cs = cs;
     p.maxima = maxima;
-    dim3 grid((pw + EB - 1) / EB, (ph + EB - 1) / EB, n);
-    tile_est_gemm_kernel<kMaxima, float><<<grid, ET, 0, s>>>(p);
-  } else if (stage == 3) {
-    tile_est_final_kernel<<<n, 32, 0, s>>>(maxima, wts, coeffs, n, est);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gemm<kMaxima, float>(p, dw2, dh2, g2, gt2, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (stage == 4) {
+    tile_est_final_kernel<<<n, 32, 0, s>>>(maxima, wts, coeffs, n, est);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The halo mask's derivative GEMM pair over the n C planes of a TileView
 // (dtype `dtype`): epi 1 writes the input gradients gx, gy ((n C, ph, pw)
-// f32) and the per-block partial sums `part` ((n C, nblk) f32, nblk the
-// blocks per plane); epi 2 reads them back with the f32 output o as the
-// operand (dtype f32), the unfiltered planes u (a TileView in
-// `ucmp_dtype`) and the optional noise ((n C, ph, pw) f32), and writes the
-// masked, clipped planes to `out` ((n C, ph, pw) in `out_dtype`).
+// f32) and the per-output-tile partial sums `part` ((n C, ntile) f32,
+// ntile the 64 x 64 output tiles per plane); epi 2 reads them back with
+// the f32 output o as the operand (dtype f32), the unfiltered planes u (a
+// TileView in `ucmp_dtype`) and the optional noise ((n C, ph, pw) f32),
+// and writes the masked, clipped planes to `out` ((n C, ph, pw) in
+// `out_dtype`; it may be the tensor u reads).
 extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
                             long long sC, long long sR, int batch, int tile0,
                             int tiles_w, int step_h, int step_w, int n, int C,
-                            int ph, int pw, const float* dw, const float* dh,
+                            int ph, int pw, const float* dw2, const float* dh2,
                             float* gx, float* gy, float* part,
                             int ucmp_dtype, const void* uptr, long long usB,
                             long long usC, long long usR, int ubatch,
                             int utile0, int utiles_w, int ustep_h,
                             int ustep_w, const float* noise, void* out,
-                            int out_dtype,
-                            void* stream) {
+                            int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((long long)n * C > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)n * C * ((ph + TM - 1) / TM) * ((pw + TN - 1) / TN) >
+      0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   EstGemm p = {};
   p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
                         step_w);
   p.C = C;
   p.ph = ph;
   p.pw = pw;
-  p.dw = dw;
-  p.dh = dh;
+  p.planes = n * C;
   p.gx = gx;
   p.gy = gy;
   p.part = part;
-  dim3 grid((pw + EB - 1) / EB, (ph + EB - 1) / EB, n * C);
   if (epi == kGrads) {
     if (dtype == pb::kBF16)
-      tile_est_gemm_kernel<kGrads, pb::bf16><<<grid, ET, 0, s>>>(p);
-    else if (dtype == pb::kF32)
-      tile_est_gemm_kernel<kGrads, float><<<grid, ET, 0, s>>>(p);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else if (epi == kHalo && dtype == pb::kF32) {
+      return launch_gemm<kGrads, pb::bf16>(p, dw2, dh2, nullptr, nullptr, s);
+    if (dtype == pb::kF32)
+      return launch_gemm<kGrads, float>(p, dw2, dh2, nullptr, nullptr, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (epi == kHalo && dtype == pb::kF32) {
     if ((ucmp_dtype != pb::kF32 && ucmp_dtype != pb::kBF16) ||
         (out_dtype != pb::kF32 && out_dtype != pb::kBF16))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -443,9 +988,7 @@ extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
     p.noise = noise;
     p.out = out;
     p.out_dtype = out_dtype;
-    tile_est_gemm_kernel<kHalo, float><<<grid, ET, 0, s>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_gemm<kHalo, float>(p, dw2, dh2, nullptr, nullptr, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -355,12 +355,7 @@ __device__ __forceinline__ void fill_stage(const GemmParams& p,
   }
 }
 
-// x rounded to the nearest tf32 (low 13 mantissa bits zero)
-__device__ __forceinline__ float tf32_hi(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
+using pb::tf32_hi;
 
 // 3xTF32: the raw f32 tile at `raw` becomes its tf32 part in place, its
 // remainder (also rounded to tf32) goes to `lo`; 128 threads, 16 B each

@@ -4,14 +4,17 @@ Replaces polyblur_tpu/ops/pallas/est_fused.py::directional_maxima_pallas:
 per image, gray = channel mean -> min/max normalize -> the two spectral
 derivative products -> ``max |cos t gx - sin t gy|`` at the n_angles + 1
 sampled directions, and only the (B, 7) maxima leave the kernel. It is
-stages 1 and 2 of the patch engine's estimate kernel (``csrc/estimate.cu``:
-gray + min/max + normalized scratch; the f32 derivative GEMM pair with the
-7 maxima reduced in its epilogue), launched over the images as one tile
-each and counted as ``directional_maxima``.
+stages 1-3 of the patch engine's estimate kernel (``csrc/estimate.cu``:
+the gray min/max pass in row bands, ~1024 blocks at any B; the
+normalization, writing g and its transpose split for the tensor cores;
+the derivative GEMM pair on the tensor cores in 3xTF32 with the 7 maxima
+reduced in its epilogue), launched over the images as one tile each and
+counted as ``directional_maxima``: 3 launches.
 
-Bound on the H100: operations — 2 (H^2 W + H W^2) f32 MACs per image,
-0.34 G at 480 x 640 (67 TFLOP/s f32). Stage 1 is one block per image: at
-B = 1 one SM does the whole min/max pass; correct, and slow.
+Bound on the H100: operations — 2 (H^2 W + H W^2) MACs per image, 0.34 G
+at 480 x 640 (the function needs f32 products: 67 TFLOP/s outside the
+tensor cores); at B = 1 the GEMM has 80 output tiles of 64 x 64 for 132
+SMs.
 """
 
 from __future__ import annotations
@@ -49,5 +52,5 @@ def directional_maxima(img: torch.Tensor,
     _check(img, n_angles)
     if runs_plain(img):
         return directional_maxima_plain(img, n_angles)
-    return launch_estimate(TileView.of_tiles(img.contiguous()), (1, 2),
+    return launch_estimate(TileView.of_tiles(img.contiguous()), (1, 2, 3),
                            "directional_maxima")[0]

@@ -192,7 +192,7 @@ def _halo_launch(epi: int, src: TileView, grads: HaloGrads,
                    + _VIEW_ARGTYPES + [_P, _P, _I, _P])
     fn.restype = _I
     err = fn(epi, dtype_code(src.data.dtype), *src.c_args(), src.n, c, ph,
-             pw, t.dw.data_ptr(), t.dh.data_ptr(), grads.gx.data_ptr(),
+             pw, t.dw2.data_ptr(), t.dh2.data_ptr(), grads.gx.data_ptr(),
              grads.gy.data_ptr(), grads.part.data_ptr(), dtype_code(udt),
              *uargs, None if noise is None else noise.data_ptr(),
              None if out is None else out.data_ptr(), dtype_code(odt),

@@ -10,7 +10,7 @@ is ~870 KB, far over an SM's 227 KB of shared memory, and CUDA blocks run
 in no order, so the program splits into stages over the whole tile batch
 with the intermediates in device memory (see ``pipeline.restore_tiles``):
 
-* :func:`tile_estimate`  — ``csrc/estimate.cu``, 3 launches;
+* :func:`tile_estimate`  — ``csrc/estimate.cu``, 4 launches;
 * :func:`kernel_spectrum` — ``csrc/spectral.cu``, 1 launch;
 * :func:`spectral_poly`  — ``csrc/spectral.cu`` ``spectral_gemm``, 4 launches.
 
@@ -58,7 +58,8 @@ __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "stage_tables", "tile_estimate", "tile_estimate_plain",
            "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
            "spectral_poly", "spectral_poly_plain", "polyblur_tiles_fused",
-           "launch_estimate", "launch_spectrum", "launch_spectral_gemm",
+           "estimate_rows", "estimate_launches", "launch_estimate",
+           "launch_spectrum", "launch_spectral_gemm",
            "spectral_gemm_launches", "HALF", "pad64"]
 
 HALF = 12            # kernel half-support (ker_size 25)
@@ -130,6 +131,23 @@ class EstimateTables(NamedTuple):
     dh: torch.Tensor     # (ph, ph) f32 y-derivative
     cs: torch.Tensor     # (7, 2) f32 cos/sin of the directional angles
     wts: torch.Tensor    # (30, 7) f32 Keys interpolation weights
+    dw2: torch.Tensor    # (2, pw, pad64(pw)) f32 [hi; lo] of dw (3xTF32)
+    dh2: torch.Tensor    # (2, ph, pad64(ph)) f32 [hi; lo] of dh
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """f32 ``a`` rounded to the nearest tf32, ties away from zero (the
+    kernel's ``cvt.rna.tf32.f32``)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_tf32(a: np.ndarray) -> np.ndarray:
+    """(2, rows, pad64(cols)) [hi; lo] of an f32 matrix: hi = tf32(a),
+    lo = tf32(a - hi), K zero-padded as the GEMM's table maps read it."""
+    hi = _tf32(a)
+    return np.stack([_k_padded(hi), _k_padded(_tf32(a - hi))])
 
 
 @functools.lru_cache(maxsize=8)
@@ -138,9 +156,9 @@ def estimate_tables(ph: int, pw: int, device: str) -> EstimateTables:
     the host and cached)."""
     angles = [k * math.pi / N_ANGLES for k in range(N_ANGLES + 1)]
     cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
+    dw, dh = _derivative_matrix_np(pw), _derivative_matrix_np(ph)
     return EstimateTables(*(torch.tensor(a, device=device) for a in (
-        _derivative_matrix_np(pw), _derivative_matrix_np(ph), cs,
-        _interp_weights_np())))
+        dw, dh, cs, _interp_weights_np(), _split_tf32(dw), _split_tf32(dh))))
 
 
 class StageTables(NamedTuple):
@@ -243,7 +261,12 @@ def _directional_vals_plain(view: TileView) -> torch.Tensor:
 
 def tile_estimate_plain(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`tile_estimate`: same arithmetic order."""
-    vals = _directional_vals_plain(view)
+    return estimate_rows(_directional_vals_plain(view), coeffs)
+
+
+def estimate_rows(vals: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """The (n, 8) estimate rows of the (n, 30) interpolated directional
+    maxima ``vals`` (stage 3 of the estimate kernel)."""
     grid = angle_grids(N_ANGLES, N_INTERP)[1].to(vals.device)
     idx, mn, mo, _ = (v[:, 0] for v in blur_direction(vals, grid))
     sigma2, rho2 = clamped_variances(mn, mo, coeffs[4], coeffs[5])
@@ -252,16 +275,40 @@ def tile_estimate_plain(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
     return torch.stack([idx.float(), mn, mo, sigma2, rho2, qa, qb, qc], 1)
 
 
-def launch_estimate(view: TileView, stages, name: str,
-                    coeffs: torch.Tensor | None = None):
-    """Launch the given stages of ``csrc/estimate.cu`` over the tiles of
-    ``view``, each counted under ``name``. Returns (maxima (n, 7) f32,
-    est (n, 8) f32); ``est`` is written by stage 3 only."""
+def _band_rows(ph: int, n: int) -> int:
+    """Rows per band of the gray min/max pass (stage 1): ~1024 blocks over
+    the n tiles, at least one row each."""
+    return max(1, -(-ph * n // 1024))
+
+
+def _pitch4(n: int) -> int:
+    """Row pitch of the estimate's normalized planes (16-byte rows)."""
+    return -(-n // 4) * 4
+
+
+def estimate_launches(view: TileView, name: str,
+                      coeffs: torch.Tensor | None = None):
+    """The four launches of ``csrc/estimate.cu`` over the tiles of
+    ``view``, not yet run: (maxima (n, 7) f32, est (n, 8) f32, [stage 1,
+    .., stage 4]), each a callable that launches its stage and counts it
+    under ``name``. Stage 1 is the gray min/max pass, 2 the normalization
+    (g and its transpose, split for the tensor cores), 3 the derivative
+    GEMM with the directional maxima, 4 the final model (it writes
+    ``est``). Run in order they are the estimate; one alone reruns its
+    stage on what the last run left."""
     check_cuda(name, view.data)
+    if view.n > 65535:
+        raise ValueError(f"{name}: {view.n} tiles exceed the launch grid")
     ph, pw = view.patch
     t = estimate_tables(ph, pw, str(view.data.device))
     dev = view.data.device
-    g = torch.empty((view.n, ph, pw), dtype=torch.float32, device=dev)
+    rows = _band_rows(ph, view.n)
+    mm = torch.empty((view.n, -(-ph // rows), 2), dtype=torch.float32,
+                     device=dev)
+    g2 = torch.empty((view.n, 2, ph, _pitch4(pw)), dtype=torch.float32,
+                     device=dev)
+    gt2 = torch.empty((view.n, 2, pw, _pitch4(ph)), dtype=torch.float32,
+                      device=dev)
     maxima = torch.empty((view.n, N_ANGLES + 1), dtype=torch.float32,
                          device=dev)
     est = torch.empty((view.n, _N_EST), dtype=torch.float32, device=dev)
@@ -271,17 +318,37 @@ def launch_estimate(view: TileView, stages, name: str,
     check_cuda(name, coeffs)
     lib = library("estimate")
     fn = lib.pb_tile_estimate
-    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 8 + [_P]
+    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 5 + [_P] * 10 + [_P]
     fn.restype = _I
     args = ([dtype_code(view.data.dtype)] + view.c_args()
-            + [view.n, view.channels, ph, pw]
-            + [p.data_ptr() for p in (t.dw, t.dh, t.cs, t.wts, coeffs, g,
-                                      maxima, est)]
+            + [view.n, view.channels, ph, pw, rows]
+            + [p.data_ptr() for p in (t.dw2, t.dh2, t.cs, t.wts, coeffs, mm,
+                                      g2, gt2, maxima, est)]
             + [stream_of(view.data)])
+
+    # the tensors behind the pointers in args, alive while a launch may run
+    keep = (t, coeffs, mm, g2, gt2, maxima, est)
+
+    def launch(stage):
+        def run():
+            err = fn(stage, *args)
+            count_launch(name)
+            check(lib, err, f"{name} stage {stage}")
+        run.tensors = keep
+        return run
+
+    return maxima, est, [launch(s) for s in (1, 2, 3, 4)]
+
+
+def launch_estimate(view: TileView, stages, name: str,
+                    coeffs: torch.Tensor | None = None):
+    """Launch the given stages (of 1-4; see :func:`estimate_launches`)
+    over the tiles of ``view``, each counted under ``name``. Returns
+    (maxima (n, 7) f32, est (n, 8) f32); ``est`` is written by stage 4
+    only."""
+    maxima, est, runs = estimate_launches(view, name, coeffs)
     for stage in stages:
-        err = fn(stage, *args)
-        count_launch(name)
-        check(lib, err, f"{name} stage {stage}")
+        runs[stage - 1]()
     return maxima, est
 
 
@@ -296,7 +363,7 @@ def tile_estimate(view: TileView, coeffs: torch.Tensor) -> torch.Tensor:
     """
     if runs_plain(view.data):
         return tile_estimate_plain(view, coeffs)
-    return launch_estimate(view, (1, 2, 3), "tile_estimate", coeffs)[1]
+    return launch_estimate(view, (1, 2, 3, 4), "tile_estimate", coeffs)[1]
 
 
 # ---------------------------------------------------------- kernel spectrum
@@ -486,6 +553,9 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
                      int(clip), stream)
             count_launch(name)
             check(lib, err, f"{name} mode {mode}")
+        # the tensors behind the pointers in args and rest (qhat2 may be a
+        # contiguous copy made here), alive while the launch may run
+        run.tensors = (view.data, qhat2, noise)
         return run
 
     # (mode, table, operand read, destination, tile size, pad or crop):
@@ -552,7 +622,7 @@ def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
     tile its own blur estimate (rectangles and odd sizes fine): the
     counterpart of the TPU mega kernel's tiles mode
     (polyblur_tpu/ops/pallas/polyblur_fused.py::polyblur_tiles_fused), run
-    as the per-tile stages above at the tiles' own shape, 8 launches per
+    as the per-tile stages above at the tiles' own shape, 9 launches per
     iteration without the feature flags (see ``pipeline.restore_tiles``).
 
     :param coeffs: (8,) f32 from ``pipeline._mega_pack``

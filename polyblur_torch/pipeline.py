@@ -8,7 +8,7 @@ Two routes, dispatched as the JAX package's ``polyblur_core`` dispatches
   tile. The TPU mega kernel runs the N iterations of one tile inside one
   VMEM-resident program; here each stage runs over all tiles at once, with
   the intermediates in device memory: per iteration ``tile_estimate``
-  (3 launches), ``kernel_spectrum`` (1) and the four ``spectral_gemm``
+  (4 launches), ``kernel_spectrum`` (1) and the four ``spectral_gemm``
   products of ``spectral_poly``. The state is stored in the work dtype
   after every iteration, as the TPU kernel stores it. The patch engine
   runs the same loop over its tiles.

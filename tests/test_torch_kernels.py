@@ -404,6 +404,22 @@ def test_cuda_edge_pad_cast_matches_plain(cuda_dev, shape, pads):
     assert torch.equal(tiles, edge_pad_cast_plain(x, shape[-2:], pads))
 
 
+def _photo(dev, h, w, y=0, x=0, seed=None):
+    """(1, 3, h, w) f32 crop of the 2 MP corpus photo at (y, x), tiled to
+    any size (a clear blur direction per tile, unlike noise), with
+    N(0, 0.005) noise when ``seed`` is given (as bench.py's image)."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(os.path.join(
+        DATA, "corpus_hr", "peacock_tiled.png")))[..., :3] / 255.0
+    reps = ((y + h) // img.shape[0] + 1, (x + w) // img.shape[1] + 1, 1)
+    img = np.tile(img, reps)[y:y + h, x:x + w].astype(np.float32)
+    if seed is not None:
+        img = np.clip(img + np.random.default_rng(seed).normal(
+            0.0, 0.005, img.shape), 0.0, 1.0).astype(np.float32)
+    return torch.as_tensor(img.transpose(2, 0, 1)[None].copy()).to(dev)
+
+
 @pytest.mark.parametrize("dt, tol", [(torch.bfloat16, 2.0 ** -7),
                                      (torch.float32, 1e-4)])
 def test_cuda_tile_stages_match_plain(cuda_dev, dt, tol):
@@ -413,13 +429,10 @@ def test_cuda_tile_stages_match_plain(cuda_dev, dt, tol):
     th, tw, sh, sw = _grid_steps(grid)
     canvas = edge_pad_cast(img, grid.orig_size, grid.pad, dt)
     view = TileView(canvas, 2, 1, 2 * (th * tw - 1), tw, (sh, sw), (160, 160))
+    _check_estimate(view, cuda_dev)
     coeffs = _mega_pack(*COEFFS, device=cuda_dev)
     before = dict(pcuda.launches)
     est = tile_estimate(view, coeffs)
-    assert _counts(before, "tile_estimate") == 3
-    est_p = tile_estimate_plain(view, coeffs)
-    assert torch.equal(est[:, 0], est_p[:, 0])
-    torch.testing.assert_close(est[:, 1:], est_p[:, 1:], rtol=1e-4, atol=0)
     tabs = stage_tables(160, 160, dt, str(cuda_dev))
     q2 = kernel_spectrum(est, coeffs, tabs)
     q2_p = kernel_spectrum_plain(est, coeffs, tabs)
@@ -428,6 +441,50 @@ def test_cuda_tile_stages_match_plain(cuda_dev, dt, tol):
     assert _counts(before, "spectral_gemm") == 4
     out_p = spectral_poly_plain(view, q2, tabs)
     assert float((out.float() - out_p.float()).abs().max()) <= tol
+
+
+def _check_estimate(view, dev):
+    """tile_estimate of ``view``: 4 launches, theta index identical to the
+    plain version's, the other values within 1e-4 relative."""
+    coeffs = _mega_pack(*COEFFS, device=dev)
+    before = dict(pcuda.launches)
+    est = tile_estimate(view, coeffs)
+    assert _counts(before, "tile_estimate") == 4
+    est_p = tile_estimate_plain(view, coeffs)
+    assert torch.equal(est[:, 0], est_p[:, 0])
+    torch.testing.assert_close(est[:, 1:], est_p[:, 1:], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("case", ["12mp_448", "481x637", "480x512",
+                                  "160_tiles", "n1_c1", "n1_c3"])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_cuda_estimate_shapes_match_plain(cuda_dev, case, dt):
+    """The estimate at the shapes the routes pass: the 12 MP main path's
+    88 tiles of 448 px on their canvas (16-byte vector operand loads), the
+    tiles route's 481 x 637 (rows no multiple of 16 bytes: scalar loads)
+    and 480 x 512, the small-input phase's 160 px tiles, and one image
+    with C = 1 and C = 3."""
+    if case == "12mp_448":
+        img = _photo(cuda_dev, 3000, 4000, seed=0)
+        grid = plan_patch_grid(3000, 4000, 448, 64.0 / 448.0)
+        th, tw, sh, sw = _grid_steps(grid)
+        canvas = edge_pad_cast(img, grid.orig_size, grid.pad, dt)
+        view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
+        assert view.n == 88
+    elif case == "160_tiles":
+        img = _photo(cuda_dev, 200, 300, 400, 500)
+        grid = plan_patch_grid(200, 300, 160, 32.0 / 160.0)
+        th, tw, sh, sw = _grid_steps(grid)
+        canvas = edge_pad_cast(img, grid.orig_size, grid.pad, dt)
+        view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (160, 160))
+    else:
+        h, w = {"481x637": (481, 637), "480x512": (480, 512),
+                "n1_c1": (480, 640), "n1_c3": (480, 640)}[case]
+        x = _photo(cuda_dev, h, w, 100, 200)
+        if case == "n1_c1":
+            x = x.mean(1, keepdim=True)
+        view = TileView.of_tiles(x.to(dt).contiguous())
+    _check_estimate(view, cuda_dev)
 
 
 def test_cuda_blend_matches_plain(cuda_dev):
@@ -498,13 +555,19 @@ def test_cuda_blocked_polynomial_matches_plain(cuda_dev):
     assert float((got - ref).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 480, 640), (4, 3, 481, 637)])
-def test_cuda_directional_maxima_matches_plain(cuda_dev, shape):
+@pytest.mark.parametrize("shape", [(1, 1, 480, 640), (4, 3, 481, 637),
+                                   (1, 3, 480, 640), (1, 3, 480, 512),
+                                   (3, 1, 160, 160)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_directional_maxima_matches_plain(cuda_dev, shape, dt):
+    """Images as one tile each: n = 1 with C = 1 and C = 3 (the split gray
+    pass's one-row bands), rows whose pitch is no multiple of 16 bytes
+    (scalar operand loads), ragged 64 x 64 output tiles."""
     x = torch.rand(shape, generator=torch.Generator().manual_seed(10))
-    x = x.to(cuda_dev)
+    x = x.to(cuda_dev).to(dt)
     before = dict(pcuda.launches)
     got = directional_maxima(x)
-    assert _counts(before, "directional_maxima") == 2
+    assert _counts(before, "directional_maxima") == 3
     want = directional_maxima_plain(x)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
 
@@ -517,7 +580,7 @@ def test_cuda_tiles_mode_matches_plain(cuda_dev):
     coeffs = _mega_pack(*COEFFS, device=cuda_dev)
     before = dict(pcuda.launches)
     got = polyblur_tiles_fused(x, coeffs, 2)
-    assert _counts(before, "tile_estimate") == 6
+    assert _counts(before, "tile_estimate") == 8
     assert _counts(before, "spectral_gemm") == 8
     with pcuda.plain_versions():
         want = polyblur_tiles_fused(x, coeffs, 2)
@@ -636,6 +699,43 @@ def test_cuda_taper_and_halo_stages_match_plain(cuda_dev):
         want = halo_mask_plain(o, grads, view, noise, torch.empty_like(out))
         assert float((out.float() - want.float()).abs().max()) <= tol
     assert _counts(before, "halo") == 3
+
+
+@pytest.mark.parametrize("patch, dt, offset", [
+    (448, torch.bfloat16, 0), (448, torch.float32, 0),    # config 2 tiles
+    (160, torch.bfloat16, 3), (160, torch.float32, 1),    # origin off 16 B
+    (157, torch.float32, 0)])                             # ragged, odd pitch
+def test_cuda_halo_views_match_plain(cuda_dev, patch, dt, offset):
+    """The halo's derivative GEMM on TileViews whose tiles start off a
+    16-byte boundary (a canvas cut one or three columns in), on ragged
+    tiles, and the mask with ``out`` aliasing ``ucmp`` (as the tiles
+    route's later iterations run it)."""
+    from polyblur_torch.ops.cuda.features import (
+        halo_grads, halo_grads_plain, halo_mask, halo_mask_plain)
+
+    img = _photo(cuda_dev, 2 * patch, 2 * patch + 8, 50, 60)
+    canvas = img.to(dt)[..., offset:]
+    step = patch - patch // 4
+    view = TileView(canvas, 1, 0, 4, 2, (step, step), (patch, patch))
+    before = dict(pcuda.launches)
+    grads = halo_grads(view)
+    grads_p = halo_grads_plain(view)
+    scale = float(grads_p.gx.abs().max())
+    assert float((grads.gx - grads_p.gx).abs().max()) <= 1e-5 * scale
+    assert float((grads.gy - grads_p.gy).abs().max()) <= 1e-5 * scale
+    nm, nm_p = grads.part.sum(-1), grads_p.part.sum(-1)
+    assert float(((nm - nm_p).abs() / nm_p).max()) <= 1e-5
+    g = torch.Generator().manual_seed(35)
+    o = (view.tiles().float() + 0.05 * torch.randn(
+        (4, 3, patch, patch), generator=g).to(cuda_dev)).contiguous()
+    tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+    u = view.tiles().contiguous()
+    want = halo_mask_plain(o, grads, TileView.of_tiles(u), None,
+                           torch.empty_like(u))
+    out = halo_mask(o, grads, TileView.of_tiles(u), None, u)   # in place
+    assert out.data_ptr() == u.data_ptr()
+    assert float((u.float() - want.float()).abs().max()) <= tol
+    assert _counts(before, "halo") == 2
 
 
 def test_cuda_spectral_poly_f32_tiles_and_noise_match_plain(cuda_dev):
