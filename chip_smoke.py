@@ -14,7 +14,11 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    each of its four launches (the gray pass's min/max and normalize, the
    derivative GEMM pair with its TFLOP/s, the final stage) at 12 MP, config
    2 and 480 x 640, and ``torch.matmul`` of the same GEMM pair as its
-   yardstick;
+   yardstick; ``kernel_spectrum`` also at config 2's 12 tiles and the
+   480 x 640 tiles route's one image, with its device time (the calls
+   queued behind a device-side sleep) beside the CUDA-event time;
+   ``blend_overlap_add`` for every tile and output dtype on the 12 MP grid
+   and on an even-cropped 1198 x 1598 image (its scalar path);
 4. drives the main path once through ``polyblur_torch.deblur_patches``
    (bench.py's image and arguments: 448/384 tiles, bf16 work dtype, f32
    output, 3 iterations) with every launch counter zeroed just before and
@@ -99,6 +103,9 @@ DEVICE = "cuda"
 NAMES = ("edge_pad_cast", "tile_estimate", "kernel_spectrum",
          "spectral_gemm", "blend_overlap_add")
 TILE_STAGES = ("tile_estimate", "kernel_spectrum", "spectral_gemm")
+# kernel_spectrum at config 2's 12 tiles and the 480 x 640 tiles route's
+# one image, beside the main path's 88 tiles
+SPECTRUM_ROWS = ("kernel_spectrum[n=12]", "kernel_spectrum[n=1]")
 FEATURES = ("bilateral", "iir_scan_rows", "dt_coeffs", "taper", "halo")
 DT_STAGES = ("dt_coeffs", "iir_scan_rows", "taper", "halo")
 PATH_KW = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
@@ -116,6 +123,10 @@ SOURCES = {
                       "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "kernel_spectrum": ("polyblur_torch/csrc/spectral.cu",
                         "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
+    "kernel_spectrum[n=12]": ("polyblur_torch/csrc/spectral.cu",
+                              "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
+    "kernel_spectrum[n=1]": ("polyblur_torch/csrc/spectral.cu",
+                             "polyblur_tpu/ops/pallas/polyblur_fused.py:631"),
     "spectral_gemm": ("polyblur_torch/csrc/spectral.cu",
                       "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "blend_overlap_add": ("polyblur_torch/csrc/blend.cu",
@@ -256,6 +267,31 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(3):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Per-call device time of ``fn`` in ms: CUDA events around ``reps``
+    calls queued behind a device-side sleep, so that all of them are
+    enqueued before the first one runs and the host's time between
+    launches does not count (it does in :func:`cuda_ms` for a kernel
+    shorter than its wrapper's host time). Median of three runs."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the enqueue
         s.record()
         for _ in range(reps):
             fn()
@@ -444,6 +480,100 @@ def redesign_checks(dev, img2) -> None:
         "edge_pad_cast from a source off a 16-byte boundary differs")
     print(f"edge_pad_cast: {cases + 1} odd-pad / odd-width / unaligned "
           "cases bit-equal")
+
+
+def spectrum_row(est, coeffs, tabs, label: str) -> dict:
+    """``kernel_spectrum`` on the estimate rows ``est`` against its plain
+    version, with its CUDA-event and device times: the kernel row of the
+    report."""
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        kernel_spectrum, kernel_spectrum_plain)
+
+    def run():
+        return kernel_spectrum(est, coeffs, tabs)
+
+    want = kernel_spectrum_plain(est, coeffs, tabs)
+    scale = float(want.abs().max())
+    err = float((run() - want).abs().max())
+    require(err <= TOL_REL_SPEC * scale,
+            f"kernel_spectrum[{label}] error {err} (scale {scale})")
+    n, h, kp2 = want.shape
+    row = dict(
+        max_abs_err=err, ms=cuda_ms(run), device_ms=device_ms(run),
+        plain_ms=cuda_ms(lambda: kernel_spectrum_plain(est, coeffs, tabs)),
+        library_ms=None,
+        bound=bound_ms(want.numel() * 4 + est.numel() * 4,
+                       n * spectrum_flops(h, tabs.wc), "f32"))
+    print(f"kernel_spectrum[{label}, h {h}, kp {kp2 // 2}]: max_abs_err "
+          f"{err:.3e} (max |q| {scale:.3e}); {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f} ms")
+    return row
+
+
+def spectrum_planes(dev, coeffs, report: dict) -> None:
+    """``kernel_spectrum`` at the other routes' plane counts: config 2's 12
+    tiles of 448 px (h 472, kp 256) and the 480 x 640 tiles route's one
+    image (h 504, kp 384), on random blurs; fills their report rows."""
+    import torch
+
+    from polyblur_torch.ops.cuda.polyblur_fused import stage_tables
+    from polyblur_torch.ops.sep_poly import gaussian_quadratic_coeffs
+
+    g = torch.Generator().manual_seed(7)
+    for name, n, (ph, pw), wd in (
+            ("kernel_spectrum[n=12]", 12, (448, 448), torch.bfloat16),
+            ("kernel_spectrum[n=1]", 1, (480, 640), torch.float32)):
+        sigma, rho = (0.3 + 3.7 * torch.rand(n, generator=g)
+                      for _ in range(2))
+        theta = torch.randint(0, 30, (n,), generator=g).float() * (
+            math.pi / 30)
+        est = torch.zeros((n, 8))
+        est[:, 5:8] = torch.stack(gaussian_quadratic_coeffs(sigma, rho,
+                                                            theta), 1)
+        tabs = stage_tables(ph, pw, wd, str(dev))
+        report[name] = spectrum_row(est.to(dev), coeffs, tabs, f"n={n}")
+
+
+def blend_geometries(dev) -> None:
+    """``blend_overlap_add`` against its plain version for every tile and
+    output dtype, on 448/384 tiles: the 12 MP main path's grid (the 16-byte
+    path: left crop 144, width 4000) and an even-cropped 1198 x 1598 image
+    (the scalar path: left crop 1, width 1598), with the latter's time."""
+    import torch
+
+    from polyblur_torch.ops.cuda.overlap_add import (
+        blend_overlap_add, blend_overlap_add_plain)
+    from polyblur_torch.patches import (_blend_constants, _grid_steps,
+                                        plan_patch_grid)
+
+    for hw in ((3000, 4000), (1198, 1598)):
+        grid = plan_patch_grid(*hw, 448, 64.0 / 448.0)
+        th, tw, sh, sw = _grid_steps(grid)
+        tiles = torch.rand((th * tw, 3, 448, 448), device=dev,
+                           generator=torch.Generator(dev).manual_seed(8))
+        win, inv = _blend_constants(grid, "kaiser", dev)
+        args = (win, inv, (th, tw, sh, sw, 448, 448), 1,
+                (grid.pad[0], grid.pad[2]) + grid.orig_size)
+        errs = []
+        for tdt in (torch.bfloat16, torch.float32):
+            t = tiles.to(tdt)
+            for odt in (torch.bfloat16, torch.float32):
+                got = blend_overlap_add(t, *args, out_dtype=odt)
+                want = blend_overlap_add_plain(t, *args, out_dtype=odt)
+                require(got.dtype == odt and got.shape == want.shape,
+                        f"blend_overlap_add {hw} dtype or shape")
+                err = float((got.float() - want.float()).abs().max())
+                require(err <= TOL_BLEND, f"blend_overlap_add {hw} "
+                                          f"{tdt} -> {odt} error {err}")
+                errs.append(f"{str(tdt)[6:]}->{str(odt)[6:]} {err:.1e}")
+        t16 = tiles.to(torch.bfloat16)
+
+        def blend():
+            return blend_overlap_add(t16, *args, out_dtype=torch.float32)
+
+        print(f"blend_overlap_add[{hw[0]}x{hw[1]}, left crop {grid.pad[2]}]: "
+              f"max_abs_err {', '.join(errs)}; bf16 -> f32 {cuda_ms(blend):.4f}"
+              f" ms, device {device_ms(blend):.4f} ms")
 
 
 def whole_image_kernels(dev, report: dict) -> None:
@@ -659,6 +789,7 @@ def whole_image_paths(dev, img12, card: str, launches: dict) -> None:
                         TILE_STAGES, PSNR_F32_DB, method="direct_separable",
                         **PATH_KW)
     launches["polyblur_tiles"] = sum(counts[k] for k in TILE_STAGES)
+    launches["kernel_spectrum[n=1]"] = counts["kernel_spectrum"]
     # theta identical, kernel vs plain, on every iteration's input
     coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
     x = crop
@@ -964,6 +1095,7 @@ def feature_paths(dev, img2, card: str, launches: dict) -> None:
                         (staged,), NAMES + DT_STAGES, PSNR_BF16_DB, card, npx)
     for k in DT_STAGES:
         launches[k] = counts[k]
+    launches["kernel_spectrum[n=12]"] = counts["kernel_spectrum"]
     drive_path("config 2b: the same in f32", lambda: cfg2(torch.float32),
                shape, (staged,), NAMES + DT_STAGES, PSNR_F32_DB, card, npx)
     drive_path("config 2c: 2 MP polyblur_core(method='fft'), taper + dt + "
@@ -1121,14 +1253,8 @@ def main() -> int:
         print(f"kernel_spectrum[{tag}]: max_abs_err {err:.3e} "
               f"(max |q| {scale:.3e})")
         if tag == "bf16":
-            report["kernel_spectrum"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: kernel_spectrum(est, coeffs, tabs)),
-                plain_ms=cuda_ms(
-                    lambda: kernel_spectrum_plain(est, coeffs, tabs)),
-                library_ms=None,
-                bound=bound_ms(q2.numel() * 4,
-                               n_tiles * spectrum_flops(h, wc), "f32"))
+            report["kernel_spectrum"] = spectrum_row(est, coeffs, tabs,
+                                                     f"{tag}, n={n_tiles}")
 
         out = spectral_poly(view, q2, tabs)
         out_p = spectral_poly_plain(view, q2, tabs)
@@ -1175,10 +1301,12 @@ def main() -> int:
         print(f"blend_overlap_add[{tag}]: max_abs_err {err:.3e}")
         if tag == "bf16":
             nb = out.numel() * esz + o.numel() * 4 + inv_wsum.numel() * 4
+            def blend():
+                return blend_overlap_add(out, win, inv_wsum, gi, b, crop4,
+                                         torch.float32)
+
             report["blend_overlap_add"] = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: blend_overlap_add(
-                    out, win, inv_wsum, gi, b, crop4, torch.float32)),
+                max_abs_err=err, ms=cuda_ms(blend), device_ms=device_ms(blend),
                 plain_ms=cuda_ms(lambda: blend_overlap_add_plain(
                     out, win, inv_wsum, gi, b, crop4, torch.float32),
                     reps=3),
@@ -1267,6 +1395,9 @@ def main() -> int:
           f"{p:.2f} dB, launches {dict(pcuda.launches)}")
     require(p >= PSNR_BF16_DB, f"batch-2 PSNR {p:.2f} < {PSNR_BF16_DB}")
 
+    spectrum_planes(dev, coeffs, report)
+    blend_geometries(dev)
+
     # ---------------------------------------------------------- whole image
     print(f"[{time.perf_counter() - t_start:.1f} s] whole-image phases")
     whole_image_kernels(dev, report)
@@ -1287,8 +1418,8 @@ def main() -> int:
 
     # ---------------------------------------------------------- report
     rows = []
-    for name in NAMES + ("polyblur_tiles", "fused_polynomial",
-                         "directional_maxima") + FEATURES:
+    for name in NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
+                                         "directional_maxima") + FEATURES:
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]
@@ -1297,7 +1428,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
-        for extra in ("library_what", "tile_stage"):
+        for extra in ("library_what", "tile_stage", "device_ms"):
             if extra in r:
                 rows[-1][extra] = r[extra]
     print(card)

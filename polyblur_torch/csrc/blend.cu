@@ -5,65 +5,188 @@
 // (_make_kernel's blend branch, the carried row/column/corner strips) and
 // polyblur_tpu/ops/pallas/overlap_add.py::overlap_add_fused. The TPU blend
 // carries neighbour strips across grid programs that run in order; CUDA
-// blocks run in no order, so this is the gather form instead: one thread
-// per cropped output pixel reads the (at most 2 x 2, for overlaps up to
-// 50%) tiles covering it, times the window, sums in f32 in the TPU
-// kernel's order (own tile, left, top, top-left), multiplies by the
-// host-computed reciprocal window sum, clips to [0, 1] and writes the
-// output dtype. The crop to the original image is folded in.
+// blocks run in no order, so this is the gather form instead: each output
+// pixel reads the tiles covering it (at most 2 x 2 for overlaps up to
+// 50%), times the window, sums in f32 in the TPU kernel's order (own tile,
+// left, top, top-left), multiplies by the host-computed reciprocal window
+// sum, clips to [0, 1] and writes the output dtype. The crop to the
+// original image is folded in.
 //
-// Bound on the H100: bytes (each tile element is read once except in the
-// overlap seams; the output is written once). Consecutive threads handle
-// consecutive output columns, so tile, window and output accesses are
-// coalesced.
+// Bound on the H100: bytes (each tile element read once, the reciprocal
+// window sum once, the output written once). Design: a thread owns 8
+// consecutive output columns of one row for all C channels. When the tile
+// step, the tile width and the left crop are multiples of 8, the 8 columns
+// lie in the same tiles at a 16-byte-aligned offset, so the covering tiles
+// are found once per group and every access is 16 bytes wide: tile values
+// (8 bf16, or 2 x 4 f32), the window (2 x float4), the reciprocal window
+// sum (2 x float4, once for all channels) and the output (16-byte stores
+// where the output rows are 16-byte aligned). Other geometries, and the
+// last group of a row when the width is no multiple of 8, take the
+// kernel's scalar path, one column per thread; both paths round alike.
 #include "common.cuh"
 
 namespace {
 
+using pb::bf16;
+
+constexpr int kCols = 8;       // output columns per thread
+constexpr int kThreads = 128;
+
+// 8 consecutive values as f32, from a 16-byte-aligned address
+__device__ __forceinline__ void load8(const float* p, float v[kCols]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float v[kCols]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float v[kCols]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float v[kCols]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&b);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float clip01(float v) {
+  return fminf(fmaxf(v, 0.f), 1.f);
+}
+
+// Output column x of row y (canvas row Y) of image b, all channels: the
+// kernel's scalar path.
 template <typename TI, typename TO>
-__global__ void blend_kernel(const TI* __restrict__ tiles,
-                             const float* __restrict__ win,
-                             const float* __restrict__ inv_wsum,
-                             TO* __restrict__ out, int B, int C, int th,
-                             int tw, int sh, int sw, int ph, int pw, int Wc,
-                             int pt, int pl, int h, int w) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int bc = blockIdx.z;
-  if (x >= w) return;
-  const int b = bc / C;
-  const int c = bc - b * C;
-  const int Y = y + pt;
-  const int X = x + pl;
-  const int ki0 = Y / sh;
-  const int kj0 = X / sw;
+__device__ __forceinline__ void blend_column(
+    const TI* __restrict__ tiles, const float* __restrict__ win,
+    const float* __restrict__ inv_row, TO* __restrict__ out, int B, int C,
+    int th, int tw, int sh, int sw, int ph, int pw, int Y, int pl, int h,
+    int w, int y, int b, int x) {
   const long long plane = (long long)ph * pw;
-  float acc = 0.f;
-  for (int ki = ki0; ki >= 0 && Y - ki * sh < ph; --ki) {
-    if (ki >= th) continue;
-    const int ly = Y - ki * sh;
-    for (int kj = kj0; kj >= 0 && X - kj * sw < pw; --kj) {
-      if (kj >= tw) continue;
-      const int lx = X - kj * sw;
-      const long long t = ((long long)(ki * tw + kj) * B + b) * C + c;
-      const float v = pb::to_f32(tiles[t * plane + (long long)ly * pw + lx]);
-      acc = __fadd_rn(acc, __fmul_rn(v, win[ly * pw + lx]));
+  const int X = x + pl;
+  const int ki0 = Y / sh, kj0 = X / sw;
+  const float inv = inv_row[x];
+  for (int c = 0; c < C; ++c) {
+    float acc = 0.f;
+    for (int ki = ki0; ki >= 0 && Y - ki * sh < ph; --ki) {
+      if (ki >= th) continue;
+      const int ly = Y - ki * sh;
+      for (int kj = kj0; kj >= 0 && X - kj * sw < pw; --kj) {
+        if (kj >= tw) continue;
+        const int off = ly * pw + X - kj * sw;
+        const long long t = ((long long)(ki * tw + kj) * B + b) * C + c;
+        acc = __fadd_rn(acc, __fmul_rn(pb::to_f32(tiles[t * plane + off]),
+                                       win[off]));
+      }
+    }
+    out[((long long)(b * C + c) * h + y) * w + x] =
+        pb::from_f32<TO>(clip01(__fmul_rn(acc, inv)));
+  }
+}
+
+// Grid (column groups / kThreads, h, B). vec: the 8-column groups are
+// tile-uniform and 16-byte aligned in tiles, window and inv_wsum (step,
+// tile width and left crop multiples of 8, Wc of 4, aligned pointers),
+// and each thread takes 8 consecutive columns; else each thread takes one
+// column, the scalar path. vec_out: the output rows are 16-byte aligned
+// too.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kThreads)
+blend_kernel(const TI* __restrict__ tiles, const float* __restrict__ win,
+             const float* __restrict__ inv_wsum, TO* __restrict__ out, int B,
+             int C, int th, int tw, int sh, int sw, int ph, int pw, int Wc,
+             int pt, int pl, int h, int w, int vec, int vec_out) {
+  const int y = blockIdx.y;
+  const int b = blockIdx.z;
+  const int Y = y + pt;
+  const float* inv_row = inv_wsum + (long long)Y * Wc + pl;
+  if (!vec) {
+    const int x = blockIdx.x * kThreads + threadIdx.x;
+    if (x < w)
+      blend_column(tiles, win, inv_row, out, B, C, th, tw, sh, sw, ph, pw, Y,
+                   pl, h, w, y, b, x);
+    return;
+  }
+  const int x0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
+  if (x0 >= w) return;
+  if (x0 + kCols > w) {  // the last group of a row: no whole 8 columns
+    for (int x = x0; x < w; ++x)
+      blend_column(tiles, win, inv_row, out, B, C, th, tw, sh, sw, ph, pw, Y,
+                   pl, h, w, y, b, x);
+    return;
+  }
+  const long long plane = (long long)ph * pw;
+  const int X0 = x0 + pl;
+  const int ki0 = Y / sh, kj0 = X0 / sw;
+  float inv[kCols];
+  load8(inv_row + x0, inv);
+  for (int c = 0; c < C; ++c) {
+    float acc[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+    for (int ki = ki0; ki >= 0 && Y - ki * sh < ph; --ki) {
+      if (ki >= th) continue;
+      const int ly = Y - ki * sh;
+      for (int kj = kj0; kj >= 0 && X0 - kj * sw < pw; --kj) {
+        if (kj >= tw) continue;
+        const int off = ly * pw + X0 - kj * sw;
+        const long long t = ((long long)(ki * tw + kj) * B + b) * C + c;
+        float v[kCols], wv[kCols];
+        load8(tiles + t * plane + off, v);
+        load8(win + off, wv);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(v[i], wv[i]));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      acc[i] = clip01(__fmul_rn(acc[i], inv[i]));
+    TO* dst = out + ((long long)(b * C + c) * h + y) * w + x0;
+    if (vec_out) {
+      store8(dst, acc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) dst[i] = pb::from_f32<TO>(acc[i]);
     }
   }
-  const float o = __fmul_rn(acc, inv_wsum[(long long)Y * Wc + X]);
-  out[((long long)bc * h + y) * w + x] =
-      pb::from_f32<TO>(fminf(fmaxf(o, 0.f), 1.f));
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
 template <typename TI, typename TO>
 void launch(const void* tiles, const float* win, const float* inv_wsum,
             void* out, int B, int C, int th, int tw, int sh, int sw, int ph,
             int pw, int Wc, int pt, int pl, int h, int w, cudaStream_t s) {
-  const int threads = 256;
-  dim3 grid((w + threads - 1) / threads, h, B * C);
-  blend_kernel<TI, TO><<<grid, threads, 0, s>>>(
+  const int vec = sw % kCols == 0 && pw % kCols == 0 && pl % kCols == 0 &&
+                  Wc % 4 == 0 && aligned16(tiles) && aligned16(win) &&
+                  aligned16(inv_wsum);
+  const int vec_out =
+      (static_cast<long long>(w) * sizeof(TO)) % 16 == 0 && aligned16(out);
+  const int groups = vec ? (w + kCols - 1) / kCols : w;
+  dim3 grid((groups + kThreads - 1) / kThreads, h, B);
+  blend_kernel<TI, TO><<<grid, kThreads, 0, s>>>(
       static_cast<const TI*>(tiles), win, inv_wsum, static_cast<TO*>(out), B,
-      C, th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w);
+      C, th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, vec, vec_out);
 }
 
 }  // namespace
@@ -77,7 +200,8 @@ extern "C" int pb_blend(const void* tiles, int in_dtype, const float* win,
                         int pw, int Wc, int pt, int pl, int h, int w,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using pb::bf16;
+  if (h > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == pb::kBF16 && out_dtype == pb::kF32)
     launch<bf16, float>(tiles, win, inv_wsum, out, B, C, th, tw, sh, sw, ph,
                         pw, Wc, pt, pl, h, w, s);

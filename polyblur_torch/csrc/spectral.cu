@@ -10,7 +10,8 @@
 // tables, all f32; then p(K_hat) by Horner and the packed [q | q] * (1/h)
 // spectrum. The quadratic forms are read from rows of any stride (the
 // (n, 8) estimate rows, or the (N, 3) params of fused_polynomial).
-// Bound on the H100: operations, and tiny (~6 M f32 MACs per plane).
+// Bound on the H100: bytes, its f32 output (~1 MB per 448 px plane); the
+// design is in the spectrum section below.
 //
 // spectral_gemm replaces sep_poly_fused.py::_spectral_poly_block, the six
 // DFT products the mega kernel runs per channel per iteration, and the
@@ -67,31 +68,48 @@ namespace {
 using pb::bf16;
 
 // ---------------------------------------------------------------- spectrum
+//
+// The output is (n, h, 2 kp) f32, ~1 MB per 448 px plane, for ~6 M f32
+// FMAs of y-pass per plane: the least time is that of the stores, and at
+// n = 1 the latency of one block is most of it. Design: a block owns 64
+// spectrum columns of a chunk of rows of one plane, grid (kp / 64, row
+// chunks, n), the chunks sized on the host so that n = 1, 12 and 88 each
+// give the 132 SMs several blocks. The block forms the plane's normalized
+// Gaussian and its x-pass (tap products) for its 64 columns in shared
+// memory (forming them once per plane in a first launch measured slower
+// at n = 1, 12 and 88: PERF.md, tools/spectrum_variants.py); then walks
+// its rows in passes of 64, staging the y-phase rows transposed in shared
+// memory, with each thread computing a 4 x 4 block of rows x columns from
+// float4 reads (4 loads for 32 FMAs) and writing both halves of the
+// packed row with 16-byte stores. Loops whose trip count all threads
+// share start all their global loads at once. Every dot product sums in the
+// same order as the plain version's steps (taps t, then row offsets j,
+// ascending; one FMA each).
 
 constexpr int kHalf = 12;
 constexpr int kTaps = 2 * kHalf + 1;
-constexpr int kCols = 32;  // spectrum columns per block
+constexpr int kSpecCols = 64;     // spectrum columns per block
+constexpr int kSpecRows = 64;     // rows per pass: 16 row groups of 4
+constexpr int kSpecThreads = 256; // 16 column groups x 16 row groups
+constexpr int kYPitch = kSpecRows + 4;  // staged y-phase rows (16-byte rows)
 
-// plane n's quadratic form is q[n * stride + off + 0..2] = (qa, qb, qc)
-__global__ void __launch_bounds__(256)
-kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
-                       const float* __restrict__ coeffs,
-                       const float* __restrict__ er,   // (128, kp)
-                       const float* __restrict__ ei,   // (128, kp)
-                       const float* __restrict__ cyt,  // (h, 32)
-                       const float* __restrict__ syt,  // (h, 32)
-                       int h, int kp, float* __restrict__ qhat2) {
-  __shared__ float km[kTaps * kTaps];
-  __shared__ float hr[kTaps][kCols];
-  __shared__ float hi[kTaps][kCols];
-  __shared__ float red[8];
-  const int n = blockIdx.y;
-  const int k0 = blockIdx.x * kCols;
+struct SpecTaps {
+  float km[kTaps * kTaps];
+  float red[8];
+  __align__(16) float hr[kTaps][kSpecCols];
+  __align__(16) float hi[kTaps][kSpecCols];
+};
+
+// The normalized 25 x 25 Gaussian of the quadratic form (qa, qb, qc) into
+// s.km, then its tap products against the x-phase tables for columns
+// k0 .. k0 + 63: s.hr[j][c] = sum_t km[j][t] er[t][k0 + c], t ascending;
+// s.hi likewise with ei. Ends with a barrier.
+__device__ __forceinline__ void spectrum_taps(
+    float qa, float qb, float qc, const float* __restrict__ er,
+    const float* __restrict__ ei, int kp, int k0, SpecTaps& s) {
   const int tid = threadIdx.x;
-  const float* qn = q + (long long)n * stride + off;
-  const float qa = qn[0], qb = qn[1], qc = qn[2];
   float part = 0.f;
-  for (int e = tid; e < kTaps * kTaps; e += blockDim.x) {
+  for (int e = tid; e < kTaps * kTaps; e += kSpecThreads) {
     const float jf = static_cast<float>(e / kTaps - kHalf);  // row offset
     const float tf = static_cast<float>(e % kTaps - kHalf);  // column offset
     const float quad = __fadd_rn(
@@ -99,50 +117,144 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
                   __fmul_rn(__fmul_rn(__fmul_rn(2.f, qb), tf), jf)),
         __fmul_rn(__fmul_rn(qc, jf), jf));
     const float v = expf(__fmul_rn(-0.5f, quad));
-    km[e] = v;
+    s.km[e] = v;
     part = __fadd_rn(part, v);
   }
   for (int o = 16; o > 0; o >>= 1)
     part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-  if (tid % 32 == 0) red[tid / 32] = part;
+  if (tid % 32 == 0) s.red[tid / 32] = part;
   __syncthreads();
   float total = 0.f;
-  for (int w = 0; w < 8; ++w) total = __fadd_rn(total, red[w]);
+  for (int w = 0; w < kSpecThreads / 32; ++w)
+    total = __fadd_rn(total, s.red[w]);
   const float inv_total = __fdiv_rn(1.f, total);
   __syncthreads();
-  for (int e = tid; e < kTaps * kTaps; e += blockDim.x)
-    km[e] = __fmul_rn(km[e], inv_total);
+  for (int e = tid; e < kTaps * kTaps; e += kSpecThreads)
+    s.km[e] = __fmul_rn(s.km[e], inv_total);
   __syncthreads();
-  // (25 x 32) tap products: hr[j][c] = sum_t km[j][t] er[t][k0 + c]
-  for (int e = tid; e < kTaps * kCols; e += blockDim.x) {
-    const int j = e / kCols, c = e % kCols;
-    float sr = 0.f, si = 0.f;
-    for (int t = 0; t < kTaps; ++t) {
-      const float kv = km[j * kTaps + t];
-      sr = fmaf(kv, er[t * kp + k0 + c], sr);
-      si = fmaf(kv, ei[t * kp + k0 + c], si);
+  // thread: column c, tap rows j0, j0 + 4, .. (7 at most); each er / ei
+  // value is loaded once for all of them
+  const int c = tid % kSpecCols;
+  const int j0 = tid / kSpecCols;
+  constexpr int kRowsPerThread = (kTaps + 3) / 4;
+  float sr[kRowsPerThread], si[kRowsPerThread];
+#pragma unroll
+  for (int m = 0; m < kRowsPerThread; ++m) sr[m] = si[m] = 0.f;
+#pragma unroll 5
+  for (int t = 0; t < kTaps; ++t) {
+    const float vr = er[t * kp + k0 + c];
+    const float vi = ei[t * kp + k0 + c];
+#pragma unroll
+    for (int m = 0; m < kRowsPerThread; ++m) {
+      const int j = j0 + 4 * m;
+      if (j < kTaps) {
+        const float kv = s.km[j * kTaps + t];
+        sr[m] = fmaf(kv, vr, sr[m]);
+        si[m] = fmaf(kv, vi, si[m]);
+      }
     }
-    hr[j][c] = sr;
-    hi[j][c] = si;
+  }
+#pragma unroll
+  for (int m = 0; m < kRowsPerThread; ++m) {
+    const int j = j0 + 4 * m;
+    if (j < kTaps) {
+      s.hr[j][c] = sr[m];
+      s.hi[j][c] = si[m];
+    }
   }
   __syncthreads();
+}
+
+// plane n's quadratic form is q[n * stride + off + 0..2] = (qa, qb, qc).
+// Block (x, y, z) = (64 columns, `rows` rows, plane).
+__global__ void __launch_bounds__(kSpecThreads)
+kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
+                       const float* __restrict__ coeffs,
+                       const float* __restrict__ er,   // (128, kp)
+                       const float* __restrict__ ei,   // (128, kp)
+                       const float* __restrict__ cyt,  // (h, 32)
+                       const float* __restrict__ syt,  // (h, 32)
+                       int h, int kp, int rows, float* __restrict__ qhat2) {
+  __shared__ SpecTaps s;
+  __shared__ __align__(16) float cys[kTaps][kYPitch];
+  __shared__ __align__(16) float sys[kTaps][kYPitch];
+  const int n = blockIdx.z;
+  const int k0 = blockIdx.x * kSpecCols;
+  const int r0 = blockIdx.y * rows;
+  const int r1 = min(h, r0 + rows);
+  const int tid = threadIdx.x;
+  const float* qn = q + (long long)n * stride + off;
+  spectrum_taps(qn[0], qn[1], qn[2], er, ei, kp, k0, s);
   const float a3 = coeffs[0], a2 = coeffs[1], a1 = coeffs[2], beta = coeffs[3];
   const float inv_h = __fdiv_rn(1.f, static_cast<float>(h));
-  const int c = tid % kCols;
-  float* out = qhat2 + (long long)n * h * 2 * kp;
-  for (int q = tid / kCols; q < h; q += blockDim.x / kCols) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int j = 0; j < kTaps; ++j) {
-      s1 = fmaf(cyt[q * 32 + j], hr[j][c], s1);
-      s2 = fmaf(syt[q * 32 + j], hi[j][c], s2);
+  const int cg = tid % 16, rg = tid / 16;
+  float* out = qhat2 + (long long)n * h * 2 * kp + k0 + 4 * cg;
+  for (int p0 = r0; p0 < r1; p0 += kSpecRows) {
+    // the y-phase rows p0 .. p0 + 63, transposed: a warp reads one
+    // 128-byte table row (32 columns, 25 used); all loads are started
+    // before the barrier that ends the last pass
+    constexpr int kStage = kSpecRows * 32 / kSpecThreads;
+    const int jt = tid % 32;
+    float cst[kStage], sst[kStage];
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int r = tid / 32 + k * (kSpecThreads / 32);
+      const bool in = jt < kTaps && p0 + r < r1;
+      cst[k] = in ? cyt[(p0 + r) * 32 + jt] : 0.f;
+      sst[k] = in ? syt[(p0 + r) * 32 + jt] : 0.f;
     }
-    const float kh = __fadd_rn(s1, s2);
-    float p = __fadd_rn(__fmul_rn(a3, kh), a2);
-    p = __fadd_rn(__fmul_rn(p, kh), a1);
-    p = __fadd_rn(__fmul_rn(p, kh), beta);
-    p = __fmul_rn(p, inv_h);
-    out[(long long)q * 2 * kp + k0 + c] = p;
-    out[(long long)q * 2 * kp + kp + k0 + c] = p;
+    __syncthreads();  // the taps are in; the last pass read its rows
+    if (jt < kTaps) {
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int r = tid / 32 + k * (kSpecThreads / 32);
+        cys[jt][r] = cst[k];
+        sys[jt][r] = sst[k];
+      }
+    }
+    __syncthreads();
+    float s1[4][4], s2[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s1[r][c] = s2[r][c] = 0.f;
+#pragma unroll 5
+    for (int j = 0; j < kTaps; ++j) {
+      const float4 cy = *reinterpret_cast<const float4*>(&cys[j][4 * rg]);
+      const float4 sy = *reinterpret_cast<const float4*>(&sys[j][4 * rg]);
+      const float4 hr = *reinterpret_cast<const float4*>(&s.hr[j][4 * cg]);
+      const float4 hi = *reinterpret_cast<const float4*>(&s.hi[j][4 * cg]);
+      const float cv[4] = {cy.x, cy.y, cy.z, cy.w};
+      const float sv[4] = {sy.x, sy.y, sy.z, sy.w};
+      const float rv[4] = {hr.x, hr.y, hr.z, hr.w};
+      const float iv[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s1[r][c] = fmaf(cv[r], rv[c], s1[r][c]);
+          s2[r][c] = fmaf(sv[r], iv[c], s2[r][c]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = p0 + 4 * rg + r;
+      if (row < r1) {
+        float o[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float kh = __fadd_rn(s1[r][c], s2[r][c]);
+          float p = __fadd_rn(__fmul_rn(a3, kh), a2);
+          p = __fadd_rn(__fmul_rn(p, kh), a1);
+          p = __fadd_rn(__fmul_rn(p, kh), beta);
+          o[c] = __fmul_rn(p, inv_h);
+        }
+        const float4 v = make_float4(o[0], o[1], o[2], o[3]);
+        float* dst = out + (long long)row * 2 * kp;
+        *reinterpret_cast<float4*>(dst) = v;
+        *reinterpret_cast<float4*>(dst + kp) = v;
+      }
+    }
   }
 }
 
@@ -657,18 +769,33 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
 
 }  // namespace
 
+// Rows per block of kernel_spectrum: whole passes of 64, split so that
+// the grid holds about four blocks per SM of the H100 where the planes
+// allow it (n = 88 at kp 256: 2 chunks; n = 12: 8; n = 1: 8).
+static int spectrum_rows(int n, int h, int kp) {
+  const int col_blocks = kp / kSpecCols;
+  const int passes = (h + kSpecRows - 1) / kSpecRows;
+  int chunks = (4 * 132 + col_blocks * n - 1) / (col_blocks * n);
+  chunks = chunks < 1 ? 1 : (chunks > passes ? passes : chunks);
+  return ((passes + chunks - 1) / chunks) * kSpecRows;
+}
+
 // q: n rows of `stride` f32 with (qa, qb, qc) at column `off` (the (n, 8)
 // estimate rows: stride 8, off 5; fused_polynomial's (N, 3) params: 3, 0);
-// coeffs: f32 [a3, a2, a1, beta, ..]; qhat2: (n, h, 2 kp) f32 output.
+// coeffs: f32 [a3, a2, a1, beta, ..]; qhat2: (n, h, 2 kp) f32 output; kp a
+// multiple of 64.
 extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
                                   const float* coeffs, const float* er,
                                   const float* ei, const float* cyt,
                                   const float* syt, int n, int h, int kp,
                                   float* qhat2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(kp / kCols, n);
-  kernel_spectrum_kernel<<<grid, 256, 0, s>>>(q, stride, off, coeffs, er, ei,
-                                              cyt, syt, h, kp, qhat2);
+  if (kp % kSpecCols != 0 || n < 1 || n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = spectrum_rows(n, h, kp);
+  dim3 grid(kp / kSpecCols, (h + rows - 1) / rows, n);
+  kernel_spectrum_kernel<<<grid, kSpecThreads, 0, s>>>(
+      q, stride, off, coeffs, er, ei, cyt, syt, h, kp, rows, qhat2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,15 +37,16 @@ __all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
 _TODO = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
 
 
-def angle_grids(n_angles: int, n_interpolated_angles: int):
+def angle_grids(n_angles: int, n_interpolated_angles: int,
+                dtype: torch.dtype = torch.float32):
     """(thetas (n_angles + 1,), interpolated_thetas (n_interp,)) in degrees
-    as f32, integer-truncated like the reference's ``.long()`` tensors
-    (deblurring.py:62-63)."""
+    as ``dtype``, integer-truncated like the reference's ``.long()``
+    tensors (deblurring.py:62-63)."""
     thetas = torch.floor(torch.linspace(0.0, 180.0, n_angles + 1,
                                         dtype=torch.float64))
     interpolated_thetas = torch.floor(torch.arange(
         0.0, 180.0, 180.0 / n_interpolated_angles, dtype=torch.float64))
-    return thetas.float(), interpolated_thetas.float()
+    return thetas.to(dtype), interpolated_thetas.to(dtype)
 
 
 def normalize_range(x: torch.Tensor) -> torch.Tensor:
@@ -66,9 +67,12 @@ def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
 
 def _mags_xla(img: torch.Tensor, n_angles: int) -> torch.Tensor:
     """min/max normalize -> spectral gradients -> directional maxima
-    (the q=0 path). ``img`` is (B, C, H, W); returns (B, n_angles + 1)."""
-    gx, gy = spectral_gradients(normalize_range(img.float()))
-    angles = torch.linspace(0.0, math.pi, n_angles + 1, device=img.device)
+    (the q=0 path) in the image dtype, as the JAX package's XLA chain runs
+    on every backend (the gradients are computed in f32 and rounded).
+    ``img`` is (B, C, H, W); returns (B, n_angles + 1)."""
+    gx, gy = spectral_gradients(normalize_range(img))
+    angles = torch.linspace(0.0, math.pi, n_angles + 1,
+                            device=img.device).to(img.dtype)
     return directional_maxima(
         gx.mean(dim=1), gy.mean(dim=1),
         torch.stack([torch.cos(angles), torch.sin(angles)], 1))
@@ -77,7 +81,10 @@ def _mags_xla(img: torch.Tensor, n_angles: int) -> torch.Tensor:
 def _mags_fast(img: torch.Tensor, n_angles: int) -> torch.Tensor:
     """Directional maxima through the fused reduction for images up to
     ``MEGA_MAX_TILE`` (the kernel on CUDA tensors, its plain version on
-    CPU ones), the plain chain of :func:`_mags_xla` above."""
+    CPU ones), the plain chain of :func:`_mags_xla` above. The fused
+    reduction computes in f32 and returns the image dtype, as the JAX
+    package casts its Pallas maxima back (polyblur_tpu
+    estimation.py:160-161)."""
     if max(img.shape[-2:]) <= MEGA_MAX_TILE:
         from .ops.cuda.est_fused import directional_maxima as fused
 
@@ -85,9 +92,18 @@ def _mags_fast(img: torch.Tensor, n_angles: int) -> torch.Tensor:
             raise NotImplementedError(f"n_angles={n_angles}: the fused "
                                       f"reduction has 7 angles; see {_TODO}")
         record_dispatch("directional_maxima", "fused")
-        return fused(img, n_angles)
+        return fused(img, n_angles).to(img.dtype)
     record_dispatch("directional_maxima", "plain")
     return _mags_xla(img, n_angles)
+
+
+def _as(v, like: torch.Tensor):
+    """A Python number as a 0-d tensor of ``like``'s dtype (a tensor is
+    returned as it is): JAX rounds a weak-typed constant to the operand's
+    dtype before the operation, PyTorch would apply it in f32."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 def keys_weights(x_new: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +132,13 @@ def weighted_sum(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def cubic_interpolator(x_new: torch.Tensor, x: torch.Tensor,
                        y: torch.Tensor) -> torch.Tensor:
     """Keys cubic interpolation of ``y(x)`` at ``x_new``. Shapes:
-    x_new (..., N), x (..., n), y (..., n) -> (..., N)."""
-    return weighted_sum(keys_weights(x_new, x), y)
+    x_new (..., N), x (..., n), y (..., n) -> (..., N). The weights are
+    computed in the dtype of ``x``; below f32 the sum accumulates in f32
+    and is rounded once, as the JAX package's einsum does."""
+    w = keys_weights(x_new, x)
+    if y.dtype == torch.float32:
+        return weighted_sum(w, y)
+    return weighted_sum(w.float(), y.float()).to(y.dtype)
 
 
 def blur_direction(interp: torch.Tensor, interpolated_thetas: torch.Tensor):
@@ -150,18 +171,20 @@ def find_maximal_blur_direction(gradient_magnitudes: torch.Tensor,
     interp = cubic_interpolator(interpolated_thetas / n_interp,
                                 thetas / n_interp, gradient_magnitudes)
     _, m_n, m_o, thetas_normal = blur_direction(interp, interpolated_thetas)
-    return m_n, m_o, thetas_normal * (math.pi / 180.0)
+    return m_n, m_o, thetas_normal * _as(math.pi / 180.0, thetas_normal)
 
 
 def clamped_variances(magnitudes_normal, magnitudes_ortho, c, b):
     """Affine blur model with the reference's guards:
     ``clip(c^2 / (f^2 + 1e-8) - b^2, 0.09, 16)`` for both directions
-    (blur_estimation.py:171-185), before the square root."""
-    cc = c * c
-    bb = b * b
-    sigma2 = cc / (magnitudes_normal * magnitudes_normal + 1e-8) - bb
-    rho2 = cc / (magnitudes_ortho * magnitudes_ortho + 1e-8) - bb
-    return torch.clamp(sigma2, 0.09, 16.0), torch.clamp(rho2, 0.09, 16.0)
+    (blur_estimation.py:171-185), before the square root. Python numbers
+    enter in the magnitudes' dtype, as JAX's weak types do."""
+    m = magnitudes_normal
+    cc, bb = _as(c * c, m), _as(b * b, m)
+    eps, lo, hi = _as(1e-8, m), _as(0.09, m), _as(16.0, m)
+    sigma2 = cc / (magnitudes_normal * magnitudes_normal + eps) - bb
+    rho2 = cc / (magnitudes_ortho * magnitudes_ortho + eps) - bb
+    return torch.clamp(sigma2, lo, hi), torch.clamp(rho2, lo, hi)
 
 
 def compute_gaussian_parameters(magnitudes_normal, magnitudes_ortho, c, b):
@@ -181,22 +204,26 @@ def gaussian_blur_estimation(img: torch.Tensor, c=0.362, b=0.468,
     """Estimate per-image Gaussian blur parameters.
 
     :param img: (B, C, H, W) blurry image(s) in [0, 1]
-    :return: the (B, 1, ker_size, ker_size) kernels in the image dtype, or
-        the ``(sigma, rho, theta)`` tuple of (B, 1) f32 tensors when
-        ``return_2d_filters`` is False
+    :return: the (B, 1, ker_size, ker_size) kernels, or the ``(sigma, rho,
+        theta)`` tuple of (B, 1) tensors when ``return_2d_filters`` is
+        False, in the image dtype. As in the JAX package, the gray mean,
+        the plain maxima chain, the angle grids, the interpolation and the
+        blur model run in the image dtype; the fused maxima (and the plain
+        chain's gradients) are computed in f32 and rounded to it.
     """
     if (q != 0.0 or discard_saturation
             or (multichannel and img.shape[1] != 3)):
         raise NotImplementedError(
             "polyblur_torch estimates only the q=0, no-saturation, "
             f"gray-collapsed parameters so far; see {_TODO}")
-    dev = img.device
-    thetas, interpolated_thetas = angle_grids(n_angles, n_interpolated_angles)
-    gray = img.float().mean(dim=1, keepdim=True)
+    dev, dt = img.device, img.dtype
+    thetas, interpolated_thetas = angle_grids(n_angles, n_interpolated_angles,
+                                              dt)
+    gray = img.mean(dim=1, keepdim=True)
     mags = _mags_fast(gray, n_angles)
     m_n, m_o, theta = find_maximal_blur_direction(
         mags, thetas[None].to(dev), interpolated_thetas[None].to(dev))
     sigma, rho = compute_gaussian_parameters(m_n, m_o, c=c, b=b)
     if not return_2d_filters:
         return sigma, rho, theta
-    return batch_gaussian_kernels(theta, sigma, rho, ker_size).to(img.dtype)
+    return batch_gaussian_kernels(theta, sigma, rho, ker_size).to(dt)

@@ -6,7 +6,10 @@ overlap_add_fused). Gather form: each output pixel sums its covering tiles
 times the window in f32 (own tile, left, top, top-left — the TPU kernel's
 order), multiplies by the host-computed reciprocal window sum, clips to
 [0, 1] and writes the output dtype; the crop to the original image is
-folded in.
+folded in. A kernel thread owns 8 output columns of a row for all
+channels, with 16-byte accesses where the grid's steps, tile width and
+left crop are multiples of 8 (the 12 MP main path's), and a scalar path
+for the rest.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
             inv_wsum.dtype != torch.float32 or \
             pt + h > inv_wsum.shape[0] or pl + w > inv_wsum.shape[1]:
         raise ValueError("blend_overlap_add: shapes do not match the grid")
-    if h > 65535 or batch * c > 65535:
+    if h > 65535 or batch > 65535:
         raise ValueError("blend_overlap_add: output exceeds the launch grid")
     tiles, window, inv_wsum = (t.contiguous() for t in (tiles, window,
                                                          inv_wsum))

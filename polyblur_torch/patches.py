@@ -156,7 +156,7 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         prefiltering: bool = False,
                         discard_saturation: bool = False,
                         multichannel_kernel: bool = False,
-                        method: str = "direct_separable",
+                        method: str = "fft",
                         smoother: str = "bilateral", remat: bool = False):
     """Validate the staged route's keywords against what the port runs
     and return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r), the
@@ -203,9 +203,9 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         ``None`` or ``<= 0`` runs every tile at once
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
         beta, remove_halo, edgetaping, prefiltering, smoother, ...).
-        ``method='direct_separable'`` takes the staged route, ``'fft'``
-        (and the feature flags on tiles past ``mega_tile_cap``) the
-        composed one.
+        ``method='direct_separable'`` takes the staged route; ``'fft'``,
+        the default as in the JAX package, (and the feature flags on tiles
+        past ``mega_tile_cap``) the composed one.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
     dev = resolve_device(device)
@@ -229,7 +229,7 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
                 or kw.get("prefiltering"))
     cap = mega_tile_cap(bool(kw.get("prefiltering")),
                         kw.get("smoother", "bilateral"))
-    if (kw.get("method", "direct_separable") == "fft"
+    if (kw.get("method", "fft") == "fft"
             or (flags_on and max(grid.patch_size) > cap)):
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")

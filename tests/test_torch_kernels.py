@@ -503,13 +503,63 @@ def test_cuda_blend_matches_plain(cuda_dev):
         assert float((got.float() - want.float()).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("n", [1, 12, 88])
+def test_cuda_kernel_spectrum_planes_match_plain(cuda_dev, n):
+    """kernel_spectrum at the plane counts of the routes: one 481 x 637
+    image (the tiles route: h 505, kp 384, rows no multiple of the 64-row
+    pass), config 2's 12 tiles and the 12 MP main path's 88 tiles of
+    448 px. Within 1e-5 of max |q| of the plain version."""
+    from polyblur_torch.ops.sep_poly import gaussian_quadratic_coeffs
+
+    g = torch.Generator().manual_seed(7)
+    sigma, rho = (0.3 + 3.7 * torch.rand(n, generator=g) for _ in range(2))
+    theta = torch.randint(0, 30, (n,), generator=g).float() * (math.pi / 30)
+    est = _est_rows(*(v.numpy() for v in gaussian_quadratic_coeffs(
+        sigma, rho, theta))).to(cuda_dev)
+    tabs = (stage_tables(481, 637, torch.float32, str(cuda_dev)) if n == 1
+            else stage_tables(448, 448, torch.bfloat16, str(cuda_dev)))
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    before = dict(pcuda.launches)
+    got = kernel_spectrum(est, coeffs, tabs)
+    assert _counts(before, "kernel_spectrum") == 1
+    want = kernel_spectrum_plain(est, coeffs, tabs)
+    assert got.shape == want.shape == (n, tabs.h, 2 * tabs.er.shape[1])
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("odt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [(3000, 4000), (1198, 1598)])
+def test_cuda_blend_geometries_match_plain(cuda_dev, hw, tdt, odt):
+    """The blend on 448/384 tiles: the 12 MP main path's grid (16-byte
+    path: left crop 144, width 4000) and an even-cropped 1198 x 1598 image
+    (scalar path: left crop 1, width 1598), for every tile and output
+    dtype. Within 1e-6 of the plain version."""
+    grid = plan_patch_grid(*hw, 448, 64.0 / 448.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    tiles = torch.rand((th * tw, 3, 448, 448),
+                       generator=torch.Generator().manual_seed(8)).to(
+        cuda_dev, tdt)
+    win, inv = _blend_constants(grid, "kaiser", cuda_dev)
+    args = (win, inv, (th, tw, sh, sw, 448, 448), 1,
+            (grid.pad[0], grid.pad[2]) + grid.orig_size)
+    before = dict(pcuda.launches)
+    got = blend_overlap_add(tiles, *args, out_dtype=odt)
+    assert _counts(before, "blend_overlap_add") == 1
+    want = blend_overlap_add_plain(tiles, *args, out_dtype=odt)
+    assert got.dtype == want.dtype == odt
+    assert got.shape == want.shape == (1, 3) + grid.orig_size
+    assert float((got.float() - want.float()).abs().max()) <= 1e-6
+
+
 def test_cuda_deblur_patches_matches_cpu(cuda_dev):
     from polyblur_torch import deblur_patches
 
     img = torch.rand((1, 3, 200, 300), generator=torch.Generator()
                      .manual_seed(5))
     kw = dict(patch_size=160, overlap=32.0 / 160.0, n_iter=2, c=0.362,
-              b=0.468, alpha=6.0, beta=1.0, out_dtype=torch.float32)
+              b=0.468, alpha=6.0, beta=1.0, out_dtype=torch.float32,
+              method="direct_separable")
     got = deblur_patches(img.to(cuda_dev), device=cuda_dev, **kw).cpu()
     want = deblur_patches(img, device="cpu", **kw)
     mse = float(((got.double() - want.double()) ** 2).mean())

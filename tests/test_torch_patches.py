@@ -148,8 +148,10 @@ def test_cuda_by_default_and_raises_without_it(img):
                                                  discard_saturation=True),
     lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
                                                  method="direct"),
-    lambda x: deblur_patches(x, device="cpu", multichannel_kernel=True),
-    lambda x: deblur_patches(x, device="cpu", q=0.01),
+    lambda x: deblur_patches(x, device="cpu", method="direct_separable",
+                             multichannel_kernel=True),
+    lambda x: deblur_patches(x, device="cpu", method="direct_separable",
+                             q=0.01),
     lambda x: deblur_patches(x, device="cpu", patch_size=160, overlap=0.6),
 ])
 def test_unported_routes_raise_naming_the_roadmap(call):

@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Times of ``kernel_spectrum`` and ``blend_overlap_add`` on one NVIDIA GPU,
+at the shapes the paths give them, for the polyblur_torch tree in the
+current directory.
+
+Run from the root of a checkout: ``python3 tools/spectrum_blend_ab.py``.
+Run from another tree's root (``cd build/parent && python3
+../../tools/spectrum_blend_ab.py``) it times that tree's kernels with the
+same inputs, so an A/B of two trees in one call runs parent, change,
+change, parent. Prints the card line, then one line per kernel and shape:
+CUDA-event ms (the median of three runs of 10 back-to-back calls) and the
+device time of the same calls queued behind a device-side sleep (the
+host's time between launches excluded). Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import statistics
+import subprocess
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Per-call device time of ``fn`` in ms: CUDA events around ``reps``
+    calls queued behind a device-side sleep, so that all of them are
+    enqueued before the first one runs and the host's time between
+    launches does not count (it does in :func:`cuda_ms` for a kernel
+    shorter than its wrapper's host time). Median of three runs."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the enqueue
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("spectrum_blend_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from polyblur_torch.ops.cuda import polyblur_fused as pf
+    from polyblur_torch.ops.cuda.overlap_add import blend_overlap_add
+    from polyblur_torch.ops.sep_poly import gaussian_quadratic_coeffs
+    from polyblur_torch.patches import (_blend_constants, _grid_steps,
+                                        plan_patch_grid)
+    from polyblur_torch.pipeline import _mega_pack
+
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"tree {os.getcwd()}; card {card}")
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    g = torch.Generator().manual_seed(7)
+    for n, (ph, pw), wd in ((88, (448, 448), torch.bfloat16),
+                            (12, (448, 448), torch.bfloat16),
+                            (1, (480, 640), torch.float32)):
+        sigma, rho = (0.3 + 3.7 * torch.rand(n, generator=g)
+                      for _ in range(2))
+        theta = torch.randint(0, 30, (n,), generator=g).float() * (
+            math.pi / 30)
+        est = torch.zeros((n, 8))
+        est[:, 5:8] = torch.stack(gaussian_quadratic_coeffs(sigma, rho,
+                                                            theta), 1)
+        est = est.to(dev)
+        tabs = pf.stage_tables(ph, pw, wd, str(dev))
+        def one():
+            return pf.kernel_spectrum(est, coeffs, tabs)
+
+        print(f"kernel_spectrum n={n} h={tabs.h} kp={tabs.er.shape[1]}: "
+              f"{cuda_ms(one):.4f} ms, device "
+              f"{device_ms(one):.4f} ms")
+    for hw in ((3000, 4000), (1198, 1598)):
+        grid = plan_patch_grid(*hw, 448, 64.0 / 448.0)
+        th, tw, sh, sw = _grid_steps(grid)
+        tiles = torch.rand((th * tw, 3, 448, 448), device=dev,
+                           generator=torch.Generator(dev).manual_seed(8))
+        win, inv = _blend_constants(grid, "kaiser", dev)
+        args = (win, inv, (th, tw, sh, sw, 448, 448), 1,
+                (grid.pad[0], grid.pad[2]) + grid.orig_size)
+        for tdt in (torch.bfloat16, torch.float32):
+            t = tiles.to(tdt)
+            def blend():
+                return blend_overlap_add(t, *args, out_dtype=torch.float32)
+
+            print(f"blend_overlap_add {hw[0]}x{hw[1]} {str(tdt)[6:]} -> "
+                  f"float32: {cuda_ms(blend):.4f} ms, device "
+                  f"{device_ms(blend):.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
