@@ -42,10 +42,13 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    BASELINE config 2's shapes (the 1200 x 1600 RGB photo of
    polyblur_tpu/cli/bench_suite.py:117-120; 448 px tiles at overlap 1/7,
    3 x 4 = 12 tiles on a 1216 x 1600 canvas): ``bilateral`` on the whole
-   image and on the tiles, ``iir_scan_rows`` (row and column passes) on the
-   whole image and on the tiles, ``dt_coeffs``, the taper (weights and
-   blends) and the halo (input gradients and mask, each GEMM launch timed
-   with its TFLOP/s) stages on the tiles;
+   image and on the tiles, ``iir_scan_rows`` (the row and the column pass,
+   each checked and timed on its own with its byte bound) on the whole
+   image and on the tiles, ``dt_coeffs``, the taper (the weights, and the
+   three blends folded into their blurs' last products, held to the same
+   products unfolded followed by the plain blend) and the halo (input
+   gradients and mask, each GEMM launch timed with its TFLOP/s) stages on
+   the tiles;
    then drives config 2 (``deblur_patches``, bf16 work dtype, taper + dt
    prefilter + halo), 2b (the same in f32), 2c (``polyblur_core(method=
    'fft')``), ``polyblur_deblurring`` with every flag (the bilateral
@@ -53,7 +56,8 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    bilateral set (480 x 640) and the dt set (480 x 512), each with the
    counters zeroed just before and read just after, its route read from
    ``dispatch_log`` and its result held against the same call with every
-   kernel's plain version on the card;
+   kernel's plain version on the card; config 2 must launch the taper
+   weights once per iteration and no separate blend;
 8. prints the card line, one JSON line of kernels, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -86,12 +90,14 @@ TOL_SPEC_F32 = 1e-4             # spectral_gemm application, f32 out
 TOL_POLY_F32 = 1e-4             # fused_polynomial, f32 (unclipped blocks)
 TOL_REL_MAXIMA = 1e-4           # directional_maxima, relative
 TOL_BILATERAL = 1e-5            # bilateral, f32 out (expf vs float64 exp)
-# the kernels compose the recurrence sequentially (rows: in chunks of 32),
+# the kernels compose the recurrence in chunks of 32 (rows and columns),
 # the plain versions by a Hillis-Steele scan; it contracts (v < 1), so the
 # two stay within a few f32 ulps
 TOL_IIR = 1e-5
 TOL_DT = 1e-6                   # dt_coeffs maps in (0, 1)
-TOL_TAPER = 1e-6                # taper weights and blends, f32
+# taper weights vs plain; each folded blend vs the same products unfolded
+# and the plain blend (the same f32 accumulator and rounding: 0 expected)
+TOL_TAPER = 1e-6
 TOL_REL_GRADS = 1e-5            # halo input gradients, relative to max |g|
 TOL_HALO_BF16 = 2.0 ** -7       # halo mask, bf16 out
 
@@ -882,16 +888,17 @@ def feature_kernels(dev, img2, report: dict) -> None:
 
     from polyblur_torch.ops.bilateral import bilateral_filter
     from polyblur_torch.ops.cuda.bilateral import bilateral, bilateral_plain
+    from polyblur_torch.ops import cuda as pcuda
     from polyblur_torch.ops.cuda.features import (
         halo_grads, halo_grads_plain, halo_mask, halo_mask_plain,
-        taper_blend, taper_blend_plain, taper_weights, taper_weights_plain)
+        taper_weights, taper_weights_plain)
     from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
                                              scan_cols, scan_cols_plain,
                                              scan_rows, scan_rows_plain)
     from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
     from polyblur_torch.ops.cuda.polyblur_fused import (
         HALF, TileView, kernel_spectrum, spectral_poly, stage_tables,
-        tile_estimate)
+        taper_blend_plain, tile_estimate)
     from polyblur_torch.ops.domain_transform import (
         _domain_transform_derivatives)
     from polyblur_torch.patches import _grid_steps, plan_patch_grid
@@ -938,7 +945,8 @@ def feature_kernels(dev, img2, report: dict) -> None:
           f"{stage['ms']:.3f} ms, bound {bms:.4f} ms ({by})")
 
     # -- iir_scan_rows: one recursive-filter iteration of the 2 MP image
-    # (config 2c: sigma_s 2, sigma_r 0.8), row pass then column pass
+    # (config 2c: sigma_s 2, sigma_r 0.8), row pass then column pass; then
+    # the dt stage of config 2's tiles (the column pass with the noise)
     dh, dv = _domain_transform_derivatives(img2, 2.0, 0.8)
     a = math.exp(-math.sqrt(2.0) / 2.0)
     v_h = (a ** dh.double()).float()
@@ -946,45 +954,82 @@ def feature_kernels(dev, img2, report: dict) -> None:
     rows = scan_rows(tv2, v_h)
     err = float((rows - scan_rows_plain(tv2, v_h)).abs().max())
     cols = scan_cols(rows.clone(), v_v)
-    err = max(err, float((cols - scan_cols_plain(rows, v_v)).abs().max()))
-    require(err <= TOL_IIR, f"iir_scan_rows 2 MP error {err}")
+    err_cols = float((cols - scan_cols_plain(rows, v_v)).abs().max())
+    require(max(err, err_cols) <= TOL_IIR,
+            f"iir_scan_rows 2 MP error rows {err}, columns {err_cols}")
+    vh, vv = dt_coeffs(view, coeffs)
+    vh_p, vv_p = dt_coeffs_plain(view, coeffs)
+    err_dt = max(float((vh - vh_p).abs().max()),
+                 float((vv - vv_p).abs().max()))
+    require(err_dt <= TOL_DT, f"dt_coeffs error {err_dt}")
+    rows_t = scan_rows(view, vh)
+    err_t = float((rows_t - scan_rows_plain(view, vh)).abs().max())
+    sm, nz = scan_cols(rows_t.clone(), vv, src=view)
+    sm_p, nz_p = scan_cols_plain(rows_t, vv, src=view)
+    err_ct = max(float((sm - sm_p).abs().max()),
+                 float((nz - nz_p).abs().max()))
+    require(max(err_t, err_ct) <= TOL_IIR,
+            f"iir_scan_rows tile stage error rows {err_t}, columns {err_ct}")
+    # each pass alone, with its own byte bound (each input read once, each
+    # output written once; the tiles' bf16 canvas once)
+    scratch, scratch_t = rows.clone(), rows_t.clone()
+    plane_b, tile_b = n_el * 4, tiles_el * 4
+    passes = {}
+    # (name, error, kernel, plain version, bytes, elements); ~6 flops per
+    # element and pass (3 forward, 3 backward)
+    for key, err_k, fn, plain, nbytes, el in (
+            (f"rows[{tuple(img2.shape)}]", err,
+             lambda: scan_rows(tv2, v_h),
+             lambda: scan_rows_plain(tv2, v_h),
+             2 * plane_b + v_h.numel() * 4, n_el),
+            (f"columns[{tuple(img2.shape)}]", err_cols,
+             lambda: scan_cols(scratch, v_v),
+             lambda: scan_cols_plain(rows, v_v),
+             2 * plane_b + v_v.numel() * 4, n_el),
+            (f"rows[{view.n} x 3 x 448^2 bf16 tiles]", err_t,
+             lambda: scan_rows(view, vh),
+             lambda: scan_rows_plain(view, vh),
+             canvas.numel() * 2 + vh.numel() * 4 + tile_b, tiles_el),
+            (f"columns[{view.n} x 3 x 448^2, + noise]", err_ct,
+             lambda: scan_cols(scratch_t, vv, src=view),
+             lambda: scan_cols_plain(rows_t, vv, src=view),
+             canvas.numel() * 2 + vv.numel() * 4 + 3 * tile_b, tiles_el)):
+        bms, by = bound_ms(nbytes, 6.0 * el, "f32")
+        passes[key] = dict(max_abs_err=err_k, ms=cuda_ms(fn),
+                           device_ms=device_ms(fn),
+                           plain_ms=cuda_ms(plain, reps=3), bound_ms=bms,
+                           bound_by=by)
+        r = passes[key]
+        print(f"iir_scan_rows {key}: max_abs_err {err_k:.3e}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), plain {r['plain_ms']:.3f} ms")
     report["iir_scan_rows"] = dict(
-        max_abs_err=err,
+        max_abs_err=max(err, err_cols, err_t, err_ct),
         ms=cuda_ms(lambda: scan_cols(scan_rows(tv2, v_h), v_v)),
         plain_ms=cuda_ms(lambda: scan_cols_plain(scan_rows_plain(tv2, v_h),
                                                  v_v), reps=3),
         library_ms=None,
         bound=bound_ms((2 * n_el + v_h.numel() + v_v.numel()) * 4,
-                       12.0 * n_el, "f32"))
-    print(f"iir_scan_rows[{tuple(img2.shape)} rows + columns]: max_abs_err "
-          f"{err:.3e}, {report['iir_scan_rows']['ms']:.3f} ms")
-
-    # -- dt_coeffs and the dt stage on the tiles
-    vh, vv = dt_coeffs(view, coeffs)
-    vh_p, vv_p = dt_coeffs_plain(view, coeffs)
-    err = max(float((vh - vh_p).abs().max()), float((vv - vv_p).abs().max()))
-    require(err <= TOL_DT, f"dt_coeffs error {err}")
+                       12.0 * n_el, "f32"),
+        passes=passes)
+    print(f"iir_scan_rows[{tuple(img2.shape)} rows + columns]: "
+          f"{report['iir_scan_rows']['ms']:.3f} ms")
     report["dt_coeffs"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: dt_coeffs(view, coeffs)),
+        max_abs_err=err_dt, ms=cuda_ms(lambda: dt_coeffs(view, coeffs)),
         plain_ms=cuda_ms(lambda: dt_coeffs_plain(view, coeffs)),
         library_ms=None,
         bound=bound_ms(canvas.numel() * 2 + 2 * vh.numel() * 4,
                        6.0 * tiles_el, "f32"))
-    sm, nz = scan_cols(scan_rows(view, vh), vv, src=view)
-    sm_p, nz_p = scan_cols_plain(scan_rows_plain(view, vh), vv, src=view)
-    err = max(float((sm - sm_p).abs().max()), float((nz - nz_p).abs().max()))
-    require(err <= TOL_IIR, f"iir_scan_rows tile stage error {err}")
-    print(f"dt_coeffs[{view.n} tiles]: max_abs_err "
-          f"{report['dt_coeffs']['max_abs_err']:.3e}; iir_scan_rows "
-          f"[{view.n} x 3 x 448^2, smooth + noise]: max_abs_err {err:.3e}, "
-          f"{cuda_ms(lambda: scan_cols(scan_rows(view, vh), vv, src=view)):.3f} ms")
+    print(f"dt_coeffs[{view.n} tiles]: max_abs_err {err_dt:.3e}, "
+          f"{report['dt_coeffs']['ms']:.3f} ms")
 
     estimate_stages(view, coeffs, f"tile_estimate[bf16, {view.n} x 3 x "
                     "448^2, config 2]")
 
-    # -- taper: the weights and the 3 blends of one iteration on the tiles,
-    # each blend with its own K u, made as the path makes it (K applied to
-    # the previous blend)
+    # -- taper: the weights and the 3 blends of one iteration on the tiles
+    # of the smooth planes, each blend folded into the last product of its
+    # blur (K applied to the previous blend), held to the same products
+    # unfolded followed by the plain blend
     est = tile_estimate(view, coeffs)
     tabs = stage_tables(448, 448, bf16, str(dev))
     h = wc = 448 + 2 * HALF
@@ -994,36 +1039,67 @@ def feature_kernels(dev, img2, report: dict) -> None:
     av_p, ah_p = taper_weights_plain(est, h, wc)
     err = max(float((av - av_p).abs().max()), float((ah - ah_p).abs().max()))
     xc = torch.empty((view.n, 3, h, wc), dtype=f32, device=dev)
-    xc_p = torch.empty_like(xc)
-    kus, u, pad = [], smooth, HALF
+    xc_ref = torch.empty_like(xc)
+    u, u_ref, pad = smooth, smooth, HALF
+    err_fold = 0.0
     for _ in range(3):
-        kus.append(spectral_poly(u, khat2, tabs, pad=pad, crop=0, clip=False,
-                                 out_dtype=f32))
-        taper_blend(u, pad, av, ah, kus[-1], xc)
-        u, pad = TileView.of_tiles(xc), 0
+        spectral_poly(u, khat2, tabs, xc, pad=pad, crop=0, clip=False,
+                      out_dtype=f32, taper=(av, ah))
+        ku = spectral_poly(u_ref, khat2, tabs, pad=pad, crop=0, clip=False,
+                           out_dtype=f32)
+        taper_blend_plain(u_ref, pad, av, ah, ku, xc_ref)
+        err_fold = max(err_fold, float((xc - xc_ref).abs().max()))
+        u, u_ref, pad = TileView.of_tiles(xc), TileView.of_tiles(xc_ref), 0
+    require(max(err, err_fold) <= TOL_TAPER,
+            f"taper error: weights {err}, folded blends {err_fold}")
+    print(f"taper: weights max_abs_err {err:.3e}; folded blends vs unfolded "
+          f"products + plain blend: max_abs_err {err_fold:.3e}")
 
-    def taper(w=taper_weights, blend=taper_blend, x=xc):
-        a_v, a_h = w(est, h, wc)
-        blend(smooth, HALF, a_v, a_h, kus[0], x)
-        for ku in kus[1:]:
-            blend(TileView.of_tiles(x), 0, a_v, a_h, ku, x)
+    def taper(x=xc):
+        a_v, a_h = taper_weights(est, h, wc)
+        u, pad = smooth, HALF
+        for _ in range(3):
+            spectral_poly(u, khat2, tabs, x, pad=pad, crop=0, clip=False,
+                          out_dtype=f32, taper=(a_v, a_h))
+            u, pad = TileView.of_tiles(x), 0
         return x
 
-    taper()
-    taper(taper_weights_plain, taper_blend_plain, xc_p)
-    err = max(err, float((xc - xc_p).abs().max()))
-    require(err <= TOL_TAPER, f"taper error {err}")
+    def taper_plain():
+        with pcuda.plain_versions():
+            return taper(xc_ref)
+
+    amap = av[:, None, :, None] * ah[:, None, None, :]   # outside the timing
+    lerp_ku = spectral_poly(smooth, khat2, tabs, pad=HALF, crop=0,
+                            clip=False, out_dtype=f32)
     planes_el = view.n * 3 * h * wc
+    # the stage's inputs read once (the smooth tiles, the spectrum, the
+    # estimate) and its outputs written once (av, ah, xc): folded, a blend
+    # moves no bytes of its own, it reads its application's u and writes
+    # its xc. Operations: three applications of K at spectral_gemm's
+    # yardstick for these shapes on the tensor cores, and beside them the
+    # blends' 4 f32 operations per element on the CUDA cores
+    stage_bytes = (tiles_el + planes_el + khat2.numel() + est.numel()
+                   + av.numel() + ah.numel()) * 4
+    stage_b = max(bound_ms(stage_bytes,
+                           3 * view.n * 3 * application_flops(h, wc), "bf16"),
+                  bound_ms(stage_bytes, 3 * 4.0 * planes_el, "f32"))
+    weights_ms = device_ms(lambda: taper_weights(est, h, wc))
+    stage_ms = device_ms(taper)
     report["taper"] = dict(
-        max_abs_err=err, ms=cuda_ms(taper),
-        plain_ms=cuda_ms(lambda: taper(taper_weights_plain, taper_blend_plain,
-                                       xc_p)),
-        library_ms=None,
-        # the smooth tiles and the three K u read once, xc written once
-        bound=bound_ms(tiles_el * 4 + 3 * planes_el * 4 + planes_el * 4,
-                       3 * 3.0 * planes_el, "f32"))
-    print(f"taper[{view.n} tiles, canvas {h}x{wc}, weights + 3 blends]: "
-          f"max_abs_err {err:.3e}, {report['taper']['ms']:.3f} ms")
+        max_abs_err=max(err, err_fold), ms=cuda_ms(taper),
+        device_ms=stage_ms,
+        plain_ms=cuda_ms(taper_plain, reps=3),
+        library_ms=cuda_ms(lambda: torch.lerp(lerp_ku, xc, amap)),
+        library_what="torch.lerp(Ku, u, a): one blend, the (h, wc) weight "
+                     "map formed outside the timing",
+        bound=stage_b,
+        weights_device_ms=weights_ms)
+    r = report["taper"]
+    print(f"taper[{view.n} tiles, canvas {h}x{wc}, weights + 3 folded "
+          f"applications]: {r['ms']:.3f} ms, device {stage_ms:.4f} ms "
+          f"(weights {weights_ms:.4f} ms = {100 * weights_ms / stage_ms:.1f}"
+          f"%), bound {r['bound'][0]:.4f} ms; torch.lerp blend "
+          f"{r['library_ms']:.4f} ms")
 
     # -- halo: the input gradients (once per call) and one mask pass
     grads = halo_grads(view)
@@ -1093,6 +1169,15 @@ def feature_paths(dev, img2, card: str, launches: dict) -> None:
     counts = drive_path("config 2: 2 MP deblur_patches bf16, taper + dt + "
                         "halo", lambda: cfg2(torch.bfloat16), shape,
                         (staged,), NAMES + DT_STAGES, PSNR_BF16_DB, card, npx)
+    # per iteration: the taper weights, no separate blend; rows + columns
+    require(counts["taper"] == CFG2_KW["n_iter"],
+            f"config 2: {counts['taper']} taper launches for "
+            f"{CFG2_KW['n_iter']} iterations (weights only expected)")
+    require(counts["iir_scan_rows"] == 2 * CFG2_KW["n_iter"],
+            f"config 2: {counts['iir_scan_rows']} IIR passes")
+    print(f"config 2 launches per call: taper weights {counts['taper']}, "
+          f"separate blends 0 (folded into spectral_gemm mode 4), IIR "
+          f"row + column passes {counts['iir_scan_rows']}")
     for k in DT_STAGES:
         launches[k] = counts[k]
     launches["kernel_spectrum[n=12]"] = counts["kernel_spectrum"]
@@ -1428,7 +1513,8 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
-        for extra in ("library_what", "tile_stage", "device_ms"):
+        for extra in ("library_what", "tile_stage", "device_ms", "passes",
+                      "weights_device_ms"):
             if extra in r:
                 rows[-1][extra] = r[extra]
     print(card)

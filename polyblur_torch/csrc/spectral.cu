@@ -28,7 +28,10 @@
 //   mode 2  Pst = q * (T2 Rst),  T2 = [[Cy, Sy], [-Sy, Cy]]  -> PS = Pst^T;
 //           the spectrum multiply in the epilogue, before the cast
 //   mode 3  Zst = T3 Pst,        T3 = [[Cy, -Sy], [Sy, Cy]]  -> ZZ = [Zr | Zi]
-//   mode 4  x' = cast(clip?(crop(ZZ G)))    only the cropped block
+//   mode 4  x' = cast(clip?(crop(ZZ G)))    only the cropped block; or,
+//           with the taper, x' = a pad(x) + (1 - a) ZZ G in f32, a the
+//           tile's weight map av[i] ah[j]: the blend of the edgetaper
+//           (polyblur_fused.py:493-498) in the epilogue of its blur
 // The pad width of mode 1 and the crop of mode 4 are launch arguments: 12
 // (the patch engine, the tiles route and the fused whole-image polynomial
 // pad by the kernel half-support), 0 (the overlap-save blocks of the
@@ -38,7 +41,10 @@
 // prefilter's smooth part, the taper's canvas) and round them to the work
 // dtype as it loads them; mode 4 may write f32 (the taper's blur K u, the
 // output the halo mask reads) and add the prefilter's noise after the
-// clip.
+// clip. The taper's three applications (the degree-1 operator K on the
+// whole canvas) each blend K u with u itself in mode 4's epilogue: K u
+// never reaches device memory, and the blend costs mode 4 one more read
+// of u (and of the weight vectors) instead of a launch of its own.
 //
 // Bound on the H100: operations — 684 M MACs per (tile, channel) plane at
 // 448 px tiles, ~115 M per 280 x 240 block of the 2 MP blocked route.
@@ -49,7 +55,9 @@
 // two blocks per SM so that one block's epilogue overlaps the other's
 // MMAs. The epilogues (layout change, the spectrum multiply, crop / clip /
 // noise / cast) load what they need first, then store straight from the
-// registers, two elements per store. Mode 1's B operand (the tiles, any
+// registers, two elements per store; the taper's blend stages the tile in
+// the idle ring and walks it in row-contiguous float4s (see taper_tile).
+// Mode 1's B operand (the tiles, any
 // stride, replicate-padded, f32 or work dtype) is written into the stages
 // by the producer warpgroups. bf16 operands run on bf16 wgmma; f32
 // operands run 3xTF32 (a = hi + lo, hi = a rounded to tf32; a b ~ hi hi +
@@ -304,13 +312,18 @@ struct GemmParams {
   int M, N, K;
   int ldd;              // destination row length, elements
   long long dplane;     // destination plane stride, elements
+  const float* av;      // mode 4 with the taper: (n, h) row weights
+  const float* ah;      //   and (n, wc) column weights
+  int tpad, tu_f32;     //   src padded by tpad onto the canvas; f32 or T
 };
 
 // IO flags, template parameters so that each instantiation keeps only its
 // own loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them to
 // the work dtype, mode 4 writes f32 instead of the work dtype; kNoise —
-// mode 4 adds the noise plane after the clip and clips again.
-constexpr int kF32IO = 1, kNoise = 2;
+// mode 4 adds the noise plane after the clip and clips again; kTaper —
+// mode 4 (f32 out, no clip) blends its product with the application's
+// input tiles by the taper weights.
+constexpr int kF32IO = 1, kNoise = 2, kTaper = 4;
 
 __device__ __forceinline__ uint32_t pack2(bf16 a, bf16 b) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
@@ -497,6 +510,93 @@ __device__ __forceinline__ void store2(T* d, float a, float b, bool pair) {
   }
 }
 
+// xc = a u + (1 - a) ku in the operands and rounding order of the taper's
+// plain version
+__device__ __forceinline__ float taper_blend(float a, float u, float ku) {
+  return __fadd_rn(__fmul_rn(a, u), __fmul_rn(__fsub_rn(1.f, a), ku));
+}
+
+// The taper's epilogue (mode 4 with kTaper): xc = blend(av[i] ah[j],
+// pad(u)[i][j], acc) for the block's 128 x 128 tile, read from `tile`, the
+// accumulators staged in shared memory (pitch kTP). The accumulator
+// fragments hold a warp's elements as 8 rows x 8 columns, so the blend
+// walks the staged tile instead: a warp covers one row of it in 32
+// float4s (a thread one float4 column on every 8th row, its ah loaded
+// once), loads u and av for a batch of 8 chunks, then stores them. u
+// is the application's input (mode 1's TileView, f32 or T) replicate-padded
+// by tpad, or with tpad = 0 the destination itself: mode 1 has read it
+// before mode 4 runs, and each element is loaded and stored by the same
+// thread, loads first.
+constexpr int kTP = BN + 8;  // staged tile pitch, floats
+
+template <typename TU>
+__device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
+                                           int m0, int n0, const float* tile,
+                                           int t) {
+  constexpr int kC4 = BN / 4;            // float4 columns of the tile
+  constexpr int kRows = NCONS / kC4;     // rows between a thread's chunks
+  constexpr int kQ = BM / kRows;         // chunks per thread
+  constexpr int kB = 8;                  // chunks per batch of loads
+  constexpr bool kF32U = std::is_same<TU, float>::value;
+  const int n = pl / p.C, c = pl - n * p.C;
+  const TU* ub = static_cast<const TU*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+  const int uh = p.h - 2 * p.tpad, uw = p.wc - 2 * p.tpad;
+  const float* avn = p.av + static_cast<long long>(n) * p.h;
+  float* dst = static_cast<float*>(p.dst) + pl * p.dplane;
+  // a thread's chunks share one float4 column j .. j + 3 of the tile
+  const int c4 = t % kC4, r0 = t / kC4, j = n0 + 4 * c4;
+  const bool whole = j + 3 < p.N;
+  const float* ahn = p.ah + static_cast<long long>(n) * p.wc;
+  float w[4];
+  int xj[4];  // u's columns, replicate-clamped
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int jc = min(j + e, p.N - 1);
+    w[e] = ahn[jc];
+    xj[e] = min(max(jc - p.tpad, 0), uw - 1);
+  }
+  const bool vec_u = kF32U && p.tpad == 0 && whole;
+#pragma unroll
+  for (int q0 = 0; q0 < kQ; q0 += kB) {
+    float x[kB][4], ai[kB];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int i = min(m0 + r0 + kRows * (q0 + b), p.M - 1);
+      ai[b] = avn[i];
+      const TU* ur =
+          ub + static_cast<long long>(min(max(i - p.tpad, 0), uh - 1)) *
+                   p.src.sR;
+      if (vec_u && (reinterpret_cast<uintptr_t>(ur + j) & 15) == 0) {
+        const float4 v = *reinterpret_cast<const float4*>(ur + j);
+        x[b][0] = v.x, x[b][1] = v.y, x[b][2] = v.z, x[b][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[b][e] = pb::to_f32(ur[xj[e]]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int r = r0 + kRows * (q0 + b), i = m0 + r;
+      const float4 k4 =
+          *reinterpret_cast<const float4*>(tile + r * kTP + 4 * c4);
+      const float ku[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[b][e] = taper_blend(__fmul_rn(ai[b], w[e]), x[b][e], ku[e]);
+      if (i >= p.M) continue;
+      float* d = dst + static_cast<long long>(i) * p.ldd + j;
+      if (whole && (reinterpret_cast<uintptr_t>(d) & 15) == 0) {
+        *reinterpret_cast<float4*>(d) =
+            make_float4(x[b][0], x[b][1], x[b][2], x[b][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j + e < p.N) d[e] = x[b][e];
+      }
+    }
+  }
+}
+
 // The epilogue of one accumulator pair C[i, j], C[i, j + 1] (j even),
 // in two passes so that every load of the tile's epilogue (the spectrum,
 // the noise) is in flight before its first store: the stores may alias
@@ -676,6 +776,25 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   pb::wgmma_wait<0>();
   pb::fence_regs(acc);
   const int warp = t >> 5, lane = t & 31;
+  if constexpr (MODE == 4 && (IO & kTaper)) {
+    static_assert(BM * kTP * 4 <= Cf::STAGES * Cf::STAGE,
+                  "the staged tile must fit the ring");
+    // both warpgroups' MMAs are done reading the ring: stage the tile
+    pb::named_barrier(1, NCONS);
+    float* tile = reinterpret_cast<float*>(sbase);
+    const int ti = wg * 64 + warp * 16 + (lane >> 2), tj = 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < ACC; r += 2)
+      *reinterpret_cast<float2*>(tile + (ti + 8 * ((r >> 1) & 1)) * kTP + tj +
+                                 8 * (r >> 2)) = make_float2(acc[r],
+                                                             acc[r + 1]);
+    pb::named_barrier(1, NCONS);
+    if (p.tu_f32)
+      taper_tile<float>(p, pl, m0, n0, tile, tid);
+    else
+      taper_tile<T>(p, pl, m0, n0, tile, tid);
+    return;
+  }
   const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
   const int j0 = n0 + 2 * (lane & 3);
 #pragma unroll
@@ -701,12 +820,17 @@ int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it
+// f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it;
+// taper: mode 4 blends (f32 out)
 template <int MODE, typename T>
-int launch_gemm(bool f32io, bool noise, const CUtensorMap& a,
+int launch_gemm(bool f32io, bool noise, bool taper, const CUtensorMap& a,
                 const CUtensorMap& b, const GemmParams& p, int planes,
                 cudaStream_t s) {
   if (sizeof(T) == 4) f32io = false;  // f32 work dtype: f32 anyway
+  if constexpr (MODE == 4) {
+    constexpr int kOut = sizeof(T) == 4 ? 0 : kF32IO;
+    if (taper) return launch_io<4, T, kOut | kTaper>(a, b, p, planes, s);
+  }
   if (f32io && noise)
     return launch_io<MODE, T, kF32IO | kNoise>(a, b, p, planes, s);
   if (f32io) return launch_io<MODE, T, kF32IO>(a, b, p, planes, s);
@@ -735,21 +859,21 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                           2LL * kp * pad64(p.wc), BM);
       b = a;
       if (!ok) break;
-      return launch_gemm<1, T>(src_f32, false, a, b, p, planes, s);
+      return launch_gemm<1, T>(src_f32, false, false, a, b, p, planes, s);
     case 2:  // A = RS (kp x 2h), B = T2 (2h x 2h)
       p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
       ok = pb::tma_map_3d(&a, mid, f32, 2 * h, kp, planes, l2, rs, BM) &&
            pb::tma_map_3d(&b, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BN);
       if (!ok) break;
-      return launch_gemm<2, T>(false, false, a, b, p, planes, s);
+      return launch_gemm<2, T>(false, false, false, a, b, p, planes, s);
     case 3:  // A = T3 (2h x 2h), B = PS (kp x 2h)
       p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
       ok = pb::tma_map_3d(&a, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BM) &&
            pb::tma_map_3d(&b, mid, f32, 2 * h, kp, planes, l2, rs, BN);
       if (!ok) break;
-      return launch_gemm<3, T>(false, false, a, b, p, planes, s);
+      return launch_gemm<3, T>(false, false, false, a, b, p, planes, s);
     case 4:  // A = ZZ (h x 2kp) from row `half`, B = G^T (wc x 2kp)
       p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
       p.dplane = static_cast<long long>(p.ph) * p.pw;
@@ -757,8 +881,8 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
            pb::tma_map_3d(&b, tab, f32, 2 * kp, p.wc, 1, 2 * kp,
                           2LL * kp * p.wc, BN);
       if (!ok) break;
-      return launch_gemm<4, T>(dst_f32, p.noise != nullptr, a, b, p, planes,
-                               s);
+      return launch_gemm<4, T>(dst_f32, p.noise != nullptr, p.av != nullptr,
+                               a, b, p, planes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -813,7 +937,9 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
 // 1): the tiles are f32 and rounded to the work dtype on load; dst_f32
 // (mode 4): write f32; clip != 0 clips mode 4's output to [0, 1]; noise
 // (mode 4, f32 (planes, ph, pw) or null) is then added and the sum clipped
-// again.
+// again. av, ah (mode 4, the taper's (n, h) and (n, wc) f32 weights, or
+// null): the output is the whole canvas (half 0) in f32, unclipped, blended
+// with the tiles of the TileView padded by tpad, x' = a pad(x) + (1 - a) x'.
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
@@ -822,8 +948,14 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 const float* qhat2, const float* noise,
                                 int planes, int C, int ph, int pw, int h,
                                 int wc, int kp, int half, int clip,
+                                const float* av, const float* ah, int tpad,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool taper = mode == 4 && av != nullptr;
+  if (taper && (ah == nullptr || clip || noise != nullptr || half != 0 ||
+                ph != h || pw != wc || tpad < 0 || h <= 2 * tpad ||
+                wc <= 2 * tpad || (dtype == pb::kBF16 && !dst_f32)))
+    return static_cast<int>(cudaErrorInvalidValue);
   GemmParams p;
   p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
                         step_w);
@@ -838,6 +970,10 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.kp = kp;
   p.half = half;
   p.clip = clip;
+  p.av = taper ? av : nullptr;
+  p.ah = taper ? ah : nullptr;
+  p.tpad = tpad;
+  p.tu_f32 = src_f32 != 0 || dtype == pb::kF32;
   if (dtype == pb::kBF16)
     return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, tab, mid, p,
                                planes, s);

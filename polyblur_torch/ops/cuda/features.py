@@ -1,10 +1,12 @@
 """The edgetaper and halo stages of the mega kernel's feature flags, over a
 tile batch.
 
-* :func:`taper_weights`, :func:`taper_blend` — ``csrc/features.cu``: the
-  per-tile taper vectors (av, ah) of the estimated kernel and one blend
-  ``xc = a u + (1 - a) Ku`` with ``a = av[i] ah[j]``
-  (polyblur_fused.py:378-433, :493-498); counted as ``taper``.
+* :func:`taper_weights` — ``csrc/features.cu``: the per-tile taper
+  vectors (av, ah) of the estimated kernel (polyblur_fused.py:378-433);
+  counted as ``taper``. Each of the three blends ``xc = a u + (1 - a) Ku``
+  with ``a = av[i] ah[j]`` (:493-498) runs in the epilogue of its blur's
+  last product (``spectral_poly(..., taper=(av, ah))``, counted as
+  ``spectral_gemm``).
 * :func:`halo_grads`, :func:`halo_mask` — ``csrc/estimate.cu``'s
   derivative GEMM pair with two more epilogues: the input tiles' gradients
   and their per-plane |grad|^2 sums once per call, then per iteration the
@@ -29,9 +31,8 @@ from ._build import (check, check_cuda, count_launch, dtype_code, library,
 from .polyblur_fused import (HALF, _NULL_VIEW_ARGS, _VIEW_ARGTYPES, TileView,
                              estimate_tables)
 
-__all__ = ["taper_weights", "taper_weights_plain", "taper_blend",
-           "taper_blend_plain", "HaloGrads", "halo_grads", "halo_grads_plain",
-           "halo_mask", "halo_mask_plain"]
+__all__ = ["taper_weights", "taper_weights_plain", "HaloGrads",
+           "halo_grads", "halo_grads_plain", "halo_mask", "halo_mask_plain"]
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -103,51 +104,6 @@ def taper_weights(est: torch.Tensor, h: int, wc: int):
     count_launch("taper")
     check(lib, err, "taper weights")
     return av, ah
-
-
-def taper_blend_plain(u: TileView, pad: int, av: torch.Tensor,
-                      ah: torch.Tensor, ku: torch.Tensor,
-                      xc: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`taper_blend`."""
-    n, c, h, wc = xc.shape
-    x = u.tiles().float()
-    if pad:
-        x = torch.nn.functional.pad(x.reshape(n * c, 1, *x.shape[-2:]),
-                                    (pad,) * 4, mode="replicate")
-        x = x.reshape(n, c, h, wc)
-    a = av[:, None, :, None] * ah[:, None, None, :]
-    xc.copy_(a * x + (1.0 - a) * ku)
-    return xc
-
-
-def taper_blend(u: TileView, pad: int, av: torch.Tensor, ah: torch.Tensor,
-                ku: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
-    """One taper blend ``xc = a pad(u) + (1 - a) ku`` with ``a = av[i]
-    ah[j]`` per tile, into the (n, C, h, wc) f32 canvas ``xc``.
-
-    :param u: the (n, C, h - 2 pad, wc - 2 pad) tiles (f32 or the work
-        dtype), replicate-padded by ``pad`` on load; with ``pad = 0`` it may
-        be ``xc`` itself (the blend runs in place)
-    :param ku: the degree-1 application K u on the canvas, f32, like xc
-    """
-    if runs_plain(xc):
-        return taper_blend_plain(u, pad, av, ah, ku, xc)
-    check_cuda("taper", u.data, av, ah, ku, xc)
-    n, c, h, wc = xc.shape
-    if (u.n, u.channels) + u.patch != (n, c, h - 2 * pad, wc - 2 * pad) \
-            or ku.shape != xc.shape or not (xc.is_contiguous()
-                                            and ku.is_contiguous()):
-        raise ValueError("taper blend: shapes do not match the canvas")
-    lib = library("features")
-    fn = lib.pb_taper_blend
-    fn.argtypes = [_I] + _VIEW_ARGTYPES + [_I] * 5 + [_P] * 5
-    fn.restype = _I
-    err = fn(dtype_code(u.data.dtype), *u.c_args(), n * c, c, pad, h, wc,
-             av.contiguous().data_ptr(), ah.contiguous().data_ptr(),
-             ku.data_ptr(), xc.data_ptr(), stream_of(xc))
-    count_launch("taper")
-    check(lib, err, "taper blend")
-    return xc
 
 
 # ------------------------------------------------------------------- halo

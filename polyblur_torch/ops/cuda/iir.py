@@ -5,9 +5,10 @@ Kernels: ``csrc/iir.cu``.
 
 * :func:`scan_rows` — replaces polyblur_tpu/ops/pallas/iir.py::
   iir_scan_rows_pallas (one warp per row);
-* :func:`scan_cols` — the same recurrence down the columns (one thread per
-  column), in place of the JAX code's swapaxes + row scan; it can also
-  write the prefilter's ``noise = x - smooth``;
+* :func:`scan_cols` — the same recurrence down the columns (a block per
+  strip of 32 columns, the row pass's chunked scan transposed through
+  shared memory), in place of the JAX code's swapaxes + row scan; it can
+  also write the prefilter's ``noise = x - smooth``;
 * :func:`dt_coeffs` — the mega kernel's dt prefilter state
   (polyblur_fused.py:436-455): per tile, the joint-image derivatives over
   its channels and the feedback maps ``v = exp(dH * (-sqrt 2 / sigma_s))``
@@ -16,9 +17,9 @@ Kernels: ``csrc/iir.cu``.
 The scans count as ``iir_scan_rows``, the maps as ``dt_coeffs``. The plain
 versions run the TPU kernel's algorithm: the Hillis-Steele affine prefix
 and suffix compositions of iir.py:47-73, log2(W) shifted tensor steps. The
-kernels' sequential composition rounds differently; the recurrence
-contracts (``v <= exp(-sqrt 2 / sigma) < 1``), so they agree to ~1e-6
-(tests hold 1e-5).
+kernels compose in chunks of 32 (a 5-step scan in each, a carry across
+them), which rounds differently; the recurrence contracts (``v <=
+exp(-sqrt 2 / sigma) < 1``), so they agree to ~1e-6 (tests hold 1e-5).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ with the intermediates in device memory (see ``pipeline.restore_tiles``):
 
 * :func:`tile_estimate`  — ``csrc/estimate.cu``, 4 launches;
 * :func:`kernel_spectrum` — ``csrc/spectral.cu``, 1 launch;
-* :func:`spectral_poly`  — ``csrc/spectral.cu`` ``spectral_gemm``, 4 launches.
+* :func:`spectral_poly`  — ``csrc/spectral.cu`` ``spectral_gemm``, 4 launches;
+  with ``taper`` the last one also runs the edgetaper's blend
+  (polyblur_fused.py:493-498) in its epilogue.
 
 The tiles mode (:func:`polyblur_tiles_fused`, the whole-image route for
 images of 640 px or less) runs the same stages on the image itself as one
@@ -57,7 +59,8 @@ from ._build import (check, check_cuda, count_launch, dtype_code, library,
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "stage_tables", "tile_estimate", "tile_estimate_plain",
            "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
-           "spectral_poly", "spectral_poly_plain", "polyblur_tiles_fused",
+           "spectral_poly", "spectral_poly_plain", "taper_blend_plain",
+           "polyblur_tiles_fused",
            "estimate_rows", "estimate_launches", "launch_estimate",
            "launch_spectrum", "launch_spectral_gemm",
            "spectral_gemm_launches", "HALF", "pad64"]
@@ -495,12 +498,45 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
     return out
 
 
+def taper_blend_plain(u: TileView, pad: int, av: torch.Tensor,
+                      ah: torch.Tensor, ku: torch.Tensor,
+                      xc: torch.Tensor) -> torch.Tensor:
+    """One blend of the edgetaper, ``xc = a pad(u) + (1 - a) ku`` with
+    ``a = av[i] ah[j]`` per tile (polyblur_fused.py:493-498), into the
+    (n, C, h, wc) f32 canvas ``xc``: the plain version of
+    :func:`spectral_poly`'s ``taper``, with ``ku`` its unclipped f32
+    application. ``u`` (f32 or the work dtype) is replicate-padded by
+    ``pad``; with ``pad = 0`` it may be ``xc`` itself."""
+    n, c, h, wc = xc.shape
+    x = u.tiles().float()
+    if pad:
+        x = F.pad(x.reshape(n * c, 1, *x.shape[-2:]), (pad,) * 4,
+                  mode="replicate").reshape(n, c, h, wc)
+    a = av[:, None, :, None] * ah[:, None, None, :]
+    xc.copy_(a * x + (1.0 - a) * ku)
+    return xc
+
+
+def _check_taper(name: str, g: _Geometry, clip: bool, noise, odt, taper):
+    """The taper's (av, ah) as contiguous f32 after checking that the
+    application can blend: the whole canvas out in f32, no clip, no
+    noise."""
+    av, ah = taper
+    n = g.out[0]
+    if g.crop or clip or noise is not None or odt != torch.float32 \
+            or av.shape != (n, g.h) or ah.shape != (n, g.wc):
+        raise ValueError(f"{name}: the taper blends the whole canvas in "
+                         f"f32, unclipped and without noise")
+    return av.float().contiguous(), ah.float().contiguous()
+
+
 def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
                            tables: StageTables, out: torch.Tensor | None,
                            clip: bool, name: str, pad: int | None = None,
                            crop: int | None = None,
                            noise: torch.Tensor | None = None,
-                           out_dtype: torch.dtype | None = None):
+                           out_dtype: torch.dtype | None = None,
+                           taper=None):
     """The four ``pb_spectral_gemm`` launches of one application, not yet
     run: (out, [mode 1, mode 2, mode 3, mode 4]), each a callable that
     launches its product and counts it under ``name``; see
@@ -526,6 +562,10 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
         if noise.shape != g.out or noise.dtype != torch.float32 \
                 or not noise.is_contiguous():
             raise ValueError(f"{name}: bad noise tensor")
+    av = ah = None
+    if taper is not None:
+        check_cuda(name, *taper)
+        av, ah = _check_taper(name, g, clip, noise, odt, taper)
     qhat2 = qhat2.contiguous()
     # RS / PS: (planes, kp, pad64(2h)); ZZ: (planes, h, 2kp), in mid_a
     # after RS has been read
@@ -537,12 +577,13 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
     fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 3 + [_I]
-                   + [_P] * 2 + [_I] * 9 + [_P])
+                   + [_P] * 2 + [_I] * 9 + [_P] * 2 + [_I, _P])
     fn.restype = _I
     args = [dtype_code(g.wd)] + view.c_args() + [
         int(view.data.dtype == torch.float32)]
     rest = [int(odt == torch.float32), qhat2.data_ptr(),
             None if noise is None else noise.data_ptr(), planes, c]
+    weights = [None, None] if av is None else [av.data_ptr(), ah.data_ptr()]
     stream = stream_of(out)
 
     def launch(mode, tab, mid, dst, tile, half):
@@ -550,12 +591,13 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
             err = fn(mode, *args, tab.data_ptr(),
                      None if mid is None else mid.data_ptr(),
                      dst.data_ptr(), *rest, *tile, g.h, g.wc, kp, half,
-                     int(clip), stream)
+                     int(clip), *weights, g.pad, stream)
             count_launch(name)
             check(lib, err, f"{name} mode {mode}")
-        # the tensors behind the pointers in args and rest (qhat2 may be a
-        # contiguous copy made here), alive while the launch may run
-        run.tensors = (view.data, qhat2, noise)
+        # the tensors behind the pointers in args, rest and weights (qhat2,
+        # av and ah may be contiguous copies made here), alive while the
+        # launch may run
+        run.tensors = (view.data, qhat2, noise, av, ah)
         return run
 
     # (mode, table, operand read, destination, tile size, pad or crop):
@@ -572,12 +614,13 @@ def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
                          clip: bool, name: str, pad: int | None = None,
                          crop: int | None = None,
                          noise: torch.Tensor | None = None,
-                         out_dtype: torch.dtype | None = None
-                         ) -> torch.Tensor:
+                         out_dtype: torch.dtype | None = None,
+                         taper=None) -> torch.Tensor:
     """One application: the four launches of
     :func:`spectral_gemm_launches` in order."""
     out, launches = spectral_gemm_launches(view, qhat2, tables, out, clip,
-                                           name, pad, crop, noise, out_dtype)
+                                           name, pad, crop, noise, out_dtype,
+                                           taper)
     for run in launches:
         run()
     return out
@@ -587,7 +630,8 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
                   out: torch.Tensor | None = None, clip: bool = True,
                   pad: int | None = None, crop: int | None = None,
                   noise: torch.Tensor | None = None,
-                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                  out_dtype: torch.dtype | None = None,
+                  taper=None) -> torch.Tensor:
     """One application of the spectral polynomial ``qhat2`` to every tile
     and channel: ``crop(p(K) pad(x))`` on the (h, wc) canvas of ``tables``,
     clipped to [0, 1] when ``clip``, with ``noise`` added and clipped again
@@ -604,12 +648,27 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
     :param crop: crop of the output from the canvas (default
         ``tables.pad``; 0 keeps the whole canvas)
     :param noise: f32 planes of the output's shape, added after the clip
+    :param taper: the edgetaper's per-tile weights ``(av (n, h), ah (n,
+        wc))``: the output (the whole canvas, ``crop=0``, f32, unclipped)
+        becomes ``a pad(x) + (1 - a) p(K) pad(x)`` with ``a = av[i]
+        ah[j]``, blended in the last product's epilogue (see
+        :func:`taper_blend_plain`); ``out`` may be the canvas ``x`` reads
     """
     if runs_plain(view.data):
-        return spectral_poly_plain(view, qhat2, tables, out, clip, pad, crop,
-                                   noise, out_dtype)
+        if taper is None:
+            return spectral_poly_plain(view, qhat2, tables, out, clip, pad,
+                                       crop, noise, out_dtype)
+        g = _geometry(view, tables, pad, crop, "spectral_poly")
+        _check_taper("spectral_poly", g, clip, noise, out_dtype or g.wd,
+                     taper)
+        ku = spectral_poly_plain(view, qhat2, tables, None, clip, pad, crop,
+                                 noise, out_dtype)
+        if out is None:
+            out = torch.empty_like(ku)
+        return taper_blend_plain(view, g.pad, *taper, ku, out)
     return launch_spectral_gemm(view, qhat2, tables, out, clip,
-                                "spectral_gemm", pad, crop, noise, out_dtype)
+                                "spectral_gemm", pad, crop, noise, out_dtype,
+                                taper)
 
 
 # ------------------------------------------------------------- tiles mode

@@ -40,8 +40,7 @@ from .envelopes import MEGA_MAX_TILE, MEGA_MAX_TILE_DT
 from .estimation import gaussian_blur_estimation
 from .ops.bilateral import bilateral_filter
 from .ops.cuda.bilateral import bilateral
-from .ops.cuda.features import (halo_grads, halo_mask, taper_blend,
-                                taper_weights)
+from .ops.cuda.features import halo_grads, halo_mask, taper_weights
 from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
 from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
                                       polyblur_tiles_fused, spectral_poly,
@@ -113,9 +112,9 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
         xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)
         u, pad = base, HALF
         for _ in range(_N_TAPERS):
-            ku = spectral_poly(u, khat2, tables, pad=pad, crop=0, clip=False,
-                               out_dtype=f32)
-            taper_blend(u, pad, av, ah, ku, xc)
+            # xc = a u + (1 - a) K u, blended in the product's epilogue
+            spectral_poly(u, khat2, tables, xc, pad=pad, crop=0, clip=False,
+                          out_dtype=f32, taper=(av, ah))
             u, pad = TileView.of_tiles(xc), 0
         poly_src = u
         ucmp = TileView.of_tiles(xc[:, :, HALF:h - HALF, HALF:wc - HALF])

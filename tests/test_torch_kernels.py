@@ -673,23 +673,43 @@ def test_cuda_bilateral_matches_plain(cuda_dev, dt, tol):
 
 
 def test_cuda_iir_matches_plain(cuda_dev):
-    """Row and column passes and the dt maps; the sequential composition
-    rounds differently from the Hillis-Steele plain version (1e-5)."""
+    """Row and column passes and the dt maps; the chunked composition
+    rounds differently from the Hillis-Steele plain version (1e-5). The
+    column pass at H = 200 and 448 (the strip's forward result in shared
+    memory, a last partial chunk at 200) and 777 (through device memory),
+    at W = 333 (4-byte copies) and, at 777, W = 336 (16-byte copies and
+    stores), in place, with and without the noise, and from a bf16
+    canvas."""
     from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
                                              scan_cols, scan_cols_plain,
                                              scan_rows, scan_rows_plain)
     from polyblur_torch.ops.domain_transform import iir_scan_rows
 
     g = torch.Generator().manual_seed(22)
-    x = torch.rand((2, 3, 200, 333), generator=g).to(cuda_dev)
-    v = (0.95 * torch.rand((2, 200, 333), generator=g)).to(cuda_dev)
-    view = TileView.of_tiles(x)
-    before = dict(pcuda.launches)
-    rows = scan_rows(view, v)
-    assert _counts(before, "iir_scan_rows") == 1
-    assert float((rows - scan_rows_plain(view, v)).abs().max()) <= 1e-5
-    out, noise = scan_cols(rows.clone(), v, src=view)
-    out_p, noise_p = scan_cols_plain(rows, v, src=view)
+    for h, w in ((200, 333), (448, 333), (777, 333), (777, 336)):
+        x = torch.rand((2, 3, h, w), generator=g).to(cuda_dev)
+        v = (0.95 * torch.rand((2, h, w), generator=g)).to(cuda_dev)
+        view = TileView.of_tiles(x)
+        before = dict(pcuda.launches)
+        rows = scan_rows(view, v)
+        assert _counts(before, "iir_scan_rows") == 1
+        assert float((rows - scan_rows_plain(view, v)).abs().max()) <= 1e-5
+        out_p, noise_p = scan_cols_plain(rows, v, src=view)
+        xin = rows.clone()
+        out = scan_cols(xin, v)
+        assert out.data_ptr() == xin.data_ptr()
+        assert float((out - out_p).abs().max()) <= 1e-5
+        xin = rows.clone()
+        out, noise = scan_cols(xin, v, src=view)
+        assert out.data_ptr() == xin.data_ptr()
+        assert _counts(before, "iir_scan_rows") == 3
+        assert float((out - out_p).abs().max()) <= 1e-5
+        assert float((noise - noise_p).abs().max()) <= 1e-5
+    cv = _canvas_view(cuda_dev, torch.bfloat16, 27)
+    vc = (0.95 * torch.rand((cv.n, 160, 160), generator=g)).to(cuda_dev)
+    rows = scan_rows(cv, vc)
+    out_p, noise_p = scan_cols_plain(rows, vc, src=cv)
+    out, noise = scan_cols(rows.clone(), vc, src=cv)
     assert float((out - out_p).abs().max()) <= 1e-5
     assert float((noise - noise_p).abs().max()) <= 1e-5
     vf = v[:, None].expand(x.shape)
@@ -709,12 +729,21 @@ def test_cuda_iir_matches_plain(cuda_dev):
 
 
 def test_cuda_taper_and_halo_stages_match_plain(cuda_dev):
+    """The taper weights against their plain version; each blend, folded
+    into the last product of its blur (``spectral_poly(..., taper=)``),
+    against the same kernels' unfolded application followed by the plain
+    blend: the same f32 accumulator and rounding, so equal (gate 1e-6),
+    from the tiles padded by 12 and in place on the canvas; then the
+    halo."""
     from polyblur_torch.ops.cuda.features import (
         halo_grads, halo_grads_plain, halo_mask, halo_mask_plain,
-        taper_blend, taper_blend_plain, taper_weights, taper_weights_plain)
+        taper_weights, taper_weights_plain)
+    from polyblur_torch.ops.cuda.polyblur_fused import taper_blend_plain
+    from polyblur_torch.pipeline import _unit_horner
 
+    f32 = torch.float32
     coeffs = _mega_pack(*COEFFS, device=cuda_dev)
-    view = _canvas_view(cuda_dev, torch.float32, 24)
+    view = _canvas_view(cuda_dev, f32, 24)
     est = tile_estimate(view, coeffs)
     h = w = 160 + 2 * HALF
     before = dict(pcuda.launches)
@@ -722,16 +751,32 @@ def test_cuda_taper_and_halo_stages_match_plain(cuda_dev):
     av_p, ah_p = taper_weights_plain(est, h, w)
     assert float((av - av_p).abs().max()) <= 1e-6
     assert float((ah - ah_p).abs().max()) <= 1e-6
-    ku = torch.rand((view.n, 3, h, w), generator=torch.Generator()
-                    .manual_seed(25)).to(cuda_dev)
-    xc = torch.empty_like(ku)
-    taper_blend(view, HALF, av, ah, ku, xc)
-    want = taper_blend_plain(view, HALF, av, ah, ku, torch.empty_like(ku))
-    assert float((xc - want).abs().max()) <= 1e-6
-    taper_blend(TileView.of_tiles(xc), 0, av, ah, ku, xc)   # in place
-    taper_blend_plain(TileView.of_tiles(want), 0, av, ah, ku, want)
-    assert float((xc - want).abs().max()) <= 1e-6
-    assert _counts(before, "taper") == 3
+    assert _counts(before, "taper") == 1
+    for dt in (f32, torch.bfloat16):
+        u = _canvas_view(cuda_dev, dt, 25)
+        tabs = stage_tables(160, 160, dt, str(cuda_dev))
+        khat2 = kernel_spectrum(est, _unit_horner(str(cuda_dev)), tabs)
+        for src in (u, TileView.of_tiles(u.tiles().float())):
+            ku = spectral_poly(src, khat2, tabs, crop=0, clip=False,
+                               out_dtype=f32)
+            want = taper_blend_plain(src, HALF, av, ah, ku,
+                                     torch.empty_like(ku))
+            xc = torch.empty_like(ku)
+            before = dict(pcuda.launches)
+            spectral_poly(src, khat2, tabs, xc, crop=0, clip=False,
+                          out_dtype=f32, taper=(av, ah))
+            assert _counts(before, "spectral_gemm") == 4
+            assert float((xc - want).abs().max()) <= 1e-6
+            for _ in range(2):   # in place on the canvas
+                cw = TileView.of_tiles(want)
+                ku = spectral_poly(cw, khat2, tabs, pad=0, crop=0,
+                                   clip=False, out_dtype=f32)
+                taper_blend_plain(cw, 0, av, ah, ku, want)
+                spectral_poly(TileView.of_tiles(xc), khat2, tabs, xc, pad=0,
+                              crop=0, clip=False, out_dtype=f32,
+                              taper=(av, ah))
+                assert float((xc - want).abs().max()) <= 1e-6
+    before = dict(pcuda.launches)
     grads = halo_grads(view)
     grads_p = halo_grads_plain(view)
     scale = float(grads_p.gx.abs().max())

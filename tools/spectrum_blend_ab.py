@@ -17,55 +17,14 @@ from __future__ import annotations
 
 import math
 import os
-import statistics
-import subprocess
 import sys
 
+# the timing helpers of this tool's own tree, so that every tree is timed
+# alike; then the tree under test, the current directory, ahead of it
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import card_line, cuda_ms, device_ms  # noqa: E402
+
 sys.path.insert(0, os.getcwd())
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / reps)
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Per-call device time of ``fn`` in ms: CUDA events around ``reps``
-    calls queued behind a device-side sleep, so that all of them are
-    enqueued before the first one runs and the host's time between
-    launches does not count (it does in :func:`cuda_ms` for a kernel
-    shorter than its wrapper's host time). Median of three runs."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the enqueue
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / reps)
-    return statistics.median(times)
 
 
 def main() -> int:
@@ -82,10 +41,7 @@ def main() -> int:
     from polyblur_torch.pipeline import _mega_pack
 
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"tree {os.getcwd()}; card {card}")
+    print(f"tree {os.getcwd()}; card {card_line()}")
     coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
     g = torch.Generator().manual_seed(7)
     for n, (ph, pw), wd in ((88, (448, 448), torch.bfloat16),
