@@ -2,10 +2,13 @@
 CUDA kernels for Hopper (sm_90a).
 
 The port of ``polyblur_tpu`` (JAX/Pallas on TPU), which stays the
-reference. This slice runs the patch engine's main path — pad + cast,
-per-tile blur estimate, kernel spectrum, spectral polynomial, windowed
-overlap-add — through the kernels in ``csrc/``; every kernel has a plain
-PyTorch version beside it, which CPU tensors take.
+reference. The patch engine's main path — pad + cast, per-tile blur
+estimate, kernel spectrum, spectral polynomial, windowed overlap-add —,
+the whole-image routes and the feature flags run through the kernels in
+``csrc/``; every kernel has a plain PyTorch version beside it, which CPU
+tensors take. :class:`PolyblurLayer` and the training functions make the
+pipeline a trainable layer: the kernels run forward, autograd of their
+plain versions backward.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 The plain versions are an f32 reference: on the card they require
@@ -15,9 +18,14 @@ float32 matmul precision ``"highest"``, and raise otherwise.
 
 from .api import PolyblurDeblurring, polyblur_deblurring
 from .config import PolyblurConfig
+from .layers import PolyblurLayer, polyblur_apply
 from .patches import deblur_patches
+from .training import (fit_layer, load_checkpoint, load_params,
+                       make_train_step, save_checkpoint, save_params)
 
 __version__ = "0.1.0"
 
 __all__ = ["polyblur_deblurring", "PolyblurDeblurring", "PolyblurConfig",
-           "deblur_patches"]
+           "deblur_patches", "PolyblurLayer", "polyblur_apply",
+           "make_train_step", "fit_layer", "save_params", "load_params",
+           "save_checkpoint", "load_checkpoint"]

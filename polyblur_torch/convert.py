@@ -4,7 +4,9 @@ Polyblur has no learned weights: what a JAX configuration fixes is the
 (8,) coefficient vector of the mega kernel (``pipeline._mega_pack``:
 ``[a3, a2, a1, beta, c, b, sigma_s, sigma_r]``), or the ``(params (N, 3),
 coeffs (4,))`` pair of the fused polynomial, and the host tables, which
-the port rebuilds bit-identically (tests/test_torch_tables.py).
+the port rebuilds bit-identically (tests/test_torch_tables.py). A trained
+JAX ``PolyblurLayer`` carries its fitted scalars in a flax params tree,
+which :func:`layer_params_from_jax` turns into the port's layer state.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from .pipeline import _mega_pack
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "layer_params_from_jax"]
 
 _FIELDS = ("c", "b", "alpha", "beta", "sigma_s", "sigma_r")
 
@@ -44,3 +46,16 @@ def params_from_jax(coeffs, device=None) -> torch.Tensor:
         raise ValueError(f"expected an (8,) coefficient vector, got "
                          f"{arr.shape}")
     return torch.tensor(arr, device=device)
+
+
+def layer_params_from_jax(params, device=None) -> dict:
+    """``PolyblurLayer.state_dict()`` of a JAX ``PolyblurLayer``'s params.
+
+    :param params: the flax params tree ``{"params": {"c", "b", "alpha",
+        "beta"}}`` (NumPy or Python leaves, e.g. ``jax.tree.map(np.asarray,
+        params)``), or its inner dict
+    :returns: {name: 0-d f32 tensor} for ``layer.load_state_dict``
+    """
+    tree = params.get("params", params)
+    return {k: torch.tensor(np.float32(np.asarray(tree[k])), device=device)
+            for k in ("c", "b", "alpha", "beta")}

@@ -51,10 +51,19 @@ def angle_grids(n_angles: int, n_interpolated_angles: int,
 
 def normalize_range(x: torch.Tensor) -> torch.Tensor:
     """Min/max normalize over the last two axes, guarded and clipped to
-    [0, 1]."""
+    [0, 1]. While autograd records a graph the clip is ``jnp.clip``'s
+    ``minimum(maximum(v, 0), 1)``: the darkest and brightest pixels sit
+    exactly on its bounds, and there ``maximum`` / ``minimum`` pass half
+    the gradient in both packages, where ``clamp`` would pass all of it.
+    Without a graph it is ``clamp``'s one pass (the values are the
+    same)."""
     vmin = x.amin(dim=(-2, -1), keepdim=True)
     vmax = x.amax(dim=(-2, -1), keepdim=True)
-    return ((x - vmin) / torch.clamp(vmax - vmin, min=1e-8)).clamp(0.0, 1.0)
+    v = (x - vmin) / torch.clamp(vmax - vmin, min=1e-8)
+    if torch.is_grad_enabled() and v.requires_grad:
+        return torch.minimum(torch.maximum(v, v.new_zeros(())),
+                             v.new_ones(()))
+    return v.clamp(0.0, 1.0)
 
 
 def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
@@ -84,15 +93,20 @@ def _mags_fast(img: torch.Tensor, n_angles: int) -> torch.Tensor:
     CPU ones), the plain chain of :func:`_mags_xla` above. The fused
     reduction computes in f32 and returns the image dtype, as the JAX
     package casts its Pallas maxima back (polyblur_tpu
-    estimation.py:160-161)."""
+    estimation.py:160-161). Its backward replays autograd of
+    :func:`_mags_xla`, as the JAX package's custom VJP does
+    (estimation.py:143-175; ROADMAP B.1 item 6): the gradient of max and
+    abs, defined almost everywhere."""
     if max(img.shape[-2:]) <= MEGA_MAX_TILE:
+        from .ops.cuda.autograd import replay
         from .ops.cuda.est_fused import directional_maxima as fused
 
         if n_angles != 6:
             raise NotImplementedError(f"n_angles={n_angles}: the fused "
                                       f"reduction has 7 angles; see {_TODO}")
         record_dispatch("directional_maxima", "fused")
-        return fused(img, n_angles).to(img.dtype)
+        return replay(lambda x: fused(x, n_angles).to(x.dtype),
+                      lambda x: _mags_xla(x, n_angles), img)
     record_dispatch("directional_maxima", "plain")
     return _mags_xla(img, n_angles)
 
@@ -178,8 +192,16 @@ def clamped_variances(magnitudes_normal, magnitudes_ortho, c, b):
     """Affine blur model with the reference's guards:
     ``clip(c^2 / (f^2 + 1e-8) - b^2, 0.09, 16)`` for both directions
     (blur_estimation.py:171-185), before the square root. Python numbers
-    enter in the magnitudes' dtype, as JAX's weak types do."""
-    m = magnitudes_normal
+    enter in the magnitudes' dtype, as JAX's weak types do; tensors
+    promote it."""
+    dt = magnitudes_normal.dtype
+    for v in (c, b):
+        # a tensor c or b is not weakly typed: it promotes the magnitudes,
+        # as a traced f32 scalar does in JAX
+        if isinstance(v, torch.Tensor):
+            dt = torch.promote_types(dt, v.dtype)
+    magnitudes_normal = m = magnitudes_normal.to(dt)
+    magnitudes_ortho = magnitudes_ortho.to(dt)
     cc, bb = _as(c * c, m), _as(b * b, m)
     eps, lo, hi = _as(1e-8, m), _as(0.09, m), _as(16.0, m)
     sigma2 = cc / (magnitudes_normal * magnitudes_normal + eps) - bb

@@ -63,11 +63,14 @@ def bilateral_filter(img: torch.Tensor, ksize: int = 5,
                      sigma_color: float = 0.1) -> torch.Tensor:
     """Edge-preserving smoothing of a (B, C, H, W) batch; returns the
     smoothed batch in the input dtype (the kernel on CUDA tensors, its
-    plain version on CPU tensors)."""
+    plain version on CPU tensors). Not differentiable yet: with a graph to
+    record it raises on any device."""
+    from .cuda.autograd import TODO_BILATERAL, refuse_graph
     from .cuda.bilateral import bilateral
     from .cuda.polyblur_fused import TileView
 
     record_dispatch("bilateral_filter", "cuda")
+    refuse_graph("bilateral_filter", TODO_BILATERAL, img)
     if img.dim() != 4:
         raise ValueError(f"bilateral_filter takes (B, C, H, W), got "
                          f"{tuple(img.shape)}")

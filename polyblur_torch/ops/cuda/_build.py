@@ -13,7 +13,10 @@ Every C entry returns ``cudaGetLastError()`` after its launch and
 The wrappers run their plain PyTorch version for CPU tensors
 (:func:`runs_plain`); for CUDA tensors they launch or raise, except inside
 :func:`plain_versions`, the explicit reference mode the kernels are held
-against on the card.
+against on the card. That mode belongs to the thread that entered it: a
+forward on another thread (or the autograd engine's) still launches. A kernel has no backward of its own: a launch on a
+tensor autograd is recording raises (:func:`check_cuda`); the
+differentiable wrappers launch inside ``autograd.replay``'s Function.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 __all__ = ["SOURCES", "build", "library", "check", "check_cuda", "stream_of",
            "dtype_code", "count_launch", "launches", "reset_launches",
-           "runs_plain", "plain_versions"]
+           "runs_plain", "plain_versions", "plain_mode"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -47,7 +50,13 @@ launches: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
-_PLAIN_ON_CARD = False
+
+
+class _Mode(threading.local):
+    plain = False         # each thread starts with its kernels
+
+
+_MODE = _Mode()
 
 
 def count_launch(name: str) -> None:
@@ -58,24 +67,31 @@ def reset_launches() -> None:
     launches.clear()
 
 
+def plain_mode() -> bool:
+    """Whether the calling thread is inside :func:`plain_versions`."""
+    return _MODE.plain
+
+
 def runs_plain(t: torch.Tensor) -> bool:
     """Whether a wrapper given ``t`` runs its plain version: for a CPU
-    tensor, or on any device inside :func:`plain_versions`."""
-    return t.device.type == "cpu" or _PLAIN_ON_CARD
+    tensor, or on any device inside :func:`plain_versions` on this
+    thread."""
+    return t.device.type == "cpu" or plain_mode()
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Within the block every kernel wrapper runs its plain PyTorch version
-    on any device: the reference a whole path's kernels are held against
-    on the card (``chip_smoke.py``). It launches nothing and counts
-    nothing."""
-    global _PLAIN_ON_CARD
-    prev, _PLAIN_ON_CARD = _PLAIN_ON_CARD, True
+def plain_versions(on: bool = True):
+    """Within the block every kernel wrapper called from this thread runs
+    its plain PyTorch version on any device (``on=False``: its kernels
+    again): the reference a whole path's kernels are held against on the
+    card (``chip_smoke.py``), and the replay of an autograd Function's
+    backward. It launches nothing and counts nothing. Other threads keep
+    their own mode."""
+    prev, _MODE.plain = plain_mode(), bool(on)
     try:
         yield
     finally:
-        _PLAIN_ON_CARD = prev
+        _MODE.plain = prev
 
 
 def _nvcc() -> str:
@@ -141,10 +157,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def check_cuda(what: str, *tensors) -> None:
-    """Raise unless every tensor lies on a CUDA device."""
+    """Raise unless every tensor lies on a CUDA device, and unless no
+    tensor is one autograd is recording (the launch would cut the
+    graph)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; call it "
+                           f"through a differentiable wrapper or under "
+                           f"torch.no_grad()")
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -10,6 +10,10 @@ folded in. A kernel thread owns 8 output columns of a row for all
 channels, with 16-byte accesses where the grid's steps, tile width and
 left crop are multiples of 8 (the 12 MP main path's), and a scalar path
 for the rest.
+
+Differentiable in the tiles: the backward replays autograd of
+:func:`blend_overlap_add_plain` (the JAX package's overlap_add.py defines
+no VJP; the patch route trains through this blend).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from ._build import (check, count_launch, dtype_code, library, runs_plain,
                      stream_of)
+from .autograd import replay
 
 __all__ = ["blend_overlap_add", "blend_overlap_add_plain"]
 
@@ -70,6 +75,14 @@ def blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
     :param out_dtype: output dtype (default: the tile dtype); the blend
         always accumulates in f32
     """
+    args = (window, inv_wsum, grid_info, batch, crop, out_dtype)
+    return replay(lambda t: _blend_overlap_add(t, *args),
+                  lambda t: blend_overlap_add_plain(t, *args), tiles)
+
+
+def _blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
+                       inv_wsum: torch.Tensor, grid_info, batch: int, crop,
+                       out_dtype=None) -> torch.Tensor:
     if runs_plain(tiles):
         return blend_overlap_add_plain(tiles, window, inv_wsum, grid_info,
                                        batch, crop, out_dtype)

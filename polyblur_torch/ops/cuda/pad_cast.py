@@ -6,6 +6,12 @@ engine's ingest: the f32 -> work-dtype cast rides the pad's single pass
 over device memory. Replicate padding commutes with an
 elementwise cast, so the result is bit-identical to
 ``F.pad(x.to(dtype), mode='replicate')``.
+
+Differentiable (ROADMAP B.1 item 1, the counterpart of the custom VJP at
+polyblur_tpu/ops/pallas/pad_cast.py:120-160): the backward replays
+autograd of :func:`edge_pad_cast_plain`, the transpose of replicate-pad +
+cast, which sums each border's cotangent into its edge pixel (by
+reductions: ``utils.imaging.replicate_pad``).
 """
 
 from __future__ import annotations
@@ -13,10 +19,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
+from ...utils.imaging import replicate_pad
 from ._build import (check, count_launch, dtype_code, library, runs_plain,
                      stream_of)
+from .autograd import replay
 
 __all__ = ["edge_pad_cast", "edge_pad_cast_plain"]
 
@@ -31,10 +38,7 @@ def edge_pad_cast_plain(x: torch.Tensor, crop_hw, pads,
     h, w = crop_hw
     pt, pb, pl, pr = pads
     odt = out_dtype or x.dtype
-    b, c = x.shape[:2]
-    y = F.pad(x[..., :h, :w].reshape(b * c, 1, h, w).float(),
-              (pl, pr, pt, pb), mode="replicate")
-    return y.to(odt).reshape(b, c, h + pt + pb, w + pl + pr)
+    return replicate_pad(x[..., :h, :w].float(), (pl, pr, pt, pb)).to(odt)
 
 
 def edge_pad_cast(x: torch.Tensor, crop_hw, pads,
@@ -43,6 +47,13 @@ def edge_pad_cast(x: torch.Tensor, crop_hw, pads,
     (default: the input dtype), where (h, w) = ``crop_hw`` <= (H, W) is the
     even-crop. CPU tensors take :func:`edge_pad_cast_plain`; CUDA tensors
     launch the kernel."""
+    return replay(lambda t: _edge_pad_cast(t, crop_hw, pads, out_dtype),
+                  lambda t: edge_pad_cast_plain(t, crop_hw, pads, out_dtype),
+                  x)
+
+
+def _edge_pad_cast(x: torch.Tensor, crop_hw, pads,
+                   out_dtype=None) -> torch.Tensor:
     if runs_plain(x):
         return edge_pad_cast_plain(x, crop_hw, pads, out_dtype)
     if x.device.type != "cuda" or x.dim() != 4:

@@ -18,8 +18,15 @@ with the intermediates in device memory (see ``pipeline.restore_tiles``):
 
 The tiles mode (:func:`polyblur_tiles_fused`, the whole-image route for
 images of 640 px or less) runs the same stages on the image itself as one
-tile, at its own (H, W). The ``launch_*`` functions are the launches
-themselves, counted under the caller's name, so that ``fused_polynomial``
+tile, at its own (H, W); the canvas mode (:func:`polyblur_image_fused`)
+runs them on the patch engine's tiles, cut from the padded canvas by
+index, for every batch size (the windowed blend is its own kernel and
+Function, ``overlap_add.blend_overlap_add``). Both are differentiable
+(ROADMAP B.1 items 2-4): each is one autograd Function
+(``autograd.replay``) whose backward runs autograd of the same stages'
+plain versions on the saved inputs.
+The ``launch_*`` functions are the launches themselves, counted under the
+caller's name, so that ``fused_polynomial``
 and ``directional_maxima`` (ops/cuda/sep_poly_fused.py, est_fused.py)
 reuse these kernels with counters of their own.
 
@@ -43,10 +50,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ...estimation import (angle_grids, blur_direction, clamped_variances,
                            directional_maxima, normalize_range, weighted_sum)
+from ...utils.imaging import replicate_pad
 from ..sep_poly import (_horner_spectrum, gaussian_taps, otf_from_taps,
                         quadratic_form)
 from ..spectral_matmul import _derivative_matrix_np, require_full_f32
@@ -55,12 +62,13 @@ from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
                       _ydft_mats_np)
 from ._build import (check, check_cuda, count_launch, dtype_code, library,
                      runs_plain, stream_of)
+from .autograd import TODO_FLAGS, records_graph, refuse_graph, replay
 
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "stage_tables", "tile_estimate", "tile_estimate_plain",
            "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
            "spectral_poly", "spectral_poly_plain", "taper_blend_plain",
-           "polyblur_tiles_fused",
+           "polyblur_tiles_fused", "polyblur_image_fused",
            "estimate_rows", "estimate_launches", "launch_estimate",
            "launch_spectrum", "launch_spectral_gemm",
            "spectral_gemm_launches", "HALF", "pad64"]
@@ -477,8 +485,7 @@ def spectral_poly_plain(view: TileView, qhat2: torch.Tensor,
     def op(u):
         return u.to(g.wd).float()
 
-    xc = F.pad(x.float().reshape(n * c, 1, ph, pw), (g.pad,) * 4,
-               mode="replicate")[:, 0]
+    xc = replicate_pad(x.float().reshape(n * c, ph, pw), (g.pad,) * 4)
     r = op(xc) @ tables.fwd_t[:, :g.wc].float().T            # (P, h, 2kp)
     rst = torch.cat([r[..., :kp], r[..., kp:]], 1)           # [Rr ; Ri]
     y = tables.ydft[:, :2 * h].float() @ op(rst)             # [Yr ; Yi]
@@ -510,8 +517,7 @@ def taper_blend_plain(u: TileView, pad: int, av: torch.Tensor,
     n, c, h, wc = xc.shape
     x = u.tiles().float()
     if pad:
-        x = F.pad(x.reshape(n * c, 1, *x.shape[-2:]), (pad,) * 4,
-                  mode="replicate").reshape(n, c, h, wc)
+        x = replicate_pad(x, (pad,) * 4)
     a = av[:, None, :, None] * ah[:, None, None, :]
     xc.copy_(a * x + (1.0 - a) * ku)
     return xc
@@ -673,6 +679,11 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
 
 # ------------------------------------------------------------- tiles mode
 
+def _refuse_flags(name: str, flags: dict, *tensors) -> None:
+    if flags["do_taper"] or flags["do_halo"] or flags["prefilter"]:
+        refuse_graph(f"{name} with feature flags", TODO_FLAGS, *tensors)
+
+
 def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
                          n_iter: int, do_taper: bool = False,
                          do_halo: bool = False,
@@ -684,12 +695,78 @@ def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
     as the per-tile stages above at the tiles' own shape, 9 launches per
     iteration without the feature flags (see ``pipeline.restore_tiles``).
 
+    Differentiable in ``x`` and ``coeffs`` (ROADMAP B.1 item 4, the custom
+    VJP at polyblur_fused.py:896-946): the kernels forward, autograd of
+    the same stages' plain versions backward. With a feature flag on,
+    recording a graph raises (B.1 items 7-8).
+
     :param coeffs: (8,) f32 from ``pipeline._mega_pack``
     :param do_taper, do_halo, prefilter: the feature flags (prefilter in
         {None, 'bilateral', 'dt'})
     """
     from ...pipeline import restore_tiles
 
-    return restore_tiles(TileView.of_tiles(x.contiguous()), coeffs, n_iter,
-                         do_taper=do_taper, do_halo=do_halo,
-                         prefilter=prefilter)
+    flags = dict(do_taper=do_taper, do_halo=do_halo, prefilter=prefilter)
+    _refuse_flags("polyblur_tiles_fused", flags, x, coeffs)
+
+    def run(t, co):
+        return restore_tiles(TileView.of_tiles(t.contiguous()), co, n_iter,
+                             **flags)
+
+    return replay(run, run, x, coeffs)
+
+
+# ------------------------------------------------------- canvas (patch) modes
+
+def _restore_canvas(canvas: torch.Tensor, coeffs: torch.Tensor, n_iter: int,
+                    grid_info, chunk, flags: dict) -> torch.Tensor:
+    """(th tw B, C, ph, pw) restored tiles of the regular grid
+    ``grid_info = (th, tw, sh, sw, ph, pw)`` on the (B, C, H, W) canvas,
+    cut by index, at most ``chunk`` grid tiles per pass through the stages
+    (all when None or <= 0). Without a graph the chunks write into one
+    preallocated batch; while recording one they are concatenated."""
+    from ...pipeline import restore_tiles
+
+    th, tw, sh, sw, ph, pw = grid_info
+    b, c = canvas.shape[:2]
+    n_tiles = th * tw
+    chunk = n_tiles if not chunk or chunk <= 0 else min(chunk, n_tiles)
+    graph = records_graph(canvas, coeffs)
+    state = None if graph else torch.empty(
+        (n_tiles * b, c, ph, pw), dtype=canvas.dtype, device=canvas.device)
+    parts = []
+    for t0 in range(0, n_tiles, chunk):
+        nt = min(chunk, n_tiles - t0)
+        view = TileView(canvas, b, t0, nt * b, tw, (sh, sw), (ph, pw))
+        dst = None if graph else state[t0 * b:(t0 + nt) * b]
+        parts.append(restore_tiles(view, coeffs, n_iter, out=dst, **flags))
+    return torch.cat(parts) if graph else state
+
+
+def polyblur_image_fused(canvas: torch.Tensor, coeffs: torch.Tensor,
+                         n_iter: int, grid_info, chunk=None,
+                         do_taper: bool = False, do_halo: bool = False,
+                         prefilter: str | None = None) -> torch.Tensor:
+    """N blind Polyblur iterations on every tile of a regular grid on the
+    padded (B, C, H, W) canvas, cut by index (the counterpart of the TPU
+    mega kernel's DMA mode, polyblur_fused.py::polyblur_image_fused).
+
+    :param grid_info: (th, tw, sh, sw, ph, pw)
+    :param chunk: grid tiles per pass through the stages (None: all)
+    :returns: the (th tw B, C, ph, pw) restored tiles, tile-major, in the
+        canvas dtype
+
+    Differentiable in ``canvas`` and ``coeffs`` (ROADMAP B.1 items 2 and
+    3, the custom VJPs at polyblur_fused.py:792-845 and :848-893), as
+    :func:`polyblur_tiles_fused`. The JAX package's blend mode (item 2)
+    fuses the windowed blend into its kernel and so has a VJP of its own;
+    here the blend is a separate kernel on every batch size, and one image
+    takes this Function followed by ``overlap_add.blend_overlap_add``'s.
+    """
+    flags = dict(do_taper=do_taper, do_halo=do_halo, prefilter=prefilter)
+    _refuse_flags("polyblur_image_fused", flags, canvas, coeffs)
+
+    def run(cv, co):
+        return _restore_canvas(cv, co, n_iter, grid_info, chunk, flags)
+
+    return replay(run, run, canvas, coeffs)

@@ -17,6 +17,12 @@ whole images up to a 664 px canvas, and ``ops.sep_poly._blocked_polynomial``
 without it on the overlap-save blocks of larger images, cut from the
 wrap-extended canvas through a :class:`TileView` (no copy).
 
+Differentiable in x, the params and the coefficients (ROADMAP B.1 item 5,
+the counterpart of the custom VJP at polyblur_tpu/ops/pallas/
+sep_poly_fused.py:388-426): the backward replays autograd of
+:func:`fused_polynomial_plain` on the saved inputs; a view's canvas is the
+input, its geometry a constant.
+
 Bound on the H100: operations — ~115 M MACs per 280 x 240 block of the
 2 MP blocked route (180 planes, 20.6 G MACs per application), on the
 tensor cores: bf16 wgmma, or for f32 three tf32 wgmma products per step
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ._build import runs_plain
+from .autograd import replay
 from .polyblur_fused import (HALF, TileView, launch_spectral_gemm,
                              launch_spectrum, spectral_poly_plain,
                              spectrum_plain, stage_tables)
@@ -80,6 +87,19 @@ def fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
     :param clip: clip the result to [0, 1]
     :returns: same shape and dtype as ``x`` ((n, C, ph, pw) for a view)
     """
+    def on(data):
+        return x._replace(data=data) if isinstance(x, TileView) else data
+
+    data = x.data if isinstance(x, TileView) else x
+    return replay(
+        lambda d, p, c: _fused_polynomial(on(d), p, c, replicate_pad, clip),
+        lambda d, p, c: fused_polynomial_plain(on(d), p, c, replicate_pad,
+                                               clip),
+        data, params, coeffs)
+
+
+def _fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
+                      replicate_pad: bool, clip: bool) -> torch.Tensor:
     view, tables = _view_and_tables(x, replicate_pad)
     if runs_plain(view.data):
         return fused_polynomial_plain(x, params, coeffs, replicate_pad, clip)

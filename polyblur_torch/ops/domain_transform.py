@@ -20,6 +20,7 @@ import math
 import torch
 
 from ..utils.profiling import record_dispatch
+from .cuda.autograd import TODO_IIR, refuse_graph
 from .cuda.iir import scan_cols, scan_rows
 from .cuda.polyblur_fused import TileView
 
@@ -76,8 +77,10 @@ def recursive_filter(img: torch.Tensor, sigma_s: float = 60.0,
     Per iteration i the feedback ``a_i = exp(-sqrt 2 / sigma_H_i)`` is
     raised to the domain-transform derivatives, ``V = a_i ** dHdx`` along
     the rows and ``a_i ** dVdy`` down the columns, shared by the channels.
+    Not differentiable yet: with a graph to record it raises on any device.
     """
     record_dispatch("recursive_filter", "cuda")
+    refuse_graph("recursive_filter", TODO_IIR, img, joint_image)
     J = img if joint_image is None else joint_image
     dhdx, dvdy = _domain_transform_derivatives(J.float(), float(sigma_s),
                                                float(sigma_r))

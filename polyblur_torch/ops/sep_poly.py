@@ -134,20 +134,26 @@ def _spectral2d(x: torch.Tensor, a, b, c, horner, half: int) -> torch.Tensor:
 def compute_polynomial_separable(img: torch.Tensor, sigma, rho, theta,
                                  alpha, beta, prepad: bool = False,
                                  clip: bool = False,
-                                 ker_size: int = 25) -> torch.Tensor:
+                                 ker_size: int = 25,
+                                 prefer_xla: bool = False) -> torch.Tensor:
     """Degree-3 polynomial deconvolution with per-sample Gaussian params.
 
     :param img: (B, C, H, W). With ``prepad`` the replicate padding by the
         kernel half-support and the final crop are fused in; otherwise the
         caller has padded already.
     :param sigma, rho, theta: (B, C) or (B, 1) per-sample blur parameters
+    :param alpha, beta: Python numbers or 0-d tensors (differentiable)
+    :param prefer_xla: take the plain whole-canvas composition
+        (:func:`_spectral2d`) instead of the kernels, as the JAX package
+        does under ``remat`` (its XLA route; ops/sep_poly.py:230, :271)
     :return: same shape and dtype as ``img``; spectra and accumulation f32
     """
     a3 = (alpha / 2.0 - beta + 2.0)
     a2 = (3.0 * beta - alpha - 6.0)
     a1 = (5.0 - 3.0 * beta + alpha / 2.0)
     return _apply_param_operator(img, sigma, rho, theta, (a3, a2, a1, beta),
-                                 prepad=prepad, clip=clip, ker_size=ker_size)
+                                 prepad=prepad, clip=clip, ker_size=ker_size,
+                                 prefer_xla=prefer_xla)
 
 
 def spectral_blur(img: torch.Tensor, sigma, rho, theta,
@@ -158,7 +164,8 @@ def spectral_blur(img: torch.Tensor, sigma, rho, theta,
     parametric kernels: the degree-1 spectrum p(z) = z through the same
     fused or blocked route, with no pad and no clip."""
     return _apply_param_operator(img, sigma, rho, theta, (0.0, 0.0, 1.0, 0.0),
-                                 prepad=False, clip=False, ker_size=ker_size)
+                                 prepad=False, clip=False, ker_size=ker_size,
+                                 prefer_xla=False)
 
 
 def _clip(out: torch.Tensor, clip: bool) -> torch.Tensor:
@@ -166,10 +173,12 @@ def _clip(out: torch.Tensor, clip: bool) -> torch.Tensor:
 
 
 def _apply_param_operator(img, sigma, rho, theta, horner, prepad: bool,
-                          clip: bool, ker_size: int) -> torch.Tensor:
+                          clip: bool, ker_size: int,
+                          prefer_xla: bool) -> torch.Tensor:
     """Routing of the spectrum-diagonal parametric operator: the fused
     kernel when the canvas fits ``FUSED_MAX_CANVAS``, the overlap-save
-    block grid of the same kernel above it."""
+    block grid of the same kernel above it; with ``prefer_xla`` the plain
+    whole-canvas composition, recorded under the JAX package's names."""
     from .cuda.sep_poly_fused import fused_polynomial
 
     if sigma.dim() != 2:
@@ -178,12 +187,15 @@ def _apply_param_operator(img, sigma, rho, theta, horner, prepad: bool,
     half = ker_size // 2
     if half != 12:
         raise NotImplementedError(f"ker_size={ker_size}: see {_TODO_KER}")
-    use_fused = _fused_path_eligible(h, w, prepad, half=half)
+    use_fused = (not prefer_xla
+                 and _fused_path_eligible(h, w, prepad, half=half))
     if prepad and not use_fused:
-        record_dispatch("compute_polynomial_separable", "prepad")
+        record_dispatch("compute_polynomial_separable",
+                        "xla_sep/prepad" if prefer_xla else "prepad")
         out = _apply_param_operator(
             pad_with_kernel(img, ksize=2 * half + 1), sigma, rho, theta,
-            horner, prepad=False, clip=False, ker_size=ker_size)
+            horner, prepad=False, clip=False, ker_size=ker_size,
+            prefer_xla=prefer_xla)
         return _clip(out[..., half:-half, half:-half], clip)
     if sigma.shape[1] != csz:
         sigma, rho, theta = (v.expand(bsz, csz) for v in (sigma, rho, theta))
@@ -193,16 +205,26 @@ def _apply_param_operator(img, sigma, rho, theta, horner, prepad: bool,
     if use_fused:
         record_dispatch("compute_polynomial_separable", "fused")
         out = fused_polynomial(x, torch.stack([a, b, c], -1),
-                               _horner_tensor(horner, x.device), prepad, clip)
+                               f32_vector(horner, x.device), prepad, clip)
         return out.reshape(bsz, csz, h, w)
+    if prefer_xla:
+        record_dispatch("compute_polynomial_separable", "xla_sep")
+        out = _spectral2d(x, a, b, c, horner, half)
+        return _clip(out.reshape(bsz, csz, h, w), clip)
     record_dispatch("compute_polynomial_separable", "blocked")
     out = _blocked_polynomial(x, a, b, c, horner, half)
     return _clip(out.reshape(bsz, csz, h, w), clip)
 
 
-def _horner_tensor(horner, device) -> torch.Tensor:
-    return torch.tensor([float(v) for v in horner], dtype=torch.float32,
-                        device=device)
+def f32_vector(values, device) -> torch.Tensor:
+    """An (n,) f32 vector of Python numbers and 0-d tensors; the tensors
+    stay in the autograd graph."""
+    if not any(isinstance(v, torch.Tensor) for v in values):
+        return torch.tensor([float(v) for v in values], dtype=torch.float32,
+                            device=device)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device).reshape(())
+                        for v in values])
 
 
 def _plan_block_grid(h: int, w: int, ap: int, cap: int = FUSED_MAX_CANVAS,
@@ -288,7 +310,7 @@ def _blocked_polynomial(x: torch.Tensor, a, b, c, horner, half: int,
     view, (th, b0h, tw, b0w, ap) = _block_view(x, half, block)
     bh, bw = view.patch
     params = torch.stack([a, b, c], -1).float().repeat(th * tw, 1)
-    out = fused_polynomial(view, params, _horner_tensor(horner, x.device))
+    out = fused_polynomial(view, params, f32_vector(horner, x.device))
     # (th tw n, 1, bh, bw), tile-major -> cores -> (n, th b0h, tw b0w)
     out = out.reshape(th, tw, n, bh, bw)[..., ap:ap + b0h, ap:ap + b0w]
     out = out.permute(2, 0, 3, 1, 4).reshape(n, th * b0h, tw * b0w)

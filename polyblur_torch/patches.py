@@ -12,10 +12,16 @@ Tiles are cut from the padded canvas by index (no extracted tile tensor);
 every regular grid and every batch size takes this one route, with the
 feature flags (prefilter, edgetaper, halo removal) as stages of
 ``pipeline.restore_tiles``. Methods other than ``'direct_separable'``
-(``'fft'``), and feature flags on tiles past the tiles route's edge
-(``pipeline.mega_tile_cap``), take the composed route of the JAX package
-(patches.py:479-500): extract the tiles, run ``pipeline.polyblur_core`` on
-them, blend.
+(``'fft'``), ``remat``, and feature flags on tiles past the tiles route's
+edge (``pipeline.mega_tile_cap``), take the composed route of the JAX
+package (patches.py:479-500): extract the tiles, run
+``pipeline.polyblur_core`` on them, blend.
+
+Both routes are differentiable in the image and in (c, b, alpha, beta).
+The staged route is a chain of three autograd Functions mirroring the
+JAX package's custom VJPs: ``edge_pad_cast``, ``polyblur_image_fused``
+and ``blend_overlap_add``, for every batch size; each runs its kernels
+forward and autograd of its plain versions backward.
 """
 
 from __future__ import annotations
@@ -29,10 +35,9 @@ import torch
 
 from .ops.cuda.overlap_add import blend_overlap_add
 from .ops.cuda.pad_cast import edge_pad_cast
-from .ops.cuda.polyblur_fused import TileView
+from .ops.cuda.polyblur_fused import polyblur_image_fused
 from .pipeline import (_check_smoother, _mega_pack, mega_tile_cap,
-                       polyblur_core, prefilter_of, resolve_device,
-                       restore_tiles)
+                       polyblur_core, prefilter_of, resolve_device)
 from .utils.imaging import build_window_np
 from .utils.profiling import record_dispatch
 
@@ -163,8 +168,8 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
     feature-flag keywords of ``pipeline.restore_tiles``). The prefilter is
     ``'dt'`` for the domain-transform
     smoother and ``'bilateral'`` otherwise (polyblur_tpu/patches.py:
-    395-403); ``remat`` is a memory knob of the JAX package's autodiff and
-    has no effect here."""
+    395-403). ``remat`` never reaches the staged route: it refuses it, as
+    it refuses the JAX package's mega-kernel routes."""
     del remat
     if method != "direct_separable":
         raise NotImplementedError(f"method={method!r}: the port runs "
@@ -204,8 +209,10 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
         beta, remove_halo, edgetaping, prefiltering, smoother, ...).
         ``method='direct_separable'`` takes the staged route; ``'fft'``,
-        the default as in the JAX package, (and the feature flags on tiles
-        past ``mega_tile_cap``) the composed one.
+        the default as in the JAX package, ``remat=True`` (and the feature
+        flags on tiles past ``mega_tile_cap``) the composed one. ``c, b,
+        alpha, beta`` may be 0-d tensors: the result is differentiable in
+        them and in ``images``.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
     dev = resolve_device(device)
@@ -213,7 +220,7 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     if x.dim() != 4:
         raise ValueError(f"expected a (B, C, H, W) image batch, got "
                          f"{tuple(x.shape)}")
-    b, c = x.shape[:2]
+    b = x.shape[0]
     grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
     reg = _grid_steps(grid)
     if reg is None:
@@ -229,7 +236,7 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
                 or kw.get("prefiltering"))
     cap = mega_tile_cap(bool(kw.get("prefiltering")),
                         kw.get("smoother", "bilateral"))
-    if (kw.get("method", "fft") == "fft"
+    if (kw.get("method", "fft") == "fft" or kw.get("remat")
             or (flags_on and max(grid.patch_size) > cap)):
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
@@ -245,15 +252,10 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     record_dispatch("deblur_patches", "staged_tiles")
     canvas = edge_pad_cast(x, grid.orig_size, grid.pad, wd)
     coeffs = _mega_pack(*params, device=dev)
-    state = torch.empty((n_tiles * b, c, ph, pw), dtype=wd, device=dev)
-    for t0 in range(0, n_tiles, chunk):
-        nt = min(chunk, n_tiles - t0)
-        view = TileView(canvas, b, t0, nt * b, tw, (sh, sw), (ph, pw))
-        restore_tiles(view, coeffs, n_iter, out=state[t0 * b:(t0 + nt) * b],
-                      **flags)
     window, inv_wsum = _blend_constants(grid, window_type, dev)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
-    return blend_overlap_add(state, window, inv_wsum,
-                             (th, tw, sh, sw, ph, pw), b, (pt, pl, h, w),
+    gi = (th, tw, sh, sw, ph, pw)
+    state = polyblur_image_fused(canvas, coeffs, n_iter, gi, chunk, **flags)
+    return blend_overlap_add(state, window, inv_wsum, gi, b, (pt, pl, h, w),
                              out_dtype)

@@ -28,17 +28,31 @@ only for the DFT operands and the stored state).
 
 The routes do not depend on the device: a CPU tensor runs every kernel's
 plain version along the route the card would take.
+
+Both routes are differentiable in the image and in (c, b, alpha, beta):
+the tiles route through one autograd Function
+(``ops.cuda.polyblur_fused.polyblur_tiles_fused``: its kernels forward,
+autograd of :func:`restore_tiles`' plain versions backward), the scan
+route through the Functions of its kernels and plain PyTorch. As in the
+JAX package, ``remat=True`` refuses the tiles route, sends the scan
+route's polynomial down the plain composition (``prefer_xla``) and
+checkpoints each iteration (``torch.utils.checkpoint``, the counterpart
+of ``jax.checkpoint`` on the scan body, polyblur_tpu/pipeline.py:232-264).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .envelopes import MEGA_MAX_TILE, MEGA_MAX_TILE_DT
 from .estimation import gaussian_blur_estimation
 from .ops.bilateral import bilateral_filter
+from .ops.cuda._build import plain_mode, plain_versions
+from .ops.cuda.autograd import TODO_FLAGS, records_graph, refuse_graph
 from .ops.cuda.bilateral import bilateral
 from .ops.cuda.features import halo_grads, halo_mask, taper_weights
 from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
@@ -47,6 +61,7 @@ from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
                                       stage_tables, tile_estimate)
 from .ops.domain_transform import _TODO_NC, recursive_filter
 from .ops.fourier import spectral_gradients
+from .ops.sep_poly import f32_vector
 from .restoration import inverse_filtering_rank3, polynomial_coefficients
 from .utils.profiling import record_dispatch
 
@@ -59,11 +74,10 @@ _N_TAPERS = 3
 def _mega_pack(c, b, alpha, beta, sigma_s, sigma_r,
                device=None) -> torch.Tensor:
     """(8,) f32 coefficient vector of the per-tile stages:
-    [a3, a2, a1, beta, c, b, sigma_s, sigma_r]."""
+    [a3, a2, a1, beta, c, b, sigma_s, sigma_r]. Each value is a Python
+    number or a 0-d tensor; tensors stay in the autograd graph."""
     a3, a2, a1 = polynomial_coefficients(alpha, beta)
-    return torch.tensor([float(v) for v in (a3, a2, a1, beta, c, b, sigma_s,
-                                            sigma_r)],
-                        dtype=torch.float32, device=device)
+    return f32_vector((a3, a2, a1, beta, c, b, sigma_s, sigma_r), device)
 
 
 def prefilter_of(prefiltering: bool, smoother: str):
@@ -84,14 +98,14 @@ def _unit_horner(device: str) -> torch.Tensor:
 
 def _restore_iteration(src: TileView, est: torch.Tensor,
                        qhat2: torch.Tensor, coeffs: torch.Tensor, tables,
-                       out: torch.Tensor, do_taper: bool, grads,
-                       prefilter) -> None:
-    """One iteration's restoration, into ``out`` (polyblur_fused.py:
-    473-517). With no flag it is one ``p(K)`` application, clipped; the
-    flags add their stages: smooth + noise from the iterate, the
-    replicate-padded smooth part tapered 3 times, ``o = crop(p(K) xc)``
-    unclipped, the halo mask against ``crop(xc)``, clip, ``+ noise``,
-    clip. Everything between the stages is f32."""
+                       out: torch.Tensor | None, do_taper: bool, grads,
+                       prefilter) -> torch.Tensor:
+    """One iteration's restoration, into ``out`` (a new tensor when None;
+    polyblur_fused.py:473-517). With no flag it is one ``p(K)``
+    application, clipped; the flags add their stages: smooth + noise from
+    the iterate, the replicate-padded smooth part tapered 3 times, ``o =
+    crop(p(K) xc)`` unclipped, the halo mask against ``crop(xc)``, clip,
+    ``+ noise``, clip. Everything between the stages is f32."""
     f32 = torch.float32
     noise = None
     base = src
@@ -121,9 +135,8 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
     if grads is not None:
         o = spectral_poly(poly_src, qhat2, tables, pad=pad, clip=False,
                           out_dtype=f32)
-        halo_mask(o, grads, ucmp, noise, out)
-    else:
-        spectral_poly(poly_src, qhat2, tables, out, pad=pad, noise=noise)
+        return halo_mask(o, grads, ucmp, noise, out)
+    return spectral_poly(poly_src, qhat2, tables, out, pad=pad, noise=noise)
 
 
 def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
@@ -139,28 +152,45 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
         {None, 'bilateral', 'dt'}); the halo mask's input gradients come
         from the tiles as given, once per call
     :returns: the restored (N, C, ph, pw) tiles in the work dtype
+
+    While autograd records a graph through the tiles or ``coeffs`` (the
+    plain replay of the tiles-level Functions) every iteration writes a
+    new tensor: no write lands in a tensor the graph has read, and ``out``
+    must be None.
     """
     if prefilter not in (None, "bilateral", "dt"):
         raise ValueError(f"unknown tiles-route prefilter {prefilter!r}")
     view = tiles if isinstance(tiles, TileView) else TileView.of_tiles(tiles)
     ph, pw = view.patch
     data = view.data
-    if out is None:
-        out = torch.empty((view.n, view.channels, ph, pw), dtype=data.dtype,
-                          device=data.device)
+    graph = records_graph(data, coeffs)
+    if do_taper or do_halo or prefilter:
+        refuse_graph("restore_tiles with feature flags", TODO_FLAGS, data,
+                     coeffs)
     if n_iter < 1:
+        if out is None:
+            return view.tiles().clone()
         out.copy_(view.tiles())
         return out
+    if out is None and not graph:
+        out = torch.empty((view.n, view.channels, ph, pw), dtype=data.dtype,
+                          device=data.device)
     tables = stage_tables(ph, pw, data.dtype, str(data.device))
     grads = halo_grads(view) if do_halo else None
     src = view
     for _ in range(n_iter):
         est = tile_estimate(src, coeffs)
         qhat2 = kernel_spectrum(est, coeffs, tables)
-        _restore_iteration(src, est, qhat2, coeffs, tables, out, do_taper,
-                           grads, prefilter)
-        src = TileView.of_tiles(out)
-    return out
+        res = _restore_iteration(src, est, qhat2, coeffs, tables, out,
+                                 do_taper, grads, prefilter)
+        src = TileView.of_tiles(res)
+    return res
+
+
+def _same_mode():
+    """``checkpoint``'s contexts: the recompute, on the autograd thread,
+    runs the kernels or the plain versions as the forward's thread did."""
+    return contextlib.nullcontext(), plain_versions(plain_mode())
 
 
 def resolve_device(device) -> torch.device:
@@ -181,14 +211,14 @@ def mega_tile_cap(prefiltering: bool, smoother: str) -> int:
             else MEGA_MAX_TILE)
 
 
-def _mega_static_ok(method, discard_saturation, multichannel_kernel,
+def _mega_static_ok(method, remat, discard_saturation, multichannel_kernel,
                     prefiltering, smoother, q, ker_size, n_angles,
                     n_interpolated_angles, h, w, disable=False) -> bool:
     """Static eligibility of the tiles route: the JAX package's predicate
-    with the card where it requires a TPU (and no ``remat``, which has no
-    effect here)."""
+    (polyblur_tpu/pipeline.py:47-64, ``remat`` refuses it) with the card
+    where it requires a TPU."""
     cap = mega_tile_cap(prefiltering, smoother)
-    return (method == "direct_separable" and not disable
+    return (method == "direct_separable" and not disable and not remat
             and not (discard_saturation or multichannel_kernel)
             and (not prefiltering
                  or smoother in ("bilateral", "domain_transform"))
@@ -240,8 +270,12 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
     :param img: (B, C, H, W) tensor or array in [0, 1], moved to ``device``
         (default ``"cuda"``; raises without a card — pass ``"cpu"`` for
         the plain PyTorch path)
-    :param remat: a memory knob of the JAX package's autodiff; no effect
-        here (the port is forward-only)
+    :param c, b, alpha, beta: Python numbers or 0-d tensors; the result is
+        differentiable in them and in ``img``
+    :param remat: checkpoint each iteration of the scan route (its
+        activations are recomputed in the backward), with the polynomial
+        on the plain composition and the tiles route refused, as the JAX
+        package routes ``remat``
     :return: (B, C, H, W) restored images in the input dtype
     """
     dev = resolve_device(device)
@@ -251,10 +285,10 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                          f"{tuple(x.shape)}")
     if prefiltering:
         _check_smoother(smoother)
-    if _mega_static_ok(method, discard_saturation, multichannel_kernel,
-                       prefiltering, smoother, q, ker_size, n_angles,
-                       n_interpolated_angles, x.shape[-2], x.shape[-1],
-                       disable=_disable_mega):
+    if _mega_static_ok(method, remat, discard_saturation,
+                       multichannel_kernel, prefiltering, smoother, q,
+                       ker_size, n_angles, n_interpolated_angles,
+                       x.shape[-2], x.shape[-1], disable=_disable_mega):
         record_dispatch("polyblur_core", "tiles")
         coeffs = _mega_pack(c, b, alpha, beta, sigma_s, sigma_r, device=dev)
         return polyblur_tiles_fused(x, coeffs, n_iter, do_taper=edgetaping,
@@ -264,8 +298,8 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
     record_dispatch("polyblur_core", f"scan/{method}")
     grad_img = spectral_gradients(x) if remove_halo else None
     features = prefiltering or remove_halo or edgetaping
-    impred = x
-    for _ in range(int(n_iter)):
+
+    def body(impred):
         kernel = gaussian_blur_estimation(
             impred, c=c, b=b, q=q, n_angles=n_angles,
             n_interpolated_angles=n_interpolated_angles, ker_size=ker_size,
@@ -279,11 +313,19 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
         restored = inverse_filtering_rank3(
             impred, kernel, alpha=alpha, beta=beta, remove_halo=remove_halo,
             do_edgetaper=edgetaping, grad_img=grad_img, method=method,
-            ker_size=ker_size)
+            ker_size=ker_size, prefer_xla=remat)
         if noise is not None:
             restored = restored + noise
         # inverse_filtering_rank3 clamps to [0, 1] on every route (the
         # separable route inside its kernel); the noise and the features
         # take one more clip (pipeline.py:254-258)
-        impred = restored.clamp(0.0, 1.0) if features else restored
+        return restored.clamp(0.0, 1.0) if features else restored
+
+    impred = x
+    for _ in range(int(n_iter)):
+        if remat and torch.is_grad_enabled():
+            impred = checkpoint(body, impred, use_reentrant=False,
+                                context_fn=_same_mode)
+        else:
+            impred = body(impred)
     return impred

@@ -33,6 +33,8 @@ _TODO_DIRECT = "ROADMAP A.8 (ops/conv.py: method='direct')"
 
 
 def polynomial_coefficients(alpha, beta):
+    """(a3, a2, a1) of the gains: Python numbers, or tensors that stay in
+    the autograd graph."""
     a3 = alpha / 2.0 - beta + 2.0
     a2 = 3.0 * beta - alpha - 6.0
     a1 = 5.0 - 3.0 * beta + alpha / 2.0
@@ -97,14 +99,17 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
                             remove_halo: bool = False,
                             do_edgetaper: bool = False, grad_img=None,
                             method: str = "fft",
-                            ker_size: int = 25) -> torch.Tensor:
+                            ker_size: int = 25,
+                            prefer_xla: bool = False) -> torch.Tensor:
     """One polynomial deconvolution step (deblurring.py:211-239):
     replicate-pad by half the kernel support, optionally edgetaper, apply
     p(K), crop back, optionally mask halos against the (tapered) padded
     image cropped back, clamp to [0, 1]. ``ker_size`` sets the support of
     parametric ``(sigma, rho, theta)`` kernels; 2D kernels carry their
     own. ``grad_img`` is the halo mask's input gradients (computed from
-    ``img`` when None)."""
+    ``img`` when None). ``prefer_xla`` sends the separable route's
+    polynomial down the plain composition instead of the kernels, as the
+    JAX package's scan route does under ``remat``."""
     is_param_kernel = isinstance(kernel, (tuple, list))
     ksize = ker_size if is_param_kernel else kernel.shape[-1]
     fast = (is_param_kernel and method == "direct_separable"
@@ -118,11 +123,13 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
         if remove_halo:
             imout = compute_polynomial_separable(img, sigma, rho, theta,
                                                  alpha, beta, prepad=True,
-                                                 ker_size=ksize)
+                                                 ker_size=ksize,
+                                                 prefer_xla=prefer_xla)
             return halo_masking(img, imout, grad_img).clamp(0.0, 1.0)
         return compute_polynomial_separable(img, sigma, rho, theta, alpha,
                                             beta, prepad=True, clip=True,
-                                            ker_size=ksize)
+                                            ker_size=ksize,
+                                            prefer_xla=prefer_xla)
     if correlate and not is_param_kernel:
         kernel = torch.rot90(kernel, 2, dims=(-2, -1))
     padded = pad_with_kernel(img, ksize=ksize)

@@ -43,11 +43,35 @@ def _half_support(kernel=None, ksize: int = 3) -> int:
     return kernel.shape[-1] // 2 if kernel is not None else ksize // 2
 
 
+def replicate_pad(x: torch.Tensor, pads) -> torch.Tensor:
+    """``F.pad(x, pads, mode='replicate')`` over the last two dims, pads
+    ``(left, right, top, bottom)``. While autograd records ``x`` it is
+    built from expanded edge rows and columns instead: the same values,
+    and a backward that sums each border into its edge pixel by
+    reductions (deterministic on the card, where the replicate pad's own
+    backward accumulates with atomics); otherwise it is ``F.pad``'s one
+    pass."""
+    pl, pr, pt, pb = (int(p) for p in pads)
+    h, w = x.shape[-2:]
+    lead = x.shape[:-2]
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        out = torch.nn.functional.pad(x.reshape(-1, 1, h, w),
+                                      (pl, pr, pt, pb), mode="replicate")
+        return out.reshape(*lead, *out.shape[-2:])
+    x = torch.cat([x[..., :1, :].expand(*lead, pt, w), x,
+                   x[..., h - 1:, :].expand(*lead, pb, w)], -2)
+    hp = h + pt + pb
+    return torch.cat([x[..., :1].expand(*lead, hp, pl), x,
+                      x[..., w - 1:].expand(*lead, hp, pr)], -1)
+
+
 def pad_with_kernel(img: torch.Tensor, kernel=None, ksize: int = 3,
                     mode: str = "replicate") -> torch.Tensor:
     """Replicate-pad the two spatial dims by half the kernel support
     (utils.py:48-53); ``mode='circular'`` wraps instead."""
     ks = _half_support(kernel, ksize)
+    if mode == "replicate":
+        return replicate_pad(img, (ks,) * 4)
     out = torch.nn.functional.pad(img.reshape((-1, 1) + img.shape[-2:]),
                                   (ks,) * 4, mode=mode)
     return out.reshape(img.shape[:-2] + out.shape[-2:])

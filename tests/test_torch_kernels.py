@@ -18,7 +18,10 @@ XLA reference the Pallas kernel is held to):
                     True)`` for C = 1 and C = 3, atol 1e-5.
 
 CUDA (``test_cuda_*``, skipped without a card): each kernel against its
-plain version on the card. They import no JAX, so on a machine without it
+plain version on the card; each autograd Function (ROADMAP B.1 items 1-6
+and the blend) against autograd of its plain version, the refusal of a
+graph through a route without a backward, and the launches of grad-free
+calls. They import no JAX, so on a machine without it
 they run with ``python -m pytest --noconftest tests/test_torch_kernels.py
 -k cuda``.
 """
@@ -951,3 +954,172 @@ def test_cuda_edge_pad_cast_unaligned(cuda_dev):
                     want = edge_pad_cast_plain(x, (h, w), pads, odt)
                     assert torch.equal(got, want), (tuple(x.shape), pads,
                                                     idt, odt)
+
+
+# ------------------------------------------------ autograd Functions (CUDA)
+
+def _function_vs_plain_cuda(fn, plain, inputs):
+    """A Function's gradients (its kernels forward, autograd of its plain
+    version backward) against autograd of the plain version on the same
+    inputs and seeded cotangent: bit-equal (no plain backward accumulates
+    with atomics). The forward launches, the backward does not."""
+    def grads(f, under_plain):
+        xs = [t.detach().clone().requires_grad_(t.is_floating_point())
+              for t in inputs]
+        n0 = sum(pcuda.launches.values())
+        if under_plain:
+            with pcuda.plain_versions():
+                out = f(*xs)
+        else:
+            out = f(*xs)
+        n1 = sum(pcuda.launches.values())
+        gen = torch.Generator(device=out.device).manual_seed(7)
+        g = torch.randn(out.shape, generator=gen, device=out.device)
+        gs = torch.autograd.grad(out, [x for x in xs if x.requires_grad],
+                                 g.to(out.dtype))
+        return gs, n1 - n0, sum(pcuda.launches.values()) - n1
+
+    got, fwd, bwd = grads(fn, False)
+    want, _, _ = grads(plain, True)
+    assert fwd > 0 and bwd == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_functions_backward_match_plain_autograd(cuda_dev, dt):
+    """ROADMAP B.1 items 1-6 and the blend at small shapes."""
+    from polyblur_torch.estimation import _mags_fast, _mags_xla
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        _restore_canvas, polyblur_image_fused)
+    from polyblur_torch.ops.sep_poly import _block_view
+    from polyblur_torch.pipeline import restore_tiles
+
+    img = _photo(cuda_dev, 300, 420)
+    grid = plan_patch_grid(300, 420, 160, 32.0 / 160.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    gi = (th, tw, sh, sw, 160, 160)
+    crop = (grid.pad[0], grid.pad[2]) + grid.orig_size
+    win, inv = _blend_constants(grid, "kaiser", cuda_dev)
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    flags = dict(do_taper=False, do_halo=False, prefilter=None)
+    _function_vs_plain_cuda(
+        lambda x: edge_pad_cast(x, grid.orig_size, grid.pad, dt),
+        lambda x: edge_pad_cast_plain(x, grid.orig_size, grid.pad, dt),
+        (img,))
+    canvas = edge_pad_cast_plain(img, grid.orig_size, grid.pad, dt)
+
+    def stages(cv, co):
+        return _restore_canvas(cv, co, 2, gi, None, flags)
+
+    _function_vs_plain_cuda(lambda cv, co: polyblur_image_fused(cv, co, 2,
+                                                                gi),
+                            stages, (canvas, coeffs))
+    with torch.no_grad():
+        tiles = stages(canvas, coeffs)
+    _function_vs_plain_cuda(
+        lambda t: blend_overlap_add(t, win, inv, gi, 1, crop, torch.float32),
+        lambda t: blend_overlap_add_plain(t, win, inv, gi, 1, crop,
+                                          torch.float32), (tiles,))
+    x = img[..., :97, :141].contiguous().to(dt)
+    _function_vs_plain_cuda(lambda t, co: polyblur_tiles_fused(t, co, 2),
+                            lambda t, co: restore_tiles(t, co, 2),
+                            (x, coeffs))
+    planes = img[0, :, :200, :260].contiguous().to(dt)
+    params = torch.tensor([[0.8, 0.1, 0.5], [0.3, -0.05, 0.9],
+                           [1.2, 0.2, 0.4]], device=cuda_dev)
+    _function_vs_plain_cuda(
+        lambda p, q, co: fused_polynomial(p, q, co, True, True),
+        lambda p, q, co: fused_polynomial_plain(p, q, co, True, True),
+        (planes, params, coeffs[:4].clone()))
+    view, _ = _block_view(img[0, :1, :700, :700].contiguous().to(dt), 12)
+    _function_vs_plain_cuda(
+        lambda d, q, co: fused_polynomial(view._replace(data=d), q, co),
+        lambda d, q, co: fused_polynomial_plain(view._replace(data=d), q,
+                                                co),
+        (view.data, params[:1].repeat(view.n, 1), coeffs[:4].clone()))
+    gray = img.mean(1, keepdim=True).to(dt)
+    _function_vs_plain_cuda(lambda g: _mags_fast(g, 6),
+                            lambda g: _mags_xla(g, 6), (gray,))
+
+
+def test_cuda_forward_on_another_thread_launches_during_a_backward(
+        cuda_dev):
+    """While a Function's backward replays its plain version (on the
+    autograd engine's thread), a forward on another thread launches its
+    kernel and counts it: the plain mode is the replaying thread's."""
+    import threading
+
+    from polyblur_torch.ops.cuda.autograd import replay
+
+    img = _photo(cuda_dev, 64, 96)
+    seen = {}
+
+    def forward_elsewhere():
+        with torch.no_grad():
+            n0 = pcuda.launches["edge_pad_cast"]
+            y = edge_pad_cast(img, (64, 96), (2, 2, 3, 3), torch.bfloat16)
+            seen["launched"] = pcuda.launches["edge_pad_cast"] - n0
+            seen["equal"] = torch.equal(y, edge_pad_cast_plain(
+                img, (64, 96), (2, 2, 3, 3), torch.bfloat16))
+
+    def plain(t):
+        other = threading.Thread(target=forward_elsewhere)
+        other.start()
+        other.join()
+        return t * 2
+
+    x = img.clone().requires_grad_()
+    replay(lambda t: t * 2, plain, x).sum().backward()
+    torch.cuda.synchronize()
+    assert seen == {"launched": 1, "equal": True}
+
+
+def test_cuda_graph_through_a_route_without_backward_raises(cuda_dev):
+    """A flagged route with grad raises NotImplementedError naming B.1
+    items 7-8; a bare kernel wrapper given a tensor autograd records
+    raises rather than cutting the graph."""
+    from polyblur_torch.pipeline import polyblur_core
+
+    x = _photo(cuda_dev, 96, 128).requires_grad_()
+    with pytest.raises(NotImplementedError, match="B.1 items 7-8"):
+        polyblur_core(x, n_iter=1, edgetaping=True,
+                      method="direct_separable", device=cuda_dev)
+    with pytest.raises(NotImplementedError, match="B.1 item 7"):
+        polyblur_core(x, n_iter=2, prefiltering=True, _disable_mega=True,
+                      method="direct_separable", device=cuda_dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tile_estimate(TileView.of_tiles(x), _mega_pack(*COEFFS,
+                                                       device=cuda_dev))
+
+
+def test_cuda_grad_free_calls_launch_as_before(cuda_dev):
+    """The staged patch route launches the same kernels without grad,
+    under no_grad with an input that requires grad, and in the forward of
+    a recorded step, whose backward launches none."""
+    from polyblur_torch.patches import deblur_patches
+
+    img = _photo(cuda_dev, 300, 420)
+    kw = dict(patch_size=160, overlap=32.0 / 160.0, n_iter=2,
+              method="direct_separable", work_dtype=torch.bfloat16,
+              out_dtype=torch.float32, device=cuda_dev)
+    want = {"edge_pad_cast": 1, "tile_estimate": 8, "kernel_spectrum": 2,
+            "spectral_gemm": 8, "blend_overlap_add": 1}
+
+    def counted(x, grad=True):
+        pcuda.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = deblur_patches(x, **kw)
+        return out, dict(pcuda.launches)
+
+    ref, n = counted(img)
+    assert n == want and ref.grad_fn is None
+    xg = img.clone().requires_grad_()
+    out, n = counted(xg, grad=False)
+    assert n == want and torch.equal(out, ref)
+    out, n = counted(xg)
+    assert n == want and out.grad_fn is not None and torch.equal(
+        out.detach(), ref)
+    pcuda.reset_launches()
+    out.square().mean().backward()
+    assert dict(pcuda.launches) == {} and xg.grad is not None

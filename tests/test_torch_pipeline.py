@@ -173,9 +173,11 @@ def test_routing_predicates_match_jax(h, w):
         assert tapi._auto_tile_plan(h, w, cap) == \
             japi._auto_tile_plan(h, w, cap)
     for method in ("direct_separable", "fft"):
-        args = (False, False, False, "bilateral", 0.0, 25, 6, 30, h, w)
-        assert tpipe._mega_static_ok(method, *args) == \
-            jpipe._mega_static_ok(method, False, *args, interpret=True)
+        for remat in (False, True):
+            args = (method, remat, False, False, False, "bilateral", 0.0,
+                    25, 6, 30, h, w)
+            assert tpipe._mega_static_ok(*args) == \
+                jpipe._mega_static_ok(*args, interpret=True)
     assert tapi._tile_macs(h, w) == japi._tile_macs(h, w)
 
 

@@ -2,23 +2,28 @@
 """Where the time goes in polyblur_torch's paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
-``python3 tools/torch_profile.py [base] [features]`` (both sets by
-default). For each path — ``base``: the 12 MP bf16 patch engine, the
-reference demo and the 2 MP corpus photo through the blocked route, a
-480 x 640 crop through the tiles route and through ``method='fft'``;
-``features``: BASELINE config 2 (the 2 MP photo through the patch engine
-in bf16 with the taper, the domain-transform prefilter and the halo mask),
-config 2c (the same flags through ``method='fft'``) and the 480 x 640
-tiles route with every flag and the bilateral smoother — it times one warm
-call on the host clock (ending in a synchronize), traces a second with
-``torch.profiler`` and prints the device time by kernel name, the device
-busy time (the union of the kernels' intervals) and the idle share of the
-call. Imports no JAX.
+``python3 tools/torch_profile.py [base] [features] [train]`` (``base``
+and ``features`` by default). For each path — ``base``: the 12 MP bf16
+patch engine, the reference demo and the 2 MP corpus photo through the
+blocked route, a 480 x 640 crop through the tiles route and through
+``method='fft'``; ``features``: BASELINE config 2 (the 2 MP photo through
+the patch engine in bf16 with the taper, the domain-transform prefilter
+and the halo mask), config 2c (the same flags through ``method='fft'``)
+and the 480 x 640 tiles route with every flag and the bilateral
+smoother; ``train``: one Adam step of the 12 MP bf16 patch layer
+(chip_smoke's training phase (a)) and its forward alone — it times one
+warm call on the host clock (ending in a synchronize), traces a second
+with ``torch.profiler`` and prints the device time by kernel name, the
+device busy time (the union of the kernels' intervals), the idle share
+of the call, and the device time of the hand kernels (the ``__global__``
+functions of ``csrc/``) beside that of every other kernel (PyTorch's:
+the plain backward). Imports no JAX.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +55,32 @@ def _busy_ms(events) -> float:
     return busy / 1e3  # us -> ms
 
 
+def _hand_kernel_names() -> set:
+    """The ``__global__`` functions of ``polyblur_torch/csrc``."""
+    root = os.path.join(os.getcwd(), "polyblur_torch", "csrc")
+    names = set()
+    for f in os.listdir(root):
+        if f.endswith(".cu"):
+            with open(os.path.join(root, f)) as src:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(", src.read()))
+    return names
+
+
+_HAND = None
+
+
+def _is_hand(kernel: str) -> bool:
+    """Whether a traced kernel is one of the hand kernels: its name is
+    ``(anonymous namespace)::<a csrc __global__ function>``."""
+    global _HAND
+    if _HAND is None:
+        _HAND = _hand_kernel_names()
+    m = re.search(r"^(?:void )?\(anonymous namespace\)::(\w+)", kernel)
+    return bool(m) and m.group(1) in _HAND
+
+
 def profile(name, fn, top: int = 10) -> None:
     import torch
     from torch.profiler import ProfilerActivity
@@ -71,8 +102,11 @@ def profile(name, fn, top: int = 10) -> None:
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
+    hand = sum(e.device_time for e in kernels if _is_hand(e.name)) / 1e3
+    total = sum(e.device_time for e in kernels) / 1e3
     print(f"\n== {name}: host {wall:.2f} ms, device busy {busy:.2f} ms, "
-          f"idle share {1.0 - busy / wall:.3f}, {len(kernels)} kernels")
+          f"idle share {1.0 - busy / wall:.3f}, {len(kernels)} kernels; "
+          f"hand kernels {hand:.2f} ms, other kernels {total - hand:.2f} ms")
     for k, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"   {t:9.3f} ms  {n:4d}x  {k[:90]}")
 
@@ -87,6 +121,7 @@ def main() -> int:
     from polyblur_torch.pipeline import polyblur_core
 
     sets = set(sys.argv[1:]) or {"base", "features"}
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain backward
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -132,6 +167,20 @@ def main() -> int:
         profile("480x640 tiles route, every flag (bilateral), f32",
                 lambda: pt.polyblur_deblurring(crop, device=dev, **kw,
                                                **flags), top=14)
+    if "train" in sets:
+        from polyblur_torch import PolyblurLayer, make_train_step
+
+        layer = PolyblurLayer(
+            n_iter=3, learnable=True, patch_size=448,
+            patch_overlap=64.0 / 448.0, method="direct_separable",
+            extra=dict(work_dtype=torch.bfloat16, out_dtype=torch.float32),
+            device=dev)
+        step = make_train_step(layer, torch.optim.Adam(layer.parameters(),
+                                                       lr=1e-2))
+        profile("training step: 12 MP bf16 patch layer, one Adam step",
+                lambda: step(img12, img12), top=14)
+        profile("the step's forward alone (the graph is built and dropped)",
+                lambda: torch.mean((layer(img12) - img12) ** 2))
     print(card)
     return 0
 
