@@ -82,7 +82,27 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    memory; (e) each autograd Function alone at its main-path shapes, its
    gradients under a seeded cotangent bit-equal to autograd of its plain
    version (no plain backward accumulates with atomics), with its
-   backward's time;
+   backward's time; extended to the bilateral Function and the two IIR
+   Functions (rows, columns) on the 1200 x 1600 photo (f32) and on
+   config 2's 12 bf16 tiles, and to the flagged tiles (480 x 640, every
+   flag) and canvas (config 2) Functions, whose backward replays the
+   scan route on all their tiles (``pipeline._ref_pipeline``, as the
+   JAX package's flagged VJPs); (f) BASELINE config 2 (2b in f32) as a
+   learnable layer at full size (1200 x 1600, 448 px tiles at overlap
+   1/7, taper + dt prefilter + halo, one Adam step): the forward's
+   launches equal the grad-free call's, the backward launches none,
+   theta is identical kernel vs plain on every tile and iteration, the
+   scalar gradients are held against the plain step; (g) the scan route
+   through both smoothers on the 2 MP photo (config 2c, ``method='fft'``
+   with dt; every flag with the bilateral smoother), each with and
+   without ``remat`` (under ``remat`` the recompute launches the
+   forward's kernels again), against the plain step, with both peak
+   memories; (h) the tiles route with every flag (480 x 640 f32
+   bilateral, 480 x 512 dt in bf16 and in f32) and the (2, 3, 1024,
+   1024) bf16 batch through the patch engine with config 2's flags, each
+   against the plain step; in (a), (d), (f) and (h) the kernels step's
+   output is held in dB against the plain step's; every step prints its
+   time (median of 3 warm steps), peak memory and the card line;
 9. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
@@ -1251,6 +1271,16 @@ def feature_paths(dev, img2, card: str, launches: dict) -> None:
 # f32 ~92 dB apart); the backward itself is the same plain replay
 TOL_REL_GRAD_BF16 = 2e-2
 TOL_REL_GRAD_F32 = 1e-3
+# (h): one bf16 image through the tiles route is one tile: where the
+# plain step's bf16 state flips theta at a near-tie (margin 9.5e-5 in
+# iteration 2), the two steps deblur the whole image along different
+# directions from there; with the bf16 output's rounding (the forwards
+# 52.9 dB apart, held to PSNR_BF16_DB; 20% of the residual against the
+# input as target) the scalar gradients measured 5.2e-2 apart, and the
+# same steps in f32, run after it as its witness, 2.7e-4 (on an H100
+# 80GB HBM3 at 700 W; PERF.md). A batch of tiles averages a flip out
+# (2e-2 holds)
+TOL_REL_GRAD_BF16_TILES = 1e-1
 # (a): from iteration 2 on the kernels step and the plain step estimate
 # different bf16 states (57.8 dB apart); theta may differ between the two
 # steps only where the two directions' interpolated maxima are this close
@@ -1304,7 +1334,7 @@ def counted_step(layer, opt, x, y, loss_fn=l2_f32, plain=False):
     """One Adam step with the launch counters zeroed before the forward and
     read after it and after the backward (inside ``plain_versions()`` when
     ``plain``). Returns (loss, forward launches, backward launches, the
-    parameters' gradients)."""
+    parameters' gradients, the output)."""
     import contextlib
 
     import torch
@@ -1316,7 +1346,8 @@ def counted_step(layer, opt, x, y, loss_fn=l2_f32, plain=False):
         opt.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         pcuda.reset_launches()
-        loss = loss_fn(layer(x), y)
+        out = layer(x)
+        loss = loss_fn(out, y)
         torch.cuda.synchronize()
         fwd = dict(pcuda.launches)
         pcuda.reset_launches()
@@ -1326,7 +1357,7 @@ def counted_step(layer, opt, x, y, loss_fn=l2_f32, plain=False):
         grads = torch.stack([p.grad.detach().clone()
                              for p in layer.parameters()])
         opt.step()
-    return float(loss.detach()), fwd, bwd, grads
+    return float(loss.detach()), fwd, bwd, grads, out.detach()
 
 
 def step_time(step, x, y, name: str, card: str, training: dict):
@@ -1352,13 +1383,14 @@ def step_time(step, x, y, name: str, card: str, training: dict):
     return ms, gib
 
 
-def grads_vs_plain(name: str, make_layer, x, y, tol: float, route,
-                   expect_fwd, on_run=lambda plain: None):
+def grads_vs_plain(name: str, make_layer, x, y, tol: float, min_db: float,
+                   route, expect_fwd, on_run=lambda plain: None):
     """One counted step with the kernels and one with the plain versions
     (``on_run(plain)`` called before each), each from a fresh layer: the
     route is taken, the forward launches ``expect_fwd``, the backward
-    none, and the four scalar gradients agree within ``tol`` relative to
-    the largest."""
+    none, the two forwards' outputs are at least ``min_db`` apart, and
+    the four scalar gradients agree within ``tol`` relative to the
+    largest."""
     import torch
 
     from polyblur_torch.utils.profiling import (dispatch_log,
@@ -1372,11 +1404,12 @@ def grads_vs_plain(name: str, make_layer, x, y, tol: float, route,
         reset_dispatch_log()
         runs[plain] = counted_step(layer, opt, x, y, plain=plain) + (
             dispatch_log(),)
-    loss, fwd, bwd, g, log = runs[False]
-    loss_p, fwd_p, bwd_p, g_p, _ = runs[True]
+    loss, fwd, bwd, g, out, log = runs[False]
+    loss_p, fwd_p, bwd_p, g_p, out_p, _ = runs[True]
+    db = psnr(out, out_p)
     print(f"training {name}: loss {loss:.6e} (plain {loss_p:.6e}), "
           f"forward launches {fwd}, backward launches {bwd}, routes "
-          f"{sorted(log)}")
+          f"{sorted(log)}, forward vs plain {db:.2f} dB (min {min_db})")
     require(route in log, f"{name}: route {route} not taken")
     require(math.isfinite(loss) and bool(torch.isfinite(g).all()),
             f"{name}: loss or gradients not finite")
@@ -1384,21 +1417,23 @@ def grads_vs_plain(name: str, make_layer, x, y, tol: float, route,
                                f"{expect_fwd}")
     require(not bwd, f"{name}: the backward launched {bwd}")
     require(not fwd_p and not bwd_p, f"{name}: plain step launched")
+    require(db >= min_db, f"{name}: forward {db:.2f} dB from plain")
     rel = float((g - g_p).abs().max() / g_p.abs().max())
     print(f"training {name}: d loss / d (c, b, alpha, beta) "
           f"{[f'{v:.6e}' for v in g.tolist()]}, plain "
           f"{[f'{v:.6e}' for v in g_p.tolist()]}, max rel err {rel:.3e} "
           f"(tol {tol})")
     require(rel <= tol, f"{name}: scalar gradients {rel:.3e} from plain")
+    return log
 
 
 def function_vs_plain(name: str, fn, plain, inputs) -> dict:
     """Gradients of a Function alone (its kernels forward, its plain
     replay backward) against autograd of its plain version on the same
     inputs under the same seeded cotangent: bit-equal (every plain
-    backward of the port is deterministic: its replicate pads are
-    reductions, ``utils.imaging.replicate_pad``). The forward must launch
-    and the backward must not."""
+    backward of the port is deterministic: its replicate pads, wrap pads
+    and repeats are reductions). The forward must launch and the backward
+    must not."""
     import torch
 
     from polyblur_torch.ops import cuda as pcuda
@@ -1437,12 +1472,338 @@ def function_vs_plain(name: str, fn, plain, inputs) -> dict:
     rel = max(float((a.float() - b.float()).abs().max()
                     / b.float().abs().max().clamp(min=1e-30))
               for a, b in zip(g_f, g_p))
-    kind = "bit-equal" if equal else f"max rel err {rel:.3e}"
+    kind = "bit-equal" if equal else f"not bit-equal, max rel err {rel:.3e}"
     print(f"function {name}: forward launches {fwd}; backward {ms:.2f} ms "
           f"(plain autograd {ms_p:.2f} ms), gradients {kind}")
     require(equal, f"{name}: gradients differ from plain autograd "
                    f"({rel:.3e})")
     return dict(backward_ms=ms, bit_equal=equal, max_rel_err=rel)
+
+
+def theta_checked(tag: str, run, n_est: int = 3,
+                  hold_later_flips: bool = True) -> None:
+    """``run(on_run)`` runs a kernels step and a plain step through
+    ``grads_vs_plain`` (``on_run(plain)`` before each). Every per-tile
+    estimate of the kernels step's forward is held against the plain
+    estimate of the same tiles (identical theta), and against the plain
+    step's own: every flip only at a near-tie (``TOL_TIE_STEP``). Without
+    ``hold_later_flips`` only a tile's first flip is held: after it the
+    two steps deblur that tile along different directions, so its later
+    iterations' margins are printed."""
+    import torch
+
+    from polyblur_torch import pipeline as ppipe
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, _directional_vals_plain)
+
+    thetas = {False: [], True: []}
+    estimate = ppipe.tile_estimate
+    mode = [False]
+
+    def recording(view, coeffs):
+        est = estimate(view, coeffs)
+        if not torch.is_grad_enabled() and not mode[0]:
+            # the kernels step's forward: the plain estimate of the same
+            # state beside the kernel's
+            with pcuda.plain_versions():
+                same = estimate(view, coeffs)
+            thetas[False].append((est[:, 0].clone(), same[:, 0].clone(),
+                                  view.tiles().clone()))
+        elif not torch.is_grad_enabled():
+            thetas[True].append(est[:, 0].clone())
+        return est
+
+    ppipe.tile_estimate = recording
+    try:
+        run(lambda p: mode.__setitem__(0, p))
+    finally:
+        ppipe.tile_estimate = estimate
+    require(len(thetas[False]) == len(thetas[True]) == n_est,
+            f"{tag}: not {n_est} estimates per step")
+    flipped = {}
+    for it, ((ik, ik_p, state), ip) in enumerate(zip(thetas[False],
+                                                     thetas[True])):
+        require(torch.equal(ik, ik_p), f"{tag}: iteration {it + 1}: the "
+                f"kernel's theta index differs from the plain estimate's "
+                f"on the same tiles")
+        # the plain step's own states differ from iteration 2 on by the
+        # bf16 forwards' gap: a tile may flip there only at a near-tie
+        diff = torch.nonzero(ik != ip).flatten().tolist()
+        vals = _directional_vals_plain(TileView.of_tiles(state))
+        for t in diff:
+            a, b = int(ik[t]), int(ip[t])
+            margin = abs(float((vals[t, a] - vals[t, b]) / vals[t, b]))
+            after = (f", after its iteration {flipped[t]} flip"
+                     if t in flipped else "")
+            print(f"training {tag}: iteration {it + 1} tile {t}: theta idx "
+                  f"{a} (kernels step) vs {b} (plain step), relative tie "
+                  f"margin {margin:.3e} on the kernels step's tiles{after}")
+            require((t in flipped and not hold_later_flips)
+                    or margin <= TOL_TIE_STEP,
+                    f"{tag}: theta flips at margin {margin:.3e}")
+            flipped.setdefault(t, it + 1)
+        print(f"training {tag}: iteration {it + 1}: kernel and plain "
+              f"estimates of the same tiles identical on {ik.numel()}; "
+              f"against the plain step {len(diff)} near-tie flip(s)")
+
+
+def free_launches(make_layer, x) -> dict:
+    """The launches of a grad-free call of a fresh layer on ``x``."""
+    import torch
+
+    from polyblur_torch.ops import cuda as pcuda
+
+    layer = make_layer()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        pcuda.reset_launches()
+        layer(x)
+        torch.cuda.synchronize()
+    return dict(pcuda.launches)
+
+
+def flag_step(name: str, make_layer, x, y, tol: float, min_db: float,
+              route, card: str, training: dict) -> None:
+    """(f), (h): one Adam step of a flagged layer with the kernels against
+    the same step with every plain version (``grads_vs_plain``, theta
+    held by ``theta_checked`` up to each tile's first flip): the forward
+    launches what the grad-free call launches, the backward (the scan
+    route's plain replay) none; then the step time and peak memory."""
+    import torch
+
+    from polyblur_torch import make_train_step
+
+    expect = free_launches(make_layer, x)
+    print(f"training {name}: grad-free call launches {expect}")
+
+    def run(on_run=lambda plain: None):
+        return grads_vs_plain(name, make_layer, x, y, tol, min_db, route,
+                              expect, on_run=on_run)
+
+    theta_checked(name, run, hold_later_flips=False)
+    layer = make_layer()
+    step_time(make_train_step(layer, torch.optim.Adam(layer.parameters(),
+                                                      lr=1e-2)),
+              x, y, name, card, training)
+    training[name]["forward_launches"] = expect
+    del layer
+    torch.cuda.empty_cache()
+
+
+def flag_layer_steps(dev, card: str, training: dict) -> None:
+    """(f): BASELINE config 2 (2b in f32) as a learnable layer at full
+    size: the 1200 x 1600 photo through the patch engine (448 px tiles at
+    overlap 1/7) with the taper, the dt prefilter and the halo mask; the
+    canvas Function's backward replays the scan route on the 12 tiles."""
+    import torch
+
+    from polyblur_torch import PolyblurLayer
+
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    for tag, wd, tol, min_db in (
+            ("(f) config 2", torch.bfloat16, TOL_REL_GRAD_BF16, PSNR_BF16_DB),
+            ("(f) config 2b", torch.float32, TOL_REL_GRAD_F32, PSNR_F32_DB)):
+        def layer(wd=wd):
+            return PolyblurLayer(
+                n_iter=3, learnable=True, c=0.362, b=0.468, alpha=6.0,
+                beta=1.0, patch_size=448, patch_overlap=1.0 / 7.0,
+                method="direct_separable", device=dev, extra=dict(
+                    edgetaping=True, prefiltering=True,
+                    smoother="domain_transform", remove_halo=True,
+                    work_dtype=wd, out_dtype=torch.float32))
+
+        name = f"{tag} layer 1200 x 1600, {str(wd)[6:]} work"
+        try:
+            flag_step(name, layer, img2, img2, tol, min_db,
+                      ("deblur_patches", "staged_tiles"), card, training)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"training {name}: does not fit in the card's memory "
+                  f"({e}); not shrunk")
+            raise
+
+
+def scan_flag_steps(dev, card: str, training: dict) -> None:
+    """(g): the scan route through both smoothers on the 2 MP photo:
+    config 2c (``method='fft'``, taper + dt + halo) and every flag with
+    the bilateral smoother (``polyblur_deblurring``'s route), each one
+    step with and without ``remat``, scalar gradients against the plain
+    step. Without ``remat`` the backward launches nothing; with it the
+    recompute launches the forward's kernels again (the smoother's among
+    them)."""
+    import torch
+
+    from polyblur_torch import PolyblurLayer, make_train_step
+    from polyblur_torch.utils.profiling import (dispatch_log,
+                                                reset_dispatch_log)
+
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    for tag, method, smoother, kernel in (
+            ("(g) config 2c, fft, dt", "fft", "domain_transform",
+             "iir_scan_rows"),
+            ("(g) every flag, bilateral", "direct_separable", "bilateral",
+             "bilateral")):
+        runs = {}
+        for remat, plain in ((False, False), (True, False), (False, True)):
+            layer = PolyblurLayer(
+                n_iter=3, learnable=True, method=method, remat=remat,
+                device=dev, extra=dict(edgetaping=True, prefiltering=True,
+                                       smoother=smoother, remove_halo=True))
+            reset_dispatch_log()
+            runs[remat, plain] = counted_step(
+                layer, torch.optim.Adam(layer.parameters(), lr=1e-2), img2,
+                img2, plain=plain) + (dispatch_log(),)
+            if not plain:
+                name = f"{tag}, remat={remat}"
+                expect = free_launches(lambda: layer, img2)
+                loss, fwd, bwd, g, _, log = runs[remat, plain]
+                print(f"training {name}: loss {loss:.6e}, forward launches "
+                      f"{fwd}, backward launches {bwd}, routes "
+                      f"{sorted(log)}")
+                require(("polyblur_core", f"scan/{method}") in log,
+                        f"{name}: not the scan route: {log}")
+                require(fwd == expect, f"{name}: forward {fwd}, grad-free "
+                                       f"{expect}")
+                require(fwd.get(kernel, 0) > 0, f"{name}: no {kernel}")
+                require(bwd == (fwd if remat else {}),
+                        f"{name}: backward launches {bwd}")
+                require(math.isfinite(loss) and bool(torch.isfinite(g).all()),
+                        f"{name}: not finite")
+                step_time(make_train_step(layer, torch.optim.Adam(
+                    layer.parameters(), lr=1e-2)), img2, img2, name, card,
+                    training)
+                training[name]["forward_launches"] = fwd
+                training[name]["recompute_launches"] = bwd
+            del layer
+            torch.cuda.empty_cache()
+        g_p = runs[False, True][3]
+        for remat in (False, True):
+            g = runs[remat, False][3]
+            rel = float((g - g_p).abs().max() / g_p.abs().max())
+            print(f"training {tag}, remat={remat}: d loss / d (c, b, alpha, "
+                  f"beta) {[f'{v:.6e}' for v in g.tolist()]}, plain "
+                  f"{[f'{v:.6e}' for v in g_p.tolist()]}, max rel err "
+                  f"{rel:.3e} (tol {TOL_REL_GRAD_F32})")
+            require(rel <= TOL_REL_GRAD_F32, f"{tag}: scalar gradients "
+                                             f"{rel:.3e} from plain")
+        print(f"training {tag}: peak memory without remat "
+              f"{training[f'{tag}, remat=False']['peak_gib']:.2f} GiB, "
+              f"with {training[f'{tag}, remat=True']['peak_gib']:.2f} GiB "
+              f"on {card}")
+
+
+def flag_route_steps(dev, img, card: str, training: dict) -> None:
+    """(h): the tiles route with every flag (480 x 640 f32, bilateral;
+    480 x 512 bf16, dt, at its cap) and the batch route (2 x 3 x 1024^2,
+    bf16 work, through the patch engine at 448 px, overlap 1/7, with
+    config 2's flags: the canvas Function, then the blend's)."""
+    import torch
+
+    from polyblur_torch import PolyblurLayer
+
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    dt = dict(prefiltering=True, smoother="domain_transform",
+              edgetaping=True, remove_halo=True)
+    tiles = ("polyblur_core", "tiles")
+    crop = img2[..., :480, :640].contiguous()
+    flag_step("(h) tiles route 480 x 640 f32, every flag (bilateral)",
+              lambda: PolyblurLayer(n_iter=3, learnable=True,
+                                    method="direct_separable", device=dev,
+                                    extra=FLAGS_KW),
+              crop, crop, TOL_REL_GRAD_F32, PSNR_F32_DB, tiles, card,
+              training)
+    # the bf16 dt set, then the same crop in f32 as its witness: the
+    # gradient's gap in bf16 is the near-tie flip's, not the Functions'
+    crop = img2[..., :480, :512].contiguous()
+    for wd, tol, min_db in ((torch.bfloat16, TOL_REL_GRAD_BF16_TILES,
+                             PSNR_BF16_DB),
+                            (torch.float32, TOL_REL_GRAD_F32, PSNR_F32_DB)):
+        flag_step(f"(h) tiles route 480 x 512 {str(wd)[6:]}, every flag "
+                  f"(dt)",
+                  lambda: PolyblurLayer(n_iter=3, learnable=True,
+                                        method="direct_separable",
+                                        device=dev, extra=dt),
+                  crop.to(wd), crop.to(wd).float(), tol, min_db, tiles, card,
+                  training)
+    xb = torch.cat([img[..., :1024, :1024], img[..., 1024:2048, 1024:2048]])
+    flag_step("(h) batch route 2 x 3 x 1024^2 bf16, config 2's flags",
+              lambda: PolyblurLayer(
+                  n_iter=3, learnable=True, patch_size=448,
+                  patch_overlap=1.0 / 7.0, method="direct_separable",
+                  device=dev, extra=dict(dt, work_dtype=torch.bfloat16,
+                                         out_dtype=torch.float32)),
+              xb, xb, TOL_REL_GRAD_BF16, PSNR_BF16_DB,
+              ("deblur_patches", "staged_tiles"), card, training)
+
+
+def flag_functions(dev) -> dict:
+    """(e), the flags' Functions alone: the bilateral Function and the two
+    IIR Functions (rows, columns) on the whole 1200 x 1600 photo (f32) and
+    on config 2's 12 tiles of 448^2 (bf16), and the flagged tiles (480 x
+    640, every flag) and canvas (config 2) Functions, whose backward
+    replays the scan route."""
+    import torch
+
+    from polyblur_torch.ops.bilateral import _bilateral_plain, bilateral_filter
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs, scan_cols,
+                                             scan_cols_plain, scan_rows,
+                                             scan_rows_plain)
+    from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, _ref_image_pipeline, polyblur_image_fused,
+        polyblur_tiles_fused)
+    from polyblur_torch.ops.domain_transform import (
+        _domain_transform_derivatives)
+    from polyblur_torch.patches import _grid_steps, plan_patch_grid
+    from polyblur_torch.pipeline import _mega_pack, _ref_pipeline
+
+    out = {}
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    grid = plan_patch_grid(1200, 1600, 448, 1.0 / 7.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    gi = (th, tw, sh, sw, 448, 448)
+    canvas = edge_pad_cast(img2, grid.orig_size, grid.pad, torch.bfloat16)
+    view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
+    tiles = view.tiles().contiguous()
+    dh, dv = _domain_transform_derivatives(img2, 2.0, 0.8)
+    a = math.exp(-math.sqrt(2.0) / 2.0)
+    maps = {"1 x 3 x 1200 x 1600 f32": (img2, (a ** dh.double()).float(),
+                                        (a ** dv.double()).float()),
+            f"config 2's {view.n} x 3 x 448^2 bf16 tiles":
+                (tiles,) + dt_coeffs(view, coeffs)}
+    for shape, (x, v_h, v_v) in maps.items():
+        out[f"bilateral {shape}"] = function_vs_plain(
+            f"bilateral_filter (B.1.7, {shape})", bilateral_filter,
+            lambda t: _bilateral_plain(t, 5, 5.0, 0.1), (x,))
+        out[f"iir rows {shape}"] = function_vs_plain(
+            f"scan_rows (B.1.8, {shape})",
+            lambda t, v: scan_rows(TileView.of_tiles(t), v),
+            lambda t, v: scan_rows_plain(TileView.of_tiles(t), v),
+            (x, v_h))
+        rows = scan_rows(TileView.of_tiles(x), v_h)
+        out[f"iir cols {shape}"] = function_vs_plain(
+            f"scan_cols (B.1.8, {shape} rows' f32 output)", scan_cols,
+            scan_cols_plain, (rows, v_v))
+    crop = img2[..., :480, :640].contiguous()
+    flags = dict(do_taper=True, do_halo=True, prefilter="bilateral")
+    out["polyblur_tiles_fused, flags"] = function_vs_plain(
+        "polyblur_tiles_fused (B.1.4, 7-8: 1 x 3 x 480 x 640 f32, every "
+        "flag, bilateral; backward the scan route)",
+        lambda t, co: polyblur_tiles_fused(t, co, 3, **flags),
+        lambda t, co: _ref_pipeline(t, co, 3, **flags), (crop, coeffs))
+    flags = dict(do_taper=True, do_halo=True, prefilter="dt")
+    out["polyblur_image_fused, flags"] = function_vs_plain(
+        "polyblur_image_fused (B.1.2-3, 7-8: config 2's canvas, bf16, "
+        "taper + dt + halo; backward the scan route on the 12 tiles)",
+        lambda cv, co: polyblur_image_fused(cv, co, 3, gi, **flags),
+        lambda cv, co: _ref_image_pipeline(cv, co, 3, gi, flags),
+        (canvas, coeffs))
+    return out
 
 
 def training_functions(dev, img) -> dict:
@@ -1530,17 +1891,13 @@ def training_functions(dev, img) -> dict:
 
 
 def training_phases(dev, card: str) -> dict:
-    """(a)-(d): training steps through ``PolyblurLayer`` with the launch
-    counters zeroed just before each forward and read after it and after
-    its backward; (e) each Function alone. Returns the step times and
-    peak memories by phase."""
+    """(a)-(d) and (f)-(h): training steps through ``PolyblurLayer`` with
+    the launch counters zeroed just before each forward and read after it
+    and after its backward; (e) each Function alone. Returns the step
+    times and peak memories by phase."""
     import torch
 
     from polyblur_torch import PolyblurLayer, make_train_step
-    from polyblur_torch import pipeline as ppipe
-    from polyblur_torch.ops import cuda as pcuda
-    from polyblur_torch.ops.cuda.polyblur_fused import (
-        TileView, _directional_vals_plain)
     from polyblur_torch.utils.profiling import (dispatch_log,
                                                 reset_dispatch_log)
 
@@ -1556,52 +1913,9 @@ def training_phases(dev, card: str) -> dict:
                              method="direct_separable", remat=False,
                              extra=work, device=dev)
 
-    thetas = {False: [], True: []}
-    estimate = ppipe.tile_estimate
-    mode = [False]
-
-    def recording(view, coeffs):
-        est = estimate(view, coeffs)
-        if not torch.is_grad_enabled() and not mode[0]:
-            # the kernels step's forward: the plain estimate of the same
-            # state beside the kernel's
-            with pcuda.plain_versions():
-                same = estimate(view, coeffs)
-            thetas[False].append((est[:, 0].clone(), same[:, 0].clone(),
-                                  view.tiles().clone()))
-        elif not torch.is_grad_enabled():
-            thetas[True].append(est[:, 0].clone())
-        return est
-
-    ppipe.tile_estimate = recording
-    try:
-        grads_vs_plain("(a) 12 MP bf16 patch layer", layer_a, img, img,
-                       TOL_REL_GRAD_BF16, ("deblur_patches", "staged_tiles"),
-                       TRAIN_FORWARD, on_run=lambda p: mode.__setitem__(0, p))
-    finally:
-        ppipe.tile_estimate = estimate
-    require(len(thetas[False]) == len(thetas[True]) == 3,
-            "(a): not 3 estimates per step")
-    for it, ((ik, ik_p, state), ip) in enumerate(zip(thetas[False],
-                                                     thetas[True])):
-        require(torch.equal(ik, ik_p), f"(a): iteration {it + 1}: the "
-                f"kernel's theta index differs from the plain estimate's "
-                f"on the same tiles")
-        # the plain step's own states differ from iteration 2 on by the
-        # bf16 forwards' gap: a tile may flip there only at a near-tie
-        diff = torch.nonzero(ik != ip).flatten().tolist()
-        vals = _directional_vals_plain(TileView.of_tiles(state))
-        for t in diff:
-            a, b = int(ik[t]), int(ip[t])
-            margin = abs(float((vals[t, a] - vals[t, b]) / vals[t, b]))
-            print(f"training (a): iteration {it + 1} tile {t}: theta idx "
-                  f"{a} (kernels step) vs {b} (plain step), relative tie "
-                  f"margin {margin:.3e} on the kernels step's tiles")
-            require(margin <= TOL_TIE_STEP, f"(a): theta flips at margin "
-                                            f"{margin:.3e}")
-        print(f"training (a): iteration {it + 1}: kernel and plain "
-              f"estimates of the same tiles identical on {ik.numel()}; "
-              f"against the plain step {len(diff)} near-tie flip(s)")
+    theta_checked("(a)", lambda on_run: grads_vs_plain(
+        "(a) 12 MP bf16 patch layer", layer_a, img, img, TOL_REL_GRAD_BF16,
+        PSNR_BF16_DB, ("deblur_patches", "staged_tiles"), TRAIN_FORWARD, on_run=on_run))
     layer = layer_a()
     step_time(make_train_step(layer, torch.optim.Adam(layer.parameters(),
                                                       lr=1e-2)),
@@ -1621,7 +1935,7 @@ def training_phases(dev, card: str) -> dict:
 
     layer = layer_b()
     reset_dispatch_log()
-    loss, fwd, bwd, g = counted_step(
+    loss, fwd, bwd, g, _ = counted_step(
         layer, torch.optim.Adam(layer.parameters(), lr=1e-2), x5b, img)
     log = dispatch_log()
     print(f"training (b) config 5b: loss {loss:.6e}, forward launches {fwd}, "
@@ -1674,7 +1988,7 @@ def training_phases(dev, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_dispatch_log()
-        loss, fwd, bwd, _ = counted_step(layer, opt, blurry, sharp)
+        loss, fwd, bwd, _, _ = counted_step(layer, opt, blurry, sharp)
         log = dispatch_log()
         seq, times = [loss], []
         for _ in range(5):
@@ -1725,7 +2039,8 @@ def training_phases(dev, card: str) -> dict:
                              method="direct_separable", device=dev)
 
     grads_vs_plain("(d) tiles route 1 x 3 x 480 x 640 f32", layer_d, crop,
-                   crop, TOL_REL_GRAD_F32, ("polyblur_core", "tiles"),
+                   crop, TOL_REL_GRAD_F32, PSNR_F32_DB,
+                   ("polyblur_core", "tiles"),
                    {"tile_estimate": 12, "kernel_spectrum": 3,
                     "spectral_gemm": 12})
     layer = layer_d()
@@ -1741,8 +2056,8 @@ def training_phases(dev, card: str) -> dict:
                              device=dev)
 
     grads_vs_plain("(d) batch route 2 x 3 x 1024^2 bf16", layer_batch, xb,
-                   xb, TOL_REL_GRAD_BF16, ("deblur_patches", "staged_tiles"),
-                   TRAIN_FORWARD)
+                   xb, TOL_REL_GRAD_BF16, PSNR_BF16_DB,
+                   ("deblur_patches", "staged_tiles"), TRAIN_FORWARD)
     layer = layer_batch()
     step_time(make_train_step(layer, torch.optim.Adam(layer.parameters(),
                                                       lr=1e-2)),
@@ -1752,6 +2067,16 @@ def training_phases(dev, card: str) -> dict:
 
     # (e) each Function alone
     training["functions"] = training_functions(dev, img)
+    torch.cuda.empty_cache()
+
+    # (f)-(h): training through the feature flags, and (e) for their
+    # Functions
+    flag_layer_steps(dev, card, training)
+    scan_flag_steps(dev, card, training)
+    flag_route_steps(dev, img, card, training)
+    del img
+    torch.cuda.empty_cache()
+    training["functions"].update(flag_functions(dev))
     return training
 
 

@@ -26,6 +26,7 @@ import torch
 from .envelopes import MEGA_MAX_TILE
 from .ops.fourier import spectral_gradients
 from .ops.gaussian import batch_gaussian_kernels
+from .utils.imaging import clip_as_jax
 from .utils.profiling import record_dispatch
 
 __all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
@@ -51,19 +52,12 @@ def angle_grids(n_angles: int, n_interpolated_angles: int,
 
 def normalize_range(x: torch.Tensor) -> torch.Tensor:
     """Min/max normalize over the last two axes, guarded and clipped to
-    [0, 1]. While autograd records a graph the clip is ``jnp.clip``'s
-    ``minimum(maximum(v, 0), 1)``: the darkest and brightest pixels sit
-    exactly on its bounds, and there ``maximum`` / ``minimum`` pass half
-    the gradient in both packages, where ``clamp`` would pass all of it.
-    Without a graph it is ``clamp``'s one pass (the values are the
-    same)."""
+    [0, 1] by ``jnp.clip``'s rule (``utils.imaging.clip_as_jax``): the
+    darkest and brightest pixels sit exactly on its bounds."""
     vmin = x.amin(dim=(-2, -1), keepdim=True)
     vmax = x.amax(dim=(-2, -1), keepdim=True)
     v = (x - vmin) / torch.clamp(vmax - vmin, min=1e-8)
-    if torch.is_grad_enabled() and v.requires_grad:
-        return torch.minimum(torch.maximum(v, v.new_zeros(())),
-                             v.new_ones(()))
-    return v.clamp(0.0, 1.0)
+    return clip_as_jax(v, 0.0, 1.0)
 
 
 def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,

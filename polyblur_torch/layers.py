@@ -12,7 +12,11 @@ Here:
 * :func:`polyblur_apply` — the functional form.
 
 Gradients run through the kernels' autograd Functions (forward on the
-card, plain PyTorch backward; ``ops/cuda/autograd.py``).
+card, plain PyTorch backward; ``ops/cuda/autograd.py``), with any feature
+flag in ``extra`` (``prefiltering``, ``edgetaping``, ``remove_halo``): the
+tiles and patch routes' backward then replays the scan route on their
+tiles, the bilateral filter and the IIR scans replay their plain
+versions.
 """
 
 from __future__ import annotations

@@ -7,6 +7,10 @@ replicate-padded neighbourhood, with spatial weights ``exp(-(dx^2 + dy^2) /
 card every size runs the hand-written kernel (``ops/cuda/bilateral.py``,
 ``csrc/bilateral.cu``); the JAX package's 640 px cap was the TPU's VMEM
 limit and only chose Pallas over XLA, which compute the same function.
+The filter is differentiable (ROADMAP B.1 item 7): one autograd Function
+whose backward runs autograd of :func:`_bilateral_plain`, as
+``bilateral_pallas``'s custom VJP replays ``_bilateral_xla``
+(polyblur_tpu/ops/pallas/bilateral.py:102-123).
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ def _bilateral_plain(img: torch.Tensor, ksize: int = 5,
     """The arithmetic of the JAX package's ``_bilateral_xla`` in f32 (as
     ``bilateral_pallas`` computes it for any input dtype), cast back to
     the input dtype; the taps are summed in the same order (dy outer, dx
-    inner)."""
+    inner). While autograd records ``img`` the replicate pad is built from
+    expanded edges (``utils.imaging.replicate_pad``), whose backward sums
+    by reductions, not by the atomics of ``F.pad``'s."""
     x = img.float()
     h, w = x.shape[-2:]
     gw = spatial_weights(ksize, sigma_spatial)
@@ -63,16 +69,17 @@ def bilateral_filter(img: torch.Tensor, ksize: int = 5,
                      sigma_color: float = 0.1) -> torch.Tensor:
     """Edge-preserving smoothing of a (B, C, H, W) batch; returns the
     smoothed batch in the input dtype (the kernel on CUDA tensors, its
-    plain version on CPU tensors). Not differentiable yet: with a graph to
-    record it raises on any device."""
-    from .cuda.autograd import TODO_BILATERAL, refuse_graph
+    plain version on CPU tensors), differentiable in ``img``."""
+    from .cuda.autograd import replay
     from .cuda.bilateral import bilateral
     from .cuda.polyblur_fused import TileView
 
     record_dispatch("bilateral_filter", "cuda")
-    refuse_graph("bilateral_filter", TODO_BILATERAL, img)
     if img.dim() != 4:
         raise ValueError(f"bilateral_filter takes (B, C, H, W), got "
                          f"{tuple(img.shape)}")
-    return bilateral(TileView.of_tiles(img.contiguous()), ksize,
-                     sigma_spatial, sigma_color)
+    return replay(
+        lambda t: bilateral(TileView.of_tiles(t.contiguous()), ksize,
+                            sigma_spatial, sigma_color),
+        lambda t: _bilateral_plain(t, ksize, sigma_spatial, sigma_color),
+        img)

@@ -13,6 +13,13 @@ mode is the autograd thread's own (``_build.plain_versions`` is
 thread-local): a forward another thread runs meanwhile launches its
 kernels.
 
+The plain closure need not be the kernel's own function: the tiles and
+canvas Functions with a feature flag replay the scan route on the same
+tiles (``pipeline._ref_pipeline``), as the JAX package's flagged VJPs do.
+Every kernel route of the package is differentiable this way; a bare
+kernel wrapper given a tensor autograd records raises
+(``_build.check_cuda``) rather than cut the graph.
+
 Non-tensor arguments (tile geometry, tables, flags) are carried as
 constants in the two closures. Without a graph to record (grad mode off,
 or no input requiring grad) :func:`replay` calls the kernel closure
@@ -26,28 +33,13 @@ import torch
 
 from ._build import plain_versions
 
-__all__ = ["replay", "records_graph", "refuse_graph", "TODO_BILATERAL",
-           "TODO_IIR", "TODO_FLAGS"]
-
-TODO_BILATERAL = "ROADMAP B.1 item 7 (the bilateral kernel's backward)"
-TODO_IIR = "ROADMAP B.1 item 8 (the IIR kernel's backward)"
-TODO_FLAGS = ("ROADMAP B.1 items 7-8 (the backward of the flag stages: "
-              "prefilter, edgetaper, halo mask)")
+__all__ = ["replay", "records_graph"]
 
 
 def records_graph(*tensors) -> bool:
     """Whether autograd records a graph through these tensors."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
-
-
-def refuse_graph(what: str, todo: str, *tensors) -> None:
-    """Raise ``NotImplementedError`` naming ``todo`` when autograd records
-    a graph through ``tensors``: a route whose backward is not ported
-    neither launches its kernels into a graph nor falls back to plain."""
-    if records_graph(*tensors):
-        raise NotImplementedError(f"{what}: gradients are not ported yet; "
-                                  f"see {todo}")
 
 
 class _Replay(torch.autograd.Function):

@@ -14,7 +14,12 @@ Kernels: ``csrc/iir.cu``.
   its channels and the feedback maps ``v = exp(dH * (-sqrt 2 / sigma_s))``
   of one iteration.
 
-The scans count as ``iir_scan_rows``, the maps as ``dt_coeffs``. The plain
+The scans count as ``iir_scan_rows``, the maps as ``dt_coeffs``. Both scans
+are differentiable in the signal and in ``v`` (ROADMAP B.1 item 8): each is
+an autograd Function (``autograd.replay``) whose backward runs autograd of
+its plain version, as ``_iir_pallas``'s custom VJP replays the associative
+scan (iir.py:110-127). ``dt_coeffs`` serves the tiles route's forward
+only. The plain
 versions run the TPU kernel's algorithm: the Hillis-Steele affine prefix
 and suffix compositions of iir.py:47-73, log2(W) shifted tensor steps. The
 kernels compose in chunks of 32 (a 5-step scan in each, a carry across
@@ -31,6 +36,7 @@ import torch
 
 from ._build import (check, check_cuda, count_launch, dtype_code, library,
                      runs_plain, stream_of)
+from .autograd import records_graph, replay
 from .polyblur_fused import _NULL_VIEW_ARGS, _VIEW_ARGTYPES, TileView
 
 __all__ = ["iir_scan_rows_plain", "scan_rows", "scan_rows_plain",
@@ -90,20 +96,34 @@ def _planes_v(v: torch.Tensor, planes: int, h: int, w: int):
     return v, planes // v.shape[0]
 
 
+def _per_plane(v: torch.Tensor, shape) -> torch.Tensor:
+    """The maps ``v`` repeated for the planes of a (n, C, H, W) ``shape``
+    (``repeat_interleave`` by expansion: its backward sums by reduction,
+    not by the atomics of ``index_select``'s)."""
+    n, c, h, w = shape
+    v, vdiv = _planes_v(v, n * c, h, w)
+    m = v.shape[0]
+    return v[:, None].expand(m, vdiv, h, w).reshape(shape)
+
+
 def scan_rows_plain(view: TileView, v: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`scan_rows`."""
     x = view.tiles().float()
-    n, c, h, w = x.shape
-    v, vdiv = _planes_v(v, n * c, h, w)
-    vx = v.repeat_interleave(vdiv, 0).reshape(x.shape)
-    return iir_scan_rows_plain(x, vx)
+    return iir_scan_rows_plain(x, _per_plane(v, x.shape))
 
 
 def scan_rows(view: TileView, v: torch.Tensor) -> torch.Tensor:
     """The bidirectional IIR along the rows of the (n, C, H, W) tiles of
     ``view`` (f32 or bf16) with feedback maps ``v``: (n C, H, W), or
     (n, H, W) shared by a tile's channels, or anything reshaping to (m, H,
-    W) with m dividing n C. Returns (n, C, H, W) f32."""
+    W) with m dividing n C. Returns (n, C, H, W) f32, differentiable in
+    the tiles and in ``v``."""
+    return replay(lambda d, vv: _scan_rows(view._replace(data=d), vv),
+                  lambda d, vv: scan_rows_plain(view._replace(data=d), vv),
+                  view.data, v)
+
+
+def _scan_rows(view: TileView, v: torch.Tensor) -> torch.Tensor:
     if runs_plain(view.data):
         return scan_rows_plain(view, v)
     check_cuda("iir_scan_rows", view.data, v)
@@ -127,9 +147,7 @@ def scan_cols_plain(x: torch.Tensor, v: torch.Tensor,
                     src: TileView | None = None):
     """Plain version of :func:`scan_cols`: the JAX code's swapaxes, row
     scan, swapaxes (not in place)."""
-    n, c, h, w = x.shape
-    v, vdiv = _planes_v(v, n * c, h, w)
-    vx = v.repeat_interleave(vdiv, 0).reshape(x.shape)
+    vx = _per_plane(v, x.shape)
     out = iir_scan_rows_plain(x.transpose(-1, -2),
                               vx.transpose(-1, -2)).transpose(-1, -2)
     out = out.contiguous()
@@ -141,12 +159,29 @@ def scan_cols_plain(x: torch.Tensor, v: torch.Tensor,
 def scan_cols(x: torch.Tensor, v: torch.Tensor,
               src: TileView | None = None):
     """The bidirectional IIR down the columns of the (n, C, H, W) f32
-    tensor ``x``, in place; ``v`` as for :func:`scan_rows`.
+    tensor ``x``, in place unless autograd records ``x`` (then into a
+    copy); ``v`` as for :func:`scan_rows`. Differentiable in ``x``, ``v``
+    and the tiles of ``src``.
 
     :param src: when given, the (n, C, H, W) tiles the prefilter smoothed;
         then also returns ``noise = src - out`` in f32
-    :returns: out (= x), or (out, noise)
+    :returns: out (on the card without a graph, ``x`` itself), or (out,
+        noise)
     """
+    inputs = (x, v) if src is None else (x, v, src.data)
+    graph = records_graph(*inputs)
+
+    def kernel(t, vv, *d):
+        return _scan_cols(t.clone() if graph else t, vv,
+                          src._replace(data=d[0]) if d else None)
+
+    def plain(t, vv, *d):
+        return scan_cols_plain(t, vv, src._replace(data=d[0]) if d else None)
+
+    return replay(kernel, plain, *inputs)
+
+
+def _scan_cols(x: torch.Tensor, v: torch.Tensor, src: TileView | None):
     if runs_plain(x):
         return scan_cols_plain(x, v, src)
     check_cuda("iir_scan_rows", x, v)

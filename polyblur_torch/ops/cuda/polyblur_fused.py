@@ -22,9 +22,11 @@ tile, at its own (H, W); the canvas mode (:func:`polyblur_image_fused`)
 runs them on the patch engine's tiles, cut from the padded canvas by
 index, for every batch size (the windowed blend is its own kernel and
 Function, ``overlap_add.blend_overlap_add``). Both are differentiable
-(ROADMAP B.1 items 2-4): each is one autograd Function
-(``autograd.replay``) whose backward runs autograd of the same stages'
-plain versions on the saved inputs.
+(ROADMAP B.1 items 2-4, 7-8): each is one autograd Function
+(``autograd.replay``) whose backward runs autograd, on the saved inputs,
+of the same stages' plain versions without a feature flag, and with one
+of ``pipeline._ref_pipeline`` (the scan route on all the tiles as one
+batch), as the JAX package's custom VJPs replay it.
 The ``launch_*`` functions are the launches themselves, counted under the
 caller's name, so that ``fused_polynomial``
 and ``directional_maxima`` (ops/cuda/sep_poly_fused.py, est_fused.py)
@@ -62,7 +64,7 @@ from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
                       _ydft_mats_np)
 from ._build import (check, check_cuda, count_launch, dtype_code, library,
                      runs_plain, stream_of)
-from .autograd import TODO_FLAGS, records_graph, refuse_graph, replay
+from .autograd import records_graph, replay
 
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "stage_tables", "tile_estimate", "tile_estimate_plain",
@@ -679,11 +681,6 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
 
 # ------------------------------------------------------------- tiles mode
 
-def _refuse_flags(name: str, flags: dict, *tensors) -> None:
-    if flags["do_taper"] or flags["do_halo"] or flags["prefilter"]:
-        refuse_graph(f"{name} with feature flags", TODO_FLAGS, *tensors)
-
-
 def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
                          n_iter: int, do_taper: bool = False,
                          do_halo: bool = False,
@@ -695,25 +692,29 @@ def polyblur_tiles_fused(x: torch.Tensor, coeffs: torch.Tensor,
     as the per-tile stages above at the tiles' own shape, 9 launches per
     iteration without the feature flags (see ``pipeline.restore_tiles``).
 
-    Differentiable in ``x`` and ``coeffs`` (ROADMAP B.1 item 4, the custom
-    VJP at polyblur_fused.py:896-946): the kernels forward, autograd of
-    the same stages' plain versions backward. With a feature flag on,
-    recording a graph raises (B.1 items 7-8).
+    Differentiable in ``x`` and ``coeffs`` (ROADMAP B.1 items 4, 7-8, the
+    custom VJP at polyblur_fused.py:896-946): the kernels forward;
+    backward, autograd of the same stages' plain versions without a flag,
+    and with one of ``pipeline._ref_pipeline`` on ``x`` (the scan route,
+    whose taper normalizes over the whole batch where the kernels'
+    normalizes per tile), as the JAX package's VJP replays.
 
     :param coeffs: (8,) f32 from ``pipeline._mega_pack``
     :param do_taper, do_halo, prefilter: the feature flags (prefilter in
         {None, 'bilateral', 'dt'})
     """
-    from ...pipeline import restore_tiles
+    from ...pipeline import _ref_pipeline, restore_tiles
 
     flags = dict(do_taper=do_taper, do_halo=do_halo, prefilter=prefilter)
-    _refuse_flags("polyblur_tiles_fused", flags, x, coeffs)
 
     def run(t, co):
         return restore_tiles(TileView.of_tiles(t.contiguous()), co, n_iter,
                              **flags)
 
-    return replay(run, run, x, coeffs)
+    def ref(t, co):
+        return _ref_pipeline(t, co, n_iter, **flags)
+
+    return replay(run, ref if any(flags.values()) else run, x, coeffs)
 
 
 # ------------------------------------------------------- canvas (patch) modes
@@ -743,6 +744,19 @@ def _restore_canvas(canvas: torch.Tensor, coeffs: torch.Tensor, n_iter: int,
     return torch.cat(parts) if graph else state
 
 
+def _ref_image_pipeline(canvas: torch.Tensor, coeffs: torch.Tensor,
+                        n_iter: int, grid_info, flags: dict) -> torch.Tensor:
+    """``pipeline._ref_pipeline`` on every grid tile of the canvas, cut as
+    one (th tw B, C, ph, pw) batch, tile-major (polyblur_fused.py:861-870),
+    whatever the forward's ``chunk``."""
+    from ...pipeline import _ref_pipeline
+
+    th, tw, sh, sw, ph, pw = grid_info
+    b = canvas.shape[0]
+    tiles = TileView(canvas, b, 0, th * tw * b, tw, (sh, sw), (ph, pw))
+    return _ref_pipeline(tiles.tiles(), coeffs, n_iter, **flags)
+
+
 def polyblur_image_fused(canvas: torch.Tensor, coeffs: torch.Tensor,
                          n_iter: int, grid_info, chunk=None,
                          do_taper: bool = False, do_halo: bool = False,
@@ -756,17 +770,21 @@ def polyblur_image_fused(canvas: torch.Tensor, coeffs: torch.Tensor,
     :returns: the (th tw B, C, ph, pw) restored tiles, tile-major, in the
         canvas dtype
 
-    Differentiable in ``canvas`` and ``coeffs`` (ROADMAP B.1 items 2 and
-    3, the custom VJPs at polyblur_fused.py:792-845 and :848-893), as
-    :func:`polyblur_tiles_fused`. The JAX package's blend mode (item 2)
-    fuses the windowed blend into its kernel and so has a VJP of its own;
-    here the blend is a separate kernel on every batch size, and one image
-    takes this Function followed by ``overlap_add.blend_overlap_add``'s.
+    Differentiable in ``canvas`` and ``coeffs`` (ROADMAP B.1 items 2-3,
+    7-8, the custom VJPs at polyblur_fused.py:792-845 and :848-893), as
+    :func:`polyblur_tiles_fused`; with a flag on the backward replays the
+    scan route on all grid tiles as one batch (:func:`_ref_image_pipeline`).
+    The JAX package's blend mode (item 2) fuses the windowed blend into its
+    kernel and so has a VJP of its own; here the blend is a separate kernel
+    on every batch size, and one image takes this Function followed by
+    ``overlap_add.blend_overlap_add``'s.
     """
     flags = dict(do_taper=do_taper, do_halo=do_halo, prefilter=prefilter)
-    _refuse_flags("polyblur_image_fused", flags, canvas, coeffs)
 
     def run(cv, co):
         return _restore_canvas(cv, co, n_iter, grid_info, chunk, flags)
 
-    return replay(run, run, canvas, coeffs)
+    def ref(cv, co):
+        return _ref_image_pipeline(cv, co, n_iter, grid_info, flags)
+
+    return replay(run, ref if any(flags.values()) else run, canvas, coeffs)

@@ -11,6 +11,12 @@ derivatives stay in the (B, H, W) layout here. The JAX package's
 ``IIR_MAX_EDGE`` was a TPU VMEM limit; the kernels serve every size. The
 normalized-convolution variant (``smoother='nc'``, no TPU kernel) is not
 ported yet (ROADMAP A.8).
+
+Differentiable in the image, the joint image and ``sigma_s`` / ``sigma_r``
+(Python numbers or 0-d tensors, kept in the graph as the JAX package keeps
+its traced sigmas): the scans are autograd Functions whose backward
+replays their plain versions (the counterpart of ``_iir_pallas``'s VJP,
+polyblur_tpu/ops/pallas/iir.py:110-127).
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ import math
 import torch
 
 from ..utils.profiling import record_dispatch
-from .cuda.autograd import TODO_IIR, refuse_graph
 from .cuda.iir import scan_cols, scan_rows
 from .cuda.polyblur_fused import TileView
 
@@ -46,8 +51,15 @@ def iir_scan_rows(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return scan_rows(TileView.of_tiles(x4), v3).reshape(shape).to(x.dtype)
 
 
-def _domain_transform_derivatives(J: torch.Tensor, sigma_s: float,
-                                  sigma_r: float):
+def _f32(v) -> torch.Tensor:
+    """A Python number as a 0-d f32 tensor; a tensor cast to f32, in the
+    graph."""
+    if isinstance(v, torch.Tensor):
+        return v.float()
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _domain_transform_derivatives(J: torch.Tensor, sigma_s, sigma_r):
     """(dHdx, dVdy), each (B, H, W), from the joint image
     (domain_transform.py:27-38). Unlike the JAX package, dVdy is not
     transposed: the column pass reads it as it is."""
@@ -56,20 +68,21 @@ def _domain_transform_derivatives(J: torch.Tensor, sigma_s: float,
     didy = torch.abs(torch.diff(J, dim=-2)).sum(1)          # (B, H-1, W)
     didy = torch.nn.functional.pad(didy, (0, 0, 1, 0))
     # in f32, as the JAX pipeline divides its traced sigmas
-    ratio = (torch.tensor(sigma_s, dtype=torch.float32)
-             / torch.tensor(sigma_r, dtype=torch.float32))
+    ratio = _f32(sigma_s) / _f32(sigma_r)
     return 1.0 + ratio * didx, 1.0 + ratio * didy
 
 
-def _sigma_schedule(sigma_s: float, num_iterations: int):
-    """Per-iteration sigma_H_i (Gastal eq. 14; domain_transform.py:50)."""
+def _sigma_schedule(sigma_s, num_iterations: int):
+    """Per-iteration sigma_H_i (Gastal eq. 14; domain_transform.py:50):
+    Python numbers for a Python sigma_s, f32 tensors in the graph for a
+    tensor one."""
     n = num_iterations
     return [sigma_s * math.sqrt(3.0) * 2.0 ** (n - (i + 1))
             / math.sqrt(4.0 ** n - 1.0) for i in range(n)]
 
 
-def recursive_filter(img: torch.Tensor, sigma_s: float = 60.0,
-                     sigma_r: float = 0.4, num_iterations: int = 3,
+def recursive_filter(img: torch.Tensor, sigma_s=60.0, sigma_r=0.4,
+                     num_iterations: int = 3,
                      joint_image=None) -> torch.Tensor:
     """Edge-aware recursive smoothing (RF variant) of a (B, C, H, W)
     batch, guided by ``joint_image`` (default: the image itself).
@@ -77,18 +90,14 @@ def recursive_filter(img: torch.Tensor, sigma_s: float = 60.0,
     Per iteration i the feedback ``a_i = exp(-sqrt 2 / sigma_H_i)`` is
     raised to the domain-transform derivatives, ``V = a_i ** dHdx`` along
     the rows and ``a_i ** dVdy`` down the columns, shared by the channels.
-    Not differentiable yet: with a graph to record it raises on any device.
+    ``sigma_s`` and ``sigma_r`` are Python numbers or 0-d tensors.
     """
     record_dispatch("recursive_filter", "cuda")
-    refuse_graph("recursive_filter", TODO_IIR, img, joint_image)
     J = img if joint_image is None else joint_image
-    dhdx, dvdy = _domain_transform_derivatives(J.float(), float(sigma_s),
-                                               float(sigma_r))
+    dhdx, dvdy = _domain_transform_derivatives(J.float(), sigma_s, sigma_r)
     F = img
-    for sigma_h in _sigma_schedule(float(sigma_s), num_iterations):
-        a = torch.exp(-math.sqrt(2.0) / torch.tensor(sigma_h,
-                                                     dtype=torch.float32))
-        a = a.to(img.device)
+    for sigma_h in _sigma_schedule(sigma_s, num_iterations):
+        a = torch.exp(-math.sqrt(2.0) / _f32(sigma_h)).to(img.device)
         # pow in float64 (see ops.sep_poly.gaussian_taps)
         v_h = (a.double() ** dhdx.double()).float()
         v_v = (a.double() ** dvdy.double()).float()

@@ -62,12 +62,21 @@ def p2o(psf: torch.Tensor, shape) -> torch.Tensor:
 def fft_convolve2d(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Circular 'same' convolution in the Fourier domain: wrap-pad by half
     the kernel support, multiply by the OTF, crop. ``kernel`` is
-    (B, C, h, w) or (B, 1, h, w) and broadcasts over channels."""
+    (B, C, h, w) or (B, 1, h, w) and broadcasts over channels. The wrap
+    pad is an index gather; while autograd records ``img`` and it is at
+    least half the support on each side, it is concatenated slices
+    instead (their backward sums by reduction, not by the atomics of
+    ``index_select``'s)."""
     ks = kernel.shape[-1] // 2
     hh, ww = img.shape[-2:]
-    rows = torch.arange(-ks, hh + ks, device=img.device) % hh
-    cols = torch.arange(-ks, ww + ks, device=img.device) % ww
-    x = img.index_select(-2, rows).index_select(-1, cols)
+    if (torch.is_grad_enabled() and img.requires_grad
+            and 0 < ks <= min(hh, ww)):
+        x = torch.cat([img[..., -ks:, :], img, img[..., :ks, :]], -2)
+        x = torch.cat([x[..., -ks:], x, x[..., :ks]], -1)
+    else:
+        rows = torch.arange(-ks, hh + ks, device=img.device) % hh
+        cols = torch.arange(-ks, ww + ks, device=img.device) % ww
+        x = img.index_select(-2, rows).index_select(-1, cols)
     K = p2o(kernel, x.shape[-2:])
     y = torch.fft.ifft2(K * torch.fft.fft2(x.float())).real
     return y[..., ks:-ks, ks:-ks].to(img.dtype)

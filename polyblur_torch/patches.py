@@ -17,11 +17,15 @@ edge (``pipeline.mega_tile_cap``), take the composed route of the JAX
 package (patches.py:479-500): extract the tiles, run
 ``pipeline.polyblur_core`` on them, blend.
 
-Both routes are differentiable in the image and in (c, b, alpha, beta).
-The staged route is a chain of three autograd Functions mirroring the
-JAX package's custom VJPs: ``edge_pad_cast``, ``polyblur_image_fused``
-and ``blend_overlap_add``, for every batch size; each runs its kernels
-forward and autograd of its plain versions backward.
+Both routes are differentiable in the image and in (c, b, alpha, beta),
+with every feature flag. The staged route is a chain of three autograd
+Functions mirroring the JAX package's custom VJPs: ``edge_pad_cast``,
+``polyblur_image_fused`` and ``blend_overlap_add``, for every batch
+size; each runs its kernels forward and autograd of its plain versions
+backward, except that with a flag on ``polyblur_image_fused``'s
+backward replays the scan route on all the grid tiles as one batch (its
+taper normalized by the batch-global maximum), as the JAX package's
+flagged VJPs do.
 """
 
 from __future__ import annotations
@@ -211,8 +215,9 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         ``method='direct_separable'`` takes the staged route; ``'fft'``,
         the default as in the JAX package, ``remat=True`` (and the feature
         flags on tiles past ``mega_tile_cap``) the composed one. ``c, b,
-        alpha, beta`` may be 0-d tensors: the result is differentiable in
-        them and in ``images``.
+        alpha, beta`` (and ``sigma_s``, ``sigma_r``) may be 0-d tensors:
+        the result is differentiable in them and in ``images``, flags
+        included.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
     dev = resolve_device(device)

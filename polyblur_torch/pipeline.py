@@ -29,15 +29,20 @@ only for the DFT operands and the stored state).
 The routes do not depend on the device: a CPU tensor runs every kernel's
 plain version along the route the card would take.
 
-Both routes are differentiable in the image and in (c, b, alpha, beta):
-the tiles route through one autograd Function
-(``ops.cuda.polyblur_fused.polyblur_tiles_fused``: its kernels forward,
-autograd of :func:`restore_tiles`' plain versions backward), the scan
-route through the Functions of its kernels and plain PyTorch. As in the
-JAX package, ``remat=True`` refuses the tiles route, sends the scan
-route's polynomial down the plain composition (``prefer_xla``) and
-checkpoints each iteration (``torch.utils.checkpoint``, the counterpart
-of ``jax.checkpoint`` on the scan body, polyblur_tpu/pipeline.py:232-264).
+Both routes are differentiable in the image and in (c, b, alpha, beta),
+with every feature flag: the tiles route through one autograd Function
+(``ops.cuda.polyblur_fused.polyblur_tiles_fused``: its kernels forward;
+backward, autograd of :func:`restore_tiles`' plain versions without a
+flag, and with one of :func:`_ref_pipeline`, the scan route on the same
+tiles, as the JAX package's custom VJPs replay it), the scan route
+through the Functions of its kernels (the bilateral filter and the IIR
+scans among them) and plain PyTorch, also in ``sigma_s`` / ``sigma_r``.
+Its clips follow ``jnp.clip``'s tie rule while a graph is recorded
+(``utils.imaging.clip_as_jax``). As in the JAX package, ``remat=True``
+refuses the tiles route, sends the scan route's polynomial down the plain
+composition (``prefer_xla``) and checkpoints each iteration
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
+scan body, polyblur_tpu/pipeline.py:232-264).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from .envelopes import MEGA_MAX_TILE, MEGA_MAX_TILE_DT
 from .estimation import gaussian_blur_estimation
 from .ops.bilateral import bilateral_filter
 from .ops.cuda._build import plain_mode, plain_versions
-from .ops.cuda.autograd import TODO_FLAGS, records_graph, refuse_graph
+from .ops.cuda.autograd import records_graph
 from .ops.cuda.bilateral import bilateral
 from .ops.cuda.features import halo_grads, halo_mask, taper_weights
 from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
@@ -63,10 +68,12 @@ from .ops.domain_transform import _TODO_NC, recursive_filter
 from .ops.fourier import spectral_gradients
 from .ops.sep_poly import f32_vector
 from .restoration import inverse_filtering_rank3, polynomial_coefficients
+from .utils.imaging import clip_as_jax
 from .utils.profiling import record_dispatch
 
-__all__ = ["restore_tiles", "_mega_pack", "polyblur_core", "mega_tile_cap",
-           "resolve_device", "edge_aware_filtering", "prefilter_of"]
+__all__ = ["restore_tiles", "_mega_pack", "_ref_pipeline", "polyblur_core",
+           "mega_tile_cap", "resolve_device", "edge_aware_filtering",
+           "prefilter_of"]
 
 _N_TAPERS = 3
 
@@ -154,9 +161,11 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
     :returns: the restored (N, C, ph, pw) tiles in the work dtype
 
     While autograd records a graph through the tiles or ``coeffs`` (the
-    plain replay of the tiles-level Functions) every iteration writes a
-    new tensor: no write lands in a tensor the graph has read, and ``out``
-    must be None.
+    plain replay of the tiles-level Functions without a flag) every
+    iteration writes a new tensor: no write lands in a tensor the graph
+    has read, and ``out`` must be None. With a flag on, the tiles-level
+    Functions run this only forward: their backward replays the scan
+    route (:func:`_ref_pipeline`), so the flag stages need no graph.
     """
     if prefilter not in (None, "bilateral", "dt"):
         raise ValueError(f"unknown tiles-route prefilter {prefilter!r}")
@@ -164,9 +173,6 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
     ph, pw = view.patch
     data = view.data
     graph = records_graph(data, coeffs)
-    if do_taper or do_halo or prefilter:
-        refuse_graph("restore_tiles with feature flags", TODO_FLAGS, data,
-                     coeffs)
     if n_iter < 1:
         if out is None:
             return view.tiles().clone()
@@ -185,6 +191,30 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
                                  do_taper, grads, prefilter)
         src = TileView.of_tiles(res)
     return res
+
+
+def _ref_pipeline(tiles: torch.Tensor, coeffs: torch.Tensor, n_iter: int,
+                  do_taper: bool = False, do_halo: bool = False,
+                  prefilter=None) -> torch.Tensor:
+    """The scan route on a tile batch, with the feature flags of the tiles
+    route: what the tiles-level Functions' backward replays with a flag on
+    (polyblur_tpu/ops/pallas/polyblur_fused.py:912-929). ``polyblur_core``
+    with ``method='direct_separable'`` and the tiles route disabled, on the
+    tiles' device and dtype, all tiles as one batch: the edgetaper then
+    divides by the batch-global maximum (``edgetaper.py``), where the
+    kernels' forward divides per tile, as in the JAX package. alpha comes
+    back from the Horner coefficients, ``2 (a3 + beta - 2)``; (c, b,
+    sigma_s, sigma_r) are ``coeffs[4:8]``, in the graph."""
+    a3, beta = coeffs[0], coeffs[3]
+    smoother = "domain_transform" if prefilter == "dt" else "bilateral"
+    return polyblur_core(tiles, n_iter=n_iter, c=coeffs[4], b=coeffs[5],
+                         alpha=2.0 * (a3 + beta - 2.0), beta=beta,
+                         sigma_s=coeffs[6], sigma_r=coeffs[7],
+                         method="direct_separable", edgetaping=do_taper,
+                         remove_halo=do_halo,
+                         prefiltering=prefilter is not None,
+                         smoother=smoother, _disable_mega=True,
+                         device=tiles.device)
 
 
 def _same_mode():
@@ -270,8 +300,9 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
     :param img: (B, C, H, W) tensor or array in [0, 1], moved to ``device``
         (default ``"cuda"``; raises without a card — pass ``"cpu"`` for
         the plain PyTorch path)
-    :param c, b, alpha, beta: Python numbers or 0-d tensors; the result is
-        differentiable in them and in ``img``
+    :param c, b, alpha, beta, sigma_s, sigma_r: Python numbers or 0-d
+        tensors; the result is differentiable in them and in ``img``
+        (in ``sigma_s`` / ``sigma_r`` through the domain transform)
     :param remat: checkpoint each iteration of the scan route (its
         activations are recomputed in the backward), with the polynomial
         on the plain composition and the tiles route refused, as the JAX
@@ -316,10 +347,10 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
             ker_size=ker_size, prefer_xla=remat)
         if noise is not None:
             restored = restored + noise
-        # inverse_filtering_rank3 clamps to [0, 1] on every route (the
+        # inverse_filtering_rank3 clips to [0, 1] on every route (the
         # separable route inside its kernel); the noise and the features
         # take one more clip (pipeline.py:254-258)
-        return restored.clamp(0.0, 1.0) if features else restored
+        return clip_as_jax(restored) if features else restored
 
     impred = x
     for _ in range(int(n_iter)):

@@ -22,7 +22,7 @@ import torch
 from . import edgetaper as _edgetaper
 from .ops.fourier import p2o, spectral_gradients
 from .ops.sep_poly import compute_polynomial_separable
-from .utils.imaging import crop_with_kernel, pad_with_kernel
+from .utils.imaging import clip_as_jax, crop_with_kernel, pad_with_kernel
 from .utils.profiling import record_dispatch
 
 __all__ = ["polynomial_coefficients", "compute_polynomial",
@@ -81,7 +81,9 @@ def halo_masking(img: torch.Tensor, imout: torch.Tensor,
     ``M = -<grad u, grad u_hat>`` per pixel, ``nM = sum ||grad u||^2``,
     ``z = clip(M / (nM + M), 0)``, ``out = z u + (1 - z) u_hat``
     (deblurring.py:193-208 with the grad_prod_ bug fixed; the 1e-12 guard
-    keeps constant images finite)."""
+    keeps constant images finite). The clip follows ``jnp.clip``'s tie
+    rule (``utils.imaging.clip_as_jax``): ``z`` is exactly 0 wherever
+    ``M`` is, in every flat region and replicate border."""
     if grad_img is None:
         grad_x, grad_y = spectral_gradients(img)
     else:
@@ -90,7 +92,7 @@ def halo_masking(img: torch.Tensor, imout: torch.Tensor,
     m = (-grad_x * gout_x) + (-grad_y * gout_y)
     nm = torch.sum(grad_x * grad_x + grad_y * grad_y, dim=(-2, -1),
                    keepdim=True)
-    z = torch.clamp(m / (nm + m + 1e-12), min=0.0)
+    z = clip_as_jax(m / (nm + m + 1e-12), 0.0, None)
     return imout + z * (img - imout)
 
 
@@ -104,7 +106,8 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
     """One polynomial deconvolution step (deblurring.py:211-239):
     replicate-pad by half the kernel support, optionally edgetaper, apply
     p(K), crop back, optionally mask halos against the (tapered) padded
-    image cropped back, clamp to [0, 1]. ``ker_size`` sets the support of
+    image cropped back, clip to [0, 1] (``jnp.clip``'s tie rule, as the
+    halo's). ``ker_size`` sets the support of
     parametric ``(sigma, rho, theta)`` kernels; 2D kernels carry their
     own. ``grad_img`` is the halo mask's input gradients (computed from
     ``img`` when None). ``prefer_xla`` sends the separable route's
@@ -125,7 +128,7 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
                                                  alpha, beta, prepad=True,
                                                  ker_size=ksize,
                                                  prefer_xla=prefer_xla)
-            return halo_masking(img, imout, grad_img).clamp(0.0, 1.0)
+            return clip_as_jax(halo_masking(img, imout, grad_img))
         return compute_polynomial_separable(img, sigma, rho, theta, alpha,
                                             beta, prepad=True, clip=True,
                                             ker_size=ksize,
@@ -142,4 +145,4 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
     if remove_halo:
         imout = halo_masking(crop_with_kernel(padded, ksize=ksize), imout,
                              grad_img)
-    return imout.clamp(0.0, 1.0)
+    return clip_as_jax(imout)

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 __all__ = ["to_tensor", "to_array", "build_window_np", "crop",
-           "pad_with_kernel", "crop_with_kernel"]
+           "pad_with_kernel", "crop_with_kernel", "replicate_pad",
+           "clip_as_jax"]
 
 
 def to_tensor(x: np.ndarray, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -63,6 +64,21 @@ def replicate_pad(x: torch.Tensor, pads) -> torch.Tensor:
     hp = h + pt + pb
     return torch.cat([x[..., :1].expand(*lead, hp, pl), x,
                       x[..., w - 1:].expand(*lead, hp, pr)], -1)
+
+
+def clip_as_jax(x: torch.Tensor, lo: float = 0.0,
+                hi: float | None = 1.0) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``. While autograd records ``x`` it is
+    ``minimum(maximum(x, lo), hi)``, as ``jnp.clip`` is built: a value on
+    a bound takes half the gradient there (``maximum`` / ``minimum`` split
+    ties in both packages), where ``clamp`` passes all of it. Such ties
+    are common, not rare: a clipped value is exactly the bound, and a
+    ratio clipped at 0 is 0 wherever its numerator is. Otherwise it is
+    ``clamp``'s one pass (the same values)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x.clamp(lo, hi)
+    x = torch.maximum(x, x.new_full((), lo))
+    return x if hi is None else torch.minimum(x, x.new_full((), hi))
 
 
 def pad_with_kernel(img: torch.Tensor, kernel=None, ksize: int = 3,

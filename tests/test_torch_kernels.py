@@ -18,10 +18,11 @@ XLA reference the Pallas kernel is held to):
                     True)`` for C = 1 and C = 3, atol 1e-5.
 
 CUDA (``test_cuda_*``, skipped without a card): each kernel against its
-plain version on the card; each autograd Function (ROADMAP B.1 items 1-6
-and the blend) against autograd of its plain version, the refusal of a
-graph through a route without a backward, and the launches of grad-free
-calls. They import no JAX, so on a machine without it
+plain version on the card; each autograd Function (ROADMAP B.1 items 1-8
+and the blend) against autograd of its plain version (the flagged tiles
+and canvas Functions against autograd of the scan route they replay),
+the flagged routes' finite gradients, the refusal of a graph through a
+bare kernel wrapper, and the launches of grad-free calls. They import no JAX, so on a machine without it
 they run with ``python -m pytest --noconftest tests/test_torch_kernels.py
 -k cuda``.
 """
@@ -1075,19 +1076,62 @@ def test_cuda_forward_on_another_thread_launches_during_a_backward(
     assert seen == {"launched": 1, "equal": True}
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_flag_functions_backward_match_plain_autograd(cuda_dev, dt):
+    """ROADMAP B.1 items 7-8: the bilateral Function, the two IIR
+    Functions, and the flagged tiles and canvas Functions (their backward
+    replays the scan route on all their tiles as one batch,
+    ``pipeline._ref_pipeline``) against autograd of those plain versions:
+    bit-equal, the forward launching and the backward not."""
+    from polyblur_torch.ops.bilateral import _bilateral_plain, bilateral_filter
+    from polyblur_torch.ops.cuda.iir import (scan_cols, scan_cols_plain,
+                                             scan_rows, scan_rows_plain)
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        _ref_image_pipeline, polyblur_image_fused)
+    from polyblur_torch.pipeline import _ref_pipeline
+
+    img = _photo(cuda_dev, 300, 420)
+    x = img.to(dt)
+    v = torch.rand((1, 300, 420), device=cuda_dev) * 0.8 + 0.1
+    _function_vs_plain_cuda(bilateral_filter,
+                            lambda t: _bilateral_plain(t, 5, 5.0, 0.1), (x,))
+    _function_vs_plain_cuda(
+        lambda t, vv: scan_rows(TileView.of_tiles(t), vv),
+        lambda t, vv: scan_rows_plain(TileView.of_tiles(t), vv), (x, v))
+    _function_vs_plain_cuda(scan_cols, scan_cols_plain, (img, v))
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    grid = plan_patch_grid(300, 420, 160, 32.0 / 160.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    gi = (th, tw, sh, sw, 160, 160)
+    canvas = edge_pad_cast_plain(img, grid.orig_size, grid.pad, dt)
+    for flags in (dict(do_taper=True, do_halo=True, prefilter="dt"),
+                  dict(do_taper=True, do_halo=True, prefilter="bilateral")):
+        _function_vs_plain_cuda(
+            lambda t, co: polyblur_tiles_fused(t, co, 2, **flags),
+            lambda t, co: _ref_pipeline(t, co, 2, **flags),
+            (x[..., :97, :141].contiguous(), coeffs))
+        _function_vs_plain_cuda(
+            lambda cv, co: polyblur_image_fused(cv, co, 2, gi, **flags),
+            lambda cv, co: _ref_image_pipeline(cv, co, 2, gi, flags),
+            (canvas, coeffs))
+
+
 def test_cuda_graph_through_a_route_without_backward_raises(cuda_dev):
-    """A flagged route with grad raises NotImplementedError naming B.1
-    items 7-8; a bare kernel wrapper given a tensor autograd records
-    raises rather than cutting the graph."""
+    """The flagged routes train: the tiles route with the taper and the
+    scan route with the bilateral prefilter return finite gradients, and
+    the backward launches no kernel; a bare kernel wrapper given a tensor
+    autograd records raises rather than cutting the graph."""
     from polyblur_torch.pipeline import polyblur_core
 
     x = _photo(cuda_dev, 96, 128).requires_grad_()
-    with pytest.raises(NotImplementedError, match="B.1 items 7-8"):
-        polyblur_core(x, n_iter=1, edgetaping=True,
-                      method="direct_separable", device=cuda_dev)
-    with pytest.raises(NotImplementedError, match="B.1 item 7"):
-        polyblur_core(x, n_iter=2, prefiltering=True, _disable_mega=True,
-                      method="direct_separable", device=cuda_dev)
+    for kw in (dict(n_iter=1, edgetaping=True),
+               dict(n_iter=2, prefiltering=True, _disable_mega=True)):
+        out = polyblur_core(x, method="direct_separable", device=cuda_dev,
+                            **kw)
+        pcuda.reset_launches()
+        (g,) = torch.autograd.grad(out.square().mean(), x)
+        assert dict(pcuda.launches) == {}
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
     with pytest.raises(RuntimeError, match="no backward"):
         tile_estimate(TileView.of_tiles(x), _mega_pack(*COEFFS,
                                                        device=cuda_dev))
@@ -1123,3 +1167,40 @@ def test_cuda_grad_free_calls_launch_as_before(cuda_dev):
     pcuda.reset_launches()
     out.square().mean().backward()
     assert dict(pcuda.launches) == {} and xg.grad is not None
+
+
+@pytest.mark.parametrize("prefilter", ["dt", "bilateral"])
+def test_cuda_grad_free_flagged_calls_launch_as_before(cuda_dev, prefilter):
+    """With every flag the staged patch route launches the same kernels
+    without grad, under no_grad with an input that requires grad, and in
+    the forward of a recorded step (its Functions' forward is the kernels'
+    route); the backward, the scan route's plain replay, launches none."""
+    from polyblur_torch.patches import deblur_patches
+
+    img = _photo(cuda_dev, 300, 420)
+    kw = dict(patch_size=160, overlap=32.0 / 160.0, n_iter=2,
+              method="direct_separable", work_dtype=torch.bfloat16,
+              out_dtype=torch.float32, device=cuda_dev, edgetaping=True,
+              remove_halo=True, prefiltering=True,
+              smoother="domain_transform" if prefilter == "dt"
+              else "bilateral")
+
+    def counted(x, grad=True):
+        pcuda.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = deblur_patches(x, **kw)
+        return out, dict(pcuda.launches)
+
+    ref, want = counted(img)
+    assert want[prefilter if prefilter == "bilateral" else "dt_coeffs"] == 2
+    assert want["taper"] == 2 and want["halo"] == 3
+    xg = img.clone().requires_grad_()
+    out, n = counted(xg, grad=False)
+    assert n == want and torch.equal(out, ref)
+    out, n = counted(xg)
+    assert n == want and out.grad_fn is not None and torch.equal(
+        out.detach(), ref)
+    pcuda.reset_launches()
+    out.square().mean().backward()
+    assert dict(pcuda.launches) == {}
+    assert bool(torch.isfinite(xg.grad).all())

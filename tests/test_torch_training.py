@@ -27,17 +27,27 @@ bounds in both packages (``estimation.normalize_range``); with
 ``clamp``'s whole gradient the darkest and brightest pixels put the
 separable scan route at 41-46 dB.
 
+The feature flags (prefilter with either smoother, edgetaper, halo) on
+every route: the tiles and canvas Functions, whose backward replays the
+scan route on their tiles as one batch (``pipeline._ref_pipeline``), as
+the JAX package's custom VJPs do; the scan route through the bilateral
+and IIR Functions and, for the domain transform, in ``sigma_s`` /
+``sigma_r``; ``remat`` with the flags. Each flag case's tolerance and
+measured error are in its test.
+
 Also: each Function's backward against autograd of its plain version
-(bit-equal on the CPU), the refusal of the routes whose backward is not
-ported, ``fit_layer`` on the blurred-binary-image problem of the JAX
-package's training test, the JSON params in both directions, and the
-``torch.save`` checkpoint with Adam state.
+(bit-equal on the CPU), the bilateral and IIR Functions against
+``jax.grad`` of the JAX package's XLA compositions, ``fit_layer`` on the
+blurred-binary-image problem of the JAX package's training test, the JSON
+params in both directions, and the ``torch.save`` checkpoint with Adam
+state.
 
 Inputs are crops of the peacock photo (a defocused photo: its estimated
 blurs stay inside the model's clamps, so the gradients with respect to c
 and b are not zero) and seeded noise.
 """
 
+import contextlib
 import math
 import os
 
@@ -59,14 +69,20 @@ from polyblur_torch.ops.cuda.overlap_add import (blend_overlap_add,
                                                  blend_overlap_add_plain)
 from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast, edge_pad_cast_plain
 from polyblur_torch.ops.cuda import _build
-from polyblur_torch.ops.cuda.polyblur_fused import (_restore_canvas,
+from polyblur_torch.ops.bilateral import _bilateral_plain, bilateral_filter
+from polyblur_torch.ops.cuda.iir import (scan_cols, scan_cols_plain,
+                                         scan_rows, scan_rows_plain)
+from polyblur_torch.ops.cuda.polyblur_fused import (TileView,
+                                                    _ref_image_pipeline,
+                                                    _restore_canvas,
                                                     polyblur_image_fused,
                                                     polyblur_tiles_fused)
 from polyblur_torch.ops.cuda.sep_poly_fused import (fused_polynomial,
                                                     fused_polynomial_plain)
 from polyblur_torch.patches import (_blend_constants, _grid_steps,
                                     deblur_patches, plan_patch_grid)
-from polyblur_torch.pipeline import _mega_pack, polyblur_core, restore_tiles
+from polyblur_torch.pipeline import (_mega_pack, _ref_pipeline,
+                                     polyblur_core, restore_tiles)
 from polyblur_torch.utils.profiling import dispatch_log, reset_dispatch_log
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -107,23 +123,25 @@ def _grad_db(got, want) -> float:
                              / max(mse, 1e-300))
 
 
-def _torch_grads(fn, x, tgt):
-    """(loss, d loss / d image, d loss / d (c, b, alpha, beta)) of the
-    mean squared error of ``fn(x, c, b, alpha, beta)`` against ``tgt``."""
+def _torch_grads(fn, x, tgt, scalars=SCALARS):
+    """(loss, d loss / d image, d loss / d scalars) of the mean squared
+    error of ``fn(x, *scalars)`` (c, b, alpha, beta[, sigma_s, sigma_r])
+    against ``tgt``; a scalar the route does not read, as sigma_s under
+    the bilateral smoother, gets 0."""
     xt = torch.tensor(x, requires_grad=True)
-    ps = [torch.tensor(v, requires_grad=True) for v in SCALARS]
+    ps = [torch.tensor(v, requires_grad=True) for v in scalars]
     loss = ((fn(xt, *ps) - torch.as_tensor(tgt)) ** 2).mean()
-    g = torch.autograd.grad(loss, [xt] + ps)
+    g = torch.autograd.grad(loss, [xt] + ps, allow_unused=True)
     return (float(loss.detach()), g[0].numpy(),
-            np.array([float(v) for v in g[1:]]))
+            np.array([0.0 if v is None else float(v) for v in g[1:]]))
 
 
-def _jax_grads(fn, x, tgt):
+def _jax_grads(fn, x, tgt, scalars=SCALARS):
     def loss(xx, ps):
         return jnp.mean((fn(xx, *ps) - jnp.asarray(tgt)) ** 2)
 
     val, (gx, gp) = jax.value_and_grad(loss, argnums=(0, 1))(
-        jnp.asarray(x), tuple(jnp.float32(v) for v in SCALARS))
+        jnp.asarray(x), tuple(jnp.float32(v) for v in scalars))
     return float(val), np.asarray(gx), np.array([float(v) for v in gp])
 
 
@@ -270,9 +288,11 @@ def _cotangent(shape, seed=11):
         size=shape).astype(np.float32))
 
 
-def _function_vs_plain(fn, plain, *inputs):
+def _function_vs_plain(fn, plain, *inputs, same_forward=True):
     """Gradients of ``fn`` (through its Function) and of ``plain``
-    (native autograd) under the same seeded cotangent: equal bits."""
+    (native autograd) under the same seeded cotangent: equal bits; the
+    outputs too, unless the Function's forward computes another function
+    than the one its backward replays (``same_forward=False``)."""
     def grads(f):
         xs = [t.detach().clone().requires_grad_(t.is_floating_point())
               for t in inputs]
@@ -284,15 +304,17 @@ def _function_vs_plain(fn, plain, *inputs):
     out_f, g_f = grads(fn)
     out_p, g_p = grads(plain)
     assert out_f.grad_fn.name() == "_ReplayBackward"
-    assert torch.equal(out_f, out_p)
+    assert torch.equal(out_f, out_p) or not same_forward
     for a, b in zip(g_f, g_p):
         assert torch.equal(a, b)
 
 
 def test_each_function_backward_is_autograd_of_its_plain_version():
-    """B.1 items 1-6 on the CPU: the Function's forward is the plain
+    """B.1 items 1-8 on the CPU: the Function's forward is the plain
     version there, its backward autograd of it; both bit-equal to native
-    autograd of the plain version."""
+    autograd of the plain version. The flagged tiles and canvas Functions
+    run the per-tile stages forward and replay the scan route
+    (``_ref_pipeline``): their gradients are bit-equal to its autograd."""
     rng = np.random.default_rng(12)
     x = torch.as_tensor(_peacock(70, 90))
     coeffs = _mega_pack(*SCALARS, 2.0, 0.8)
@@ -332,6 +354,26 @@ def test_each_function_backward_is_autograd_of_its_plain_version():
             lambda t, p, co: fused_polynomial(t, p, co, pad, True),
             lambda t, p, co: fused_polynomial_plain(t, p, co, pad, True),
             planes, params, coeffs[:4].clone())
+    # B.1.7-8: the bilateral filter and the two IIR passes
+    v = torch.as_tensor(rng.uniform(0.1, 0.9, size=(1, 70, 90))
+                        .astype(np.float32))
+    _function_vs_plain(bilateral_filter,
+                       lambda t: _bilateral_plain(t, 5, 5.0, 0.1), x)
+    _function_vs_plain(lambda t, vv: scan_rows(TileView.of_tiles(t), vv),
+                       lambda t, vv: scan_rows_plain(TileView.of_tiles(t),
+                                                     vv), x, v)
+    _function_vs_plain(scan_cols, scan_cols_plain, x, v)
+    # the flagged tiles and canvas Functions: per-tile stages forward, the
+    # scan route on all tiles as one batch backward (2 x 2 grid, taper)
+    flags = dict(do_taper=True, do_halo=True, prefilter="dt")
+    _function_vs_plain(
+        lambda t, co: polyblur_tiles_fused(t, co, 2, **flags),
+        lambda t, co: _ref_pipeline(t, co, 2, **flags),
+        tiles[:2].contiguous(), coeffs, same_forward=False)
+    _function_vs_plain(
+        lambda cv, co: polyblur_image_fused(cv, co, 2, gi, **flags),
+        lambda cv, co: _ref_image_pipeline(cv, co, 2, gi, flags),
+        canvas, coeffs, same_forward=False)
     # B.1.6: the forward of the fused maxima, the backward of _mags_xla
     from polyblur_torch import estimation as test
 
@@ -390,32 +432,224 @@ def test_plain_mode_belongs_to_the_replaying_thread():
                                                          torch.full((3,), 2.))
 
 
-@pytest.mark.parametrize("case", ["tiles_taper", "tiles_halo", "patch_dt",
-                                  "scan_bilateral", "scan_dt"])
-def test_routes_without_a_ported_backward_refuse_a_graph(case):
-    """The flag stages' backward (B.1 items 7-8) is not ported: recording
-    a graph through them raises NotImplementedError naming the item, on
-    every device; it neither launches into a graph nor falls back."""
-    x = torch.as_tensor(_peacock(64, 80)).requires_grad_()
-    sep = dict(n_iter=2, method="direct_separable", device="cpu")
-    calls = {
-        "tiles_taper": lambda: polyblur_core(x, edgetaping=True, **sep),
-        "tiles_halo": lambda: polyblur_core(x, remove_halo=True, **sep),
-        "patch_dt": lambda: deblur_patches(
-            x, patch_size=48, overlap=0.25, prefiltering=True,
-            smoother="domain_transform", **sep),
-        "scan_bilateral": lambda: polyblur_core(
-            x, prefiltering=True, _disable_mega=True, **sep),
-        "scan_dt": lambda: polyblur_core(
-            x, prefiltering=True, smoother="domain_transform",
-            _disable_mega=True, **sep),
-    }
-    item = {"scan_bilateral": "item 7", "scan_dt": "item 8"}.get(
-        case, "items 7-8")
-    with pytest.raises(NotImplementedError, match=f"B.1 {item}"):
-        calls[case]()
-    with torch.no_grad():
-        assert calls[case]().shape == x.shape
+# ------------------------------------------------------------ feature flags
+
+FLAG_SCALARS = SCALARS + (2.0, 0.8)          # ... sigma_s, sigma_r
+_DT = dict(prefiltering=True, smoother="domain_transform")
+_SEP = dict(n_iter=2, method="direct_separable")
+# case: (shape (B, C, H, W), route, keywords, gradients wrt sigma_s and
+# sigma_r too, the port's route, the JAX package's)
+FLAG_CASES = {
+    # four 48 px tiles as one batch: the scan route the backward replays
+    # divides the taper by the batch-global maximum
+    "tiles_taper": ((4, 3, 48, 48), "core", dict(edgetaping=True), False,
+                    ("polyblur_core", "tiles"),
+                    ("polyblur_core", "mega_pallas")),
+    "tiles_halo": ((1, 3, 48, 64), "core", dict(remove_halo=True), False,
+                   ("polyblur_core", "tiles"),
+                   ("polyblur_core", "mega_pallas")),
+    "tiles_bilateral": ((1, 3, 48, 64), "core", dict(prefiltering=True),
+                        False, ("polyblur_core", "tiles"),
+                        ("polyblur_core", "mega_pallas")),
+    "tiles_dt": ((1, 3, 48, 64), "core", _DT, True,
+                 ("polyblur_core", "tiles"),
+                 ("polyblur_core", "mega_pallas")),
+    # 1 x 2 tiles of 160 px at step 128, padded by more than the overlap:
+    # the JAX package's blended route
+    "patch_dt": ((1, 1, 160, 200), "patch",
+                 dict(patch_size=160, overlap=0.2, **_DT), True,
+                 ("deblur_patches", "staged_tiles"),
+                 ("deblur_patches", "mega_image_blended")),
+    # a 2 x 2 grid of 48 px tiles per image, config 2's flags; one
+    # iteration (the interpret-mode DMA route is the slowest case)
+    "patch_all_flags_batch2": ((2, 1, 80, 80), "patch",
+                               dict(patch_size=48, overlap=0.25,
+                                    edgetaping=True, remove_halo=True,
+                                    n_iter=1, **_DT), True,
+                               ("deblur_patches", "staged_tiles"),
+                               ("deblur_patches", "mega_image_dma")),
+    "scan_bilateral": ((1, 3, 48, 64), "core",
+                       dict(prefiltering=True, _disable_mega=True), False,
+                       ("bilateral_filter", "cuda"),
+                       ("bilateral_filter", "xla")),
+    "scan_dt": ((1, 3, 48, 64), "core", dict(_disable_mega=True, **_DT),
+                False, ("recursive_filter", "cuda"),
+                ("polyblur_core", "scan/direct_separable")),
+    "scan_sigma": ((1, 3, 48, 64), "core",
+                   dict(_disable_mega=True, edgetaping=True,
+                        remove_halo=True, **_DT), True,
+                   ("recursive_filter", "cuda"),
+                   ("polyblur_core", "scan/direct_separable")),
+}
+
+
+def _sharpened_pair(b, c, h, w, y, x):
+    """(input, target) for the flag cases: the target is the input
+    sharpened by an unsharp mask (sigma 1.5 px, gain 1), what a deblurring
+    layer is fitted to. With the displaced crop of ``_pair`` the
+    prefiltered routes' alpha and beta gradients cancel to ~2e-3 of c's
+    (1.4e-7 against 9e-5 on the bilateral scan route), and their relative
+    agreement (1.3e-3 to 2.9e-2 measured) gauges that cancellation: the
+    image gradients agree to 84-123 dB there."""
+    from scipy import ndimage
+
+    if b > 1 and h == w and y == 120:
+        # b tiles side by side, cut into a batch
+        img = _peacock(h, w * b, c, y, x)
+        img = np.concatenate(np.split(img, b, -1), 0)
+    else:
+        img = _peacock(h, w, c, y, x, b)
+    blur = ndimage.gaussian_filter(img, (0, 0, 1.5, 1.5))
+    return img, np.clip(2.0 * img - blur, 0.0, 1.0).astype(np.float32)
+
+
+@contextlib.contextmanager
+def _full_f32_dots():
+    """The mega kernel's f32 dots at full precision, as the JAX package's
+    interpret-mode tests run it (compensated, its forward is ~1e-5 off
+    its own scan route); traced afresh inside and after, so no cached
+    trace carries a mode across."""
+    from polyblur_tpu.ops.pallas.sep_poly_fused import f32_dot_mode_scope
+
+    try:
+        with f32_dot_mode_scope("highest"):
+            jax.clear_caches()
+            yield
+    finally:
+        jax.clear_caches()
+
+
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_flagged_routes_gradients_match_jax(case):
+    """Every feature-flag route trains (ROADMAP B.1 items 7-8): gradients
+    with respect to the image and to (c, b, alpha, beta), and for the dt
+    cases (sigma_s, sigma_r), against ``jax.grad`` of the JAX package,
+    its mega kernel in interpret mode. The tiles and canvas Functions'
+    backward replays the scan route on their tiles as one batch, as the
+    JAX package's VJPs do; the scan route differentiates the bilateral
+    Function, the IIR Functions and the sigmas in the graph. Tolerances:
+    loss rtol 1e-4, image >= 40 dB, scalars rtol 1e-3. Measured (image
+    dB, largest scalar relative error): tiles_taper 115.8, 2.1e-5;
+    tiles_halo 106.6, 4.6e-5; tiles_bilateral 113.5, 8.2e-5; tiles_dt
+    82.7, 2.9e-5; patch_dt 109.2, 1.1e-5; patch_all_flags_batch2 89.5,
+    5.1e-5; scan_bilateral 112.8, 1.4e-4; scan_dt 82.7, 7.3e-6;
+    scan_sigma 82.7, 2.4e-5. The dt cases' ~83 dB is the feedback's
+    pow, in float64 here and in f32 in the JAX package. The clips of the
+    scan route take ``jnp.clip``'s tie rule (half the gradient on a
+    bound); no stage is left where a tie differs."""
+    shape, kind, kw, sigmas, route, jax_route = FLAG_CASES[case]
+    b, c, h, w = shape
+    x, tgt = _sharpened_pair(b, c, h, w, 40 if kind == "patch" else 120,
+                             100 if kind == "patch" else 200)
+    scalars = FLAG_SCALARS if sigmas else SCALARS
+    port_fn = polyblur_core if kind == "core" else deblur_patches
+    jax_fn = (jpipe.polyblur_core if kind == "core"
+              else jpatches.deblur_patches)
+
+    kw = dict(_SEP, **kw)
+
+    def port(v, c_, b_, a, be, *ss):
+        return port_fn(v, c=c_, b=b_, alpha=a, beta=be, device="cpu",
+                       **dict(zip(("sigma_s", "sigma_r"), ss)), **kw)
+
+    def want(v, c_, b_, a, be, *ss):
+        return jax_fn(v, c=c_, b=b_, alpha=a, beta=be, _mega_interpret=True,
+                      **dict(zip(("sigma_s", "sigma_r"), ss)), **kw)
+
+    reset_dispatch_log()
+    got = _torch_grads(port, x, tgt, scalars)
+    assert route in dispatch_log(), dispatch_log()
+    jprof.reset_dispatch_log()
+    with _full_f32_dots():
+        ref = _jax_grads(want, x, tgt, scalars)
+    assert jax_route in jprof.dispatch_log(), jprof.dispatch_log()
+    _assert_grads_match(got, ref)
+
+
+def test_flagged_remat_changes_no_gradient_and_routes_match_jax():
+    """With every flag (the dt and the bilateral prefilter) ``remat`` on
+    the 'fft' scan route checkpoints each iteration, the smoothers'
+    kernels (here their plain versions) running again in the recompute:
+    gradients equal without it within atol 1e-6 (measured: 0, bit-equal),
+    and the routes taken are the JAX package's."""
+    x, tgt = _sharpened_pair(1, 3, 40, 56, 120, 200)
+    names = {("bilateral_filter", "cuda"): ("bilateral_filter", "xla"),
+             ("directional_maxima", "fused"): ("directional_maxima", "xla")}
+    for smoother in ("domain_transform", "bilateral"):
+        kw = dict(n_iter=2, method="fft", edgetaping=True, remove_halo=True,
+                  prefiltering=True, smoother=smoother)
+        runs = {}
+        for remat in (False, True):
+            reset_dispatch_log()
+            runs[remat] = _torch_grads(
+                lambda v, c, b, a, be, ss, sr: polyblur_core(
+                    v, c=c, b=b, alpha=a, beta=be, sigma_s=ss, sigma_r=sr,
+                    remat=remat, device="cpu", **kw), x, tgt, FLAG_SCALARS)
+            routes = {names.get(k, k) for k in dispatch_log()}
+            routes.discard(("recursive_filter", "cuda"))
+            jprof.reset_dispatch_log()
+            jax.clear_caches()          # the log is written while tracing
+            jpipe.polyblur_core(jnp.asarray(x), remat=remat, **kw)
+            assert routes == set(jprof.dispatch_log()), (routes,
+                                                        jprof.dispatch_log())
+        (l0, gx0, gp0), (l1, gx1, gp1) = runs[False], runs[True]
+        assert l0 == l1
+        np.testing.assert_allclose(gx1, gx0, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(gp1, gp0, atol=1e-6, rtol=1e-6)
+
+
+def test_bilateral_function_gradient_matches_jax():
+    """The bilateral Function (B.1.7) on the CPU against ``jax.grad`` of
+    ``_bilateral_xla`` (tests/test_kernels.py:448-470's inputs), atol
+    1e-5 (measured 1.5e-10)."""
+    from polyblur_tpu.ops.bilateral import _bilateral_xla
+
+    rng = np.random.default_rng(7)
+    x = rng.uniform(size=(2, 3, 40, 56)).astype(np.float32)
+    tgt = rng.uniform(size=x.shape).astype(np.float32)
+    xt = torch.tensor(x, requires_grad=True)
+    out = bilateral_filter(xt)
+    assert out.grad_fn.name() == "_ReplayBackward"
+    ((out - torch.as_tensor(tgt)) ** 2).mean().backward()
+    want = jax.grad(lambda v: jnp.mean(
+        (_bilateral_xla(v, 5, 5.0, 0.1) - tgt) ** 2))(jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_iir_functions_gradients_match_jax(axis):
+    """The IIR Functions (B.1.8), the row and the column pass, on the CPU
+    against ``jax.grad`` of ``iir_scan_rows`` in (x, v)
+    (tests/test_kernels.py:562-586's inputs; the column pass as the JAX
+    code runs it, swapaxes around the row scan), atol 1e-5 (measured
+    7.0e-10)."""
+    from polyblur_tpu.ops.domain_transform import iir_scan_rows
+
+    rng = np.random.default_rng(10)
+    x = rng.uniform(size=(1, 2, 8, 32)).astype(np.float32)
+    v = rng.uniform(0.1, 0.9, size=(1, 2, 8, 32)).astype(np.float32)
+    tgt = rng.uniform(size=x.shape).astype(np.float32)
+    xt = torch.tensor(x, requires_grad=True)
+    vt = torch.tensor(v, requires_grad=True)
+    if axis == "rows":
+        out = scan_rows(TileView.of_tiles(xt), vt.reshape(2, 8, 32))
+    else:
+        out = scan_cols(xt, vt.reshape(2, 8, 32))
+    assert out.grad_fn.name() == "_ReplayBackward"
+    ((out - torch.as_tensor(tgt)) ** 2).mean().backward()
+
+    def scan(x_, v_):
+        if axis == "rows":
+            return iir_scan_rows(x_, v_)
+        return jnp.swapaxes(iir_scan_rows(jnp.swapaxes(x_, -1, -2),
+                                          jnp.swapaxes(v_, -1, -2)), -1, -2)
+
+    want = jax.grad(lambda x_, v_: jnp.mean((scan(x_, v_) - tgt) ** 2),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(v))
+    for got, ref in zip((xt.grad, vt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=0)
 
 
 # ------------------------------------------------------------ the layer

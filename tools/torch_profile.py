@@ -2,8 +2,9 @@
 """Where the time goes in polyblur_torch's paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
-``python3 tools/torch_profile.py [base] [features] [train]`` (``base``
-and ``features`` by default). For each path — ``base``: the 12 MP bf16
+``python3 tools/torch_profile.py [base] [features] [train]
+[train_flags]`` (``base`` and ``features`` by default). For each path —
+``base``: the 12 MP bf16
 patch engine, the reference demo and the 2 MP corpus photo through the
 blocked route, a 480 x 640 crop through the tiles route and through
 ``method='fft'``; ``features``: BASELINE config 2 (the 2 MP photo through
@@ -11,7 +12,11 @@ the patch engine in bf16 with the taper, the domain-transform prefilter
 and the halo mask), config 2c (the same flags through ``method='fft'``)
 and the 480 x 640 tiles route with every flag and the bilateral
 smoother; ``train``: one Adam step of the 12 MP bf16 patch layer
-(chip_smoke's training phase (a)) and its forward alone — it times one
+(chip_smoke's training phase (a)) and its forward alone;
+``train_flags``: the same for BASELINE config 2 as a learnable layer
+(chip_smoke's (f), bf16 work) and config 2c's layer (``method='fft'``,
+chip_smoke's (g)); each ``train`` set also prints the backward's share of
+the step's device busy time (1 - forward busy / step busy) — it times one
 warm call on the host clock (ending in a synchronize), traces a second
 with ``torch.profiler`` and prints the device time by kernel name, the
 device busy time (the union of the kernels' intervals), the idle share
@@ -109,6 +114,24 @@ def profile(name, fn, top: int = 10) -> None:
           f"hand kernels {hand:.2f} ms, other kernels {total - hand:.2f} ms")
     for k, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"   {t:9.3f} ms  {n:4d}x  {k[:90]}")
+    return busy
+
+
+def train_profile(name, layer, x, top: int = 14) -> None:
+    """One Adam step of ``layer`` on (x, x) and its forward alone, and the
+    backward's share of the step's device busy time."""
+    import torch
+
+    from polyblur_torch import make_train_step
+
+    step = make_train_step(layer, torch.optim.Adam(layer.parameters(),
+                                                   lr=1e-2))
+    busy = profile(f"training step: {name}, one Adam step",
+                   lambda: step(x, x), top=top)
+    fwd = profile("the step's forward alone (the graph is built and dropped)",
+                  lambda: torch.mean((layer(x) - x) ** 2))
+    print(f"   backward share of the step's device busy time "
+          f"{1.0 - fwd / busy:.3f}")
 
 
 def main() -> int:
@@ -168,19 +191,30 @@ def main() -> int:
                 lambda: pt.polyblur_deblurring(crop, device=dev, **kw,
                                                **flags), top=14)
     if "train" in sets:
-        from polyblur_torch import PolyblurLayer, make_train_step
+        from polyblur_torch import PolyblurLayer
 
-        layer = PolyblurLayer(
+        train_profile("12 MP bf16 patch layer", PolyblurLayer(
             n_iter=3, learnable=True, patch_size=448,
             patch_overlap=64.0 / 448.0, method="direct_separable",
             extra=dict(work_dtype=torch.bfloat16, out_dtype=torch.float32),
-            device=dev)
-        step = make_train_step(layer, torch.optim.Adam(layer.parameters(),
-                                                       lr=1e-2))
-        profile("training step: 12 MP bf16 patch layer, one Adam step",
-                lambda: step(img12, img12), top=14)
-        profile("the step's forward alone (the graph is built and dropped)",
-                lambda: torch.mean((layer(img12) - img12) ** 2))
+            device=dev), img12)
+    if "train_flags" in sets:
+        from polyblur_torch import PolyblurLayer
+
+        x2 = torch.as_tensor(np.tile(peacock, (3, 3, 1))[:1200, :1600]
+                             .transpose(2, 0, 1)[None].copy(), device=dev)
+        flags = dict(remove_halo=True, edgetaping=True, prefiltering=True,
+                     smoother="domain_transform")
+        train_profile("config 2 layer, 2 MP bf16, taper + dt + halo",
+                      PolyblurLayer(
+                          n_iter=3, learnable=True, patch_size=448,
+                          patch_overlap=1.0 / 7.0, method="direct_separable",
+                          extra=dict(flags, work_dtype=torch.bfloat16,
+                                     out_dtype=torch.float32), device=dev),
+                      x2)
+        train_profile("config 2c layer, 2 MP method='fft', taper + dt + halo",
+                      PolyblurLayer(n_iter=3, learnable=True, method="fft",
+                                    extra=flags, device=dev), x2)
     print(card)
     return 0
 
