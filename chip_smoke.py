@@ -103,7 +103,20 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    against the plain step; in (a), (d), (f) and (h) the kernels step's
    output is held in dB against the plain step's; every step prints its
    time (median of 3 warm steps), peak memory and the card line;
-9. prints the training times as one JSON line, the card line, one JSON
+9. before the training phases, (i) drives the reference demo through
+   ``method='direct'``, and with every flag and ``smoother='nc'``, then
+   takes the gradients of that configuration on a 160 x 240 crop with
+   cuDNN's TF32 at PyTorch's default (allowed), held against the same
+   step with the plain versions, a repeat (bit-equal) and the CPU; (j)
+   the 12 MP image through ``deblur_patches(method='direct')`` (the
+   composed route), then with ``q=1e-4, discard_saturation=True``, with
+   theta identical kernel vs plain on the 88 tiles and the peak memory;
+   (k) holds ``directional_maxima`` at n_angles 4, 8, 12 and over a
+   4-channel multichannel batch, and ``fused_polynomial`` at ker_size 21
+   and 31 (fused and blocked) against their plain versions, and drives
+   six whole-image paths that launch them; the 12 MP main path's
+   launches, read before and after (i)-(k), must not change;
+10. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -159,6 +172,11 @@ TILE_STAGES = ("tile_estimate", "kernel_spectrum", "spectral_gemm")
 # one image, beside the main path's 88 tiles
 SPECTRUM_ROWS = ("kernel_spectrum[n=12]", "kernel_spectrum[n=1]")
 FEATURES = ("bilateral", "iir_scan_rows", "dt_coeffs", "taper", "halo")
+# (k): the kernels generalized in n_angles and in the half-support
+GENERALIZED = tuple(f"directional_maxima[{k}]" for k in (
+    "n_angles=4", "n_angles=8", "n_angles=12", "C=4 multichannel")) + tuple(
+    f"fused_polynomial[ker_size={k}, {r}]" for k in (21, 31)
+    for r in ("fused", "blocked"))
 DT_STAGES = ("dt_coeffs", "iir_scan_rows", "taper", "halo")
 PATH_KW = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
 # BASELINE config 2 (polyblur_tpu/cli/bench_suite.py:121-123)
@@ -201,6 +219,7 @@ SOURCES = {
     "halo": ("polyblur_torch/csrc/estimate.cu",
              "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
 }
+SOURCES.update({k: SOURCES[k[:k.index("[")]] for k in GENERALIZED})
 
 
 class SmokeFailure(Exception):
@@ -283,12 +302,13 @@ def spectrum_flops(h: int, w: int) -> float:
     return fft_flops(h, w) + 6.0 * h * (w // 2 + 1)
 
 
-def maxima_flops(c: int, h: int, w: int) -> float:
+def maxima_flops(c: int, h: int, w: int, angles: int = 7) -> float:
     """The estimate's directional maxima of one (c, h, w) image: gray and
     range normalization, the gradient pair through one forward and two
-    inverse real FFTs, 7 directional derivatives with |.| and max."""
+    inverse real FFTs, ``angles`` directional derivatives with |.| and
+    max."""
     return (3.0 * fft_flops(h, w) + 4.0 * h * (w // 2 + 1)
-            + (c + 3 + 7 * 4) * h * w)
+            + (c + 3 + angles * 4) * h * w)
 
 
 def psnr(a, b) -> float:
@@ -1258,6 +1278,426 @@ def feature_paths(dev, img2, card: str, launches: dict) -> None:
                                      method="direct_separable", **CFG2_KW),
                crop.shape, (tiles,), TILE_STAGES + DT_STAGES, PSNR_F32_DB,
                card, 480 * 512)
+
+
+# ------------------------------------------------ direct, nc, generalized
+# (i)-(k): method='direct', smoother='nc', the estimate's other branches and
+# the kernels generalized in n_angles and the half-support.
+
+# theta of the same call's estimates, kernels vs plain versions
+def thetas_equal(name: str, x, **kw) -> None:
+    import torch
+
+    from polyblur_torch.estimation import gaussian_blur_estimation
+    from polyblur_torch.ops import cuda as pcuda
+
+    hand = gaussian_blur_estimation(x, return_2d_filters=False, **kw)[2]
+    with pcuda.plain_versions():
+        plain = gaussian_blur_estimation(x, return_2d_filters=False, **kw)[2]
+    same = bool(torch.equal(hand, plain))
+    print(f"{name}: theta identical, kernels vs plain, on all "
+          f"{hand.numel()} estimates: {same}")
+    require(same, f"{name}: theta differs on "
+                  f"{int((hand != plain).sum())} of {hand.numel()} estimates")
+
+
+# (i): d loss / d (image, c, b, alpha, beta, sigma_s, sigma_r) through
+# method='direct' with every flag and the 'nc' smoother, in f32, on the
+# card against the CPU and against the plain versions: ops/conv.py keeps
+# cuDNN's TF32 off in both passes of its convolutions, so the two devices
+# differ by f32 summation orders only (TF32's 10-bit mantissa would put
+# ~1e-3 relative into every convolution)
+TOL_REL_GRAD_DIRECT = 1e-4      # scalar gradients, relative to the largest
+DB_GRAD_DIRECT = 80.0           # image gradient, relative to its max |g|
+
+
+def direct_gradients(dev, card: str) -> None:
+    """(i)'s gradient step: one step with the kernels, a repeat (its
+    gradients bit-equal: the convolutions' backward is deterministic), the
+    same step with the plain versions and on the CPU, with
+    ``torch.backends.cudnn.allow_tf32`` True (PyTorch's default) around
+    them; and, printed only, the step with the port's TF32 scope taken
+    out, against the CPU."""
+    import contextlib
+
+    import torch
+    from scipy import ndimage
+
+    import polyblur_torch
+    from polyblur_torch.ops import conv as pconv
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.utils.profiling import (dispatch_log,
+                                                reset_dispatch_log)
+
+    crop = load_png("tests/data/peacock_defocus.png")[100:260, 150:390]
+    x = np.ascontiguousarray(crop.transpose(2, 0, 1)[None])
+    tgt = np.clip(2.0 * x - ndimage.gaussian_filter(x, (0, 0, 1.5, 1.5)),
+                  0.0, 1.0).astype(np.float32)
+    names = ("c", "b", "alpha", "beta", "sigma_s", "sigma_r")
+    scalars = (0.362, 0.468, 6.0, 1.0, 2.0, 0.8)
+    kw = dict(n_iter=2, method="direct", smoother="nc", **FLAGS_KW)
+
+    def step(device):
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        ps = [torch.tensor(v, device=device, requires_grad=True)
+              for v in scalars]
+        out = polyblur_torch.polyblur_apply(xt, device=device,
+                                            **dict(zip(names, ps)), **kw)
+        loss = ((out - torch.as_tensor(tgt, device=device)) ** 2).mean()
+        g = torch.autograd.grad(loss, [xt] + ps, allow_unused=True)
+        gs = torch.stack([torch.zeros(()) if v is None else v.cpu()
+                          for v in g[1:]])
+        return g[0].cpu().double(), gs.double()
+
+    def gaps(a, b):
+        rel = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+        err = float(((a[0] - b[0]) ** 2).mean())
+        db = 10.0 * math.log10(float(b[0].abs().max()) ** 2
+                               / max(err, 1e-300))
+        return rel, db
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        pcuda.reset_launches()
+        reset_dispatch_log()
+        hand = step(dev)
+        torch.cuda.synchronize()
+        counts, log = dict(pcuda.launches), dispatch_log()
+        again = step(dev)
+        with pcuda.plain_versions():
+            plain = step(dev)
+        require(torch.backends.cudnn.allow_tf32,
+                "(i) gradients: the conv scope did not restore TF32")
+        scope = pconv.full_f32_convs
+        pconv.full_f32_convs = contextlib.nullcontext
+        try:
+            tf32 = step(dev)
+        finally:
+            pconv.full_f32_convs = scope
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    cpu = step("cpu")
+    label = "(i) gradients, method='direct', every flag, 'nc', 160x240 f32"
+    require(("polyblur_core", "scan/direct") in log, f"{label}: {log}")
+    require(counts.get("directional_maxima", 0) > 0,
+            f"{label}: directional_maxima never launched ({counts})")
+    for t in hand:
+        require(bool(torch.isfinite(t).all()), f"{label}: not finite")
+    same = all(torch.equal(a, b) for a, b in zip(hand, again))
+    print(f"{label} on {card}: launches {counts}; repeat bit-equal: {same}; "
+          f"d loss / d ({', '.join(names)}) "
+          f"{[f'{v:.6e}' for v in hand[1].tolist()]}")
+    require(same, f"{label}: a repeat gave other gradients")
+    for what, ref in (("plain versions", plain), ("CPU", cpu)):
+        rel, db = gaps(hand, ref)
+        print(f"{label}: vs {what}: scalars max rel err {rel:.3e} (tol "
+              f"{TOL_REL_GRAD_DIRECT}), image gradient {db:.2f} dB (min "
+              f"{DB_GRAD_DIRECT})")
+        require(rel <= TOL_REL_GRAD_DIRECT and db >= DB_GRAD_DIRECT,
+                f"{label}: {rel:.3e}, {db:.2f} dB from the {what}")
+    rel, db = gaps(tf32, cpu)
+    print(f"{label}: control, TF32 scope taken out, vs CPU: scalars max "
+          f"rel err {rel:.3e}, image gradient {db:.2f} dB")
+
+
+def generalized_kernels(dev, report: dict) -> None:
+    """(k): ``directional_maxima`` at n_angles 4, 8 and 12 on a 1 x 3 x
+    480 x 640 crop and over a 4-channel multichannel batch (its (4, 1,
+    480, 640) planes), ``fused_polynomial`` at ker_size 21 and 31 on the
+    prepadded 3 x 480 x 640 planes (the fused route) and on the 2 MP
+    photo's overlap-save blocks (the blocked route), each against its
+    plain version with its time, bound and yardstick; fills ``report``."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyblur_torch.estimation import gaussian_blur_estimation
+    from polyblur_torch.ops import sep_poly
+    from polyblur_torch.ops.cuda.est_fused import (directional_maxima,
+                                                   directional_maxima_plain)
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        TileView, _gray_norm_plain, spectrum_plain, stage_tables)
+    from polyblur_torch.ops.cuda.sep_poly_fused import (
+        fused_polynomial, fused_polynomial_plain)
+    from polyblur_torch.pipeline import _mega_pack
+
+    photo = torch.as_tensor(load_png("tests/data/corpus_hr/peacock_tiled.png")
+                            .transpose(2, 0, 1)[None].copy(), device=dev)
+    crop = photo[..., :480, :640].contiguous()
+    four = torch.cat([crop, crop.mean(1, keepdim=True)], 1)
+    for label, x, na in (("n_angles=4", crop, 4), ("n_angles=8", crop, 8),
+                         ("n_angles=12", crop, 12),
+                         ("C=4 multichannel", four.reshape(4, 1, 480, 640),
+                          6)):
+        m = directional_maxima(x, na)
+        m_p = directional_maxima_plain(x, na)
+        rel = float(((m - m_p).abs() / m_p.abs().clamp(min=1e-30)).max())
+        name = f"directional_maxima[{label}]"
+        require(m.shape == (x.shape[0], na + 1), f"{name}: shape {m.shape}")
+        require(rel <= TOL_REL_MAXIMA, f"{name} rel error {rel}")
+        b, c, hh, ww = x.shape
+        report[name] = dict(
+            max_abs_err=float((m - m_p).abs().max()),
+            ms=cuda_ms(lambda: directional_maxima(x, na)),
+            device_ms=device_ms(lambda: directional_maxima(x, na)),
+            plain_ms=cuda_ms(lambda: directional_maxima_plain(x, na)),
+            library_ms=gemm_pair_library_ms(
+                _gray_norm_plain(TileView.of_tiles(x))),
+            library_what=LIBRARY_GEMM_PAIR,
+            bound=bound_ms(x.numel() * 4 + m.numel() * 4,
+                           b * maxima_flops(c, hh, ww, na + 1), "f32"))
+        r = report[name]
+        print(f"{name} {tuple(x.shape)}: max rel err {rel:.3e}, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, GEMM pair "
+              f"{r['library_ms']:.4f}, bound {r['bound'][0]:.5f})")
+
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+    for ks in (21, 31):
+        half = ks // 2
+        sigma, rho, theta = gaussian_blur_estimation(
+            photo, c=0.362, b=0.468, ker_size=ks, return_2d_filters=False)
+        a, b, c = sep_poly.gaussian_quadratic_coeffs(sigma[:, 0], rho[:, 0],
+                                                     theta[:, 0])
+        p1 = torch.stack([a, b, c], -1)
+        # the fused route: 3 planes of 480 x 640, replicate pad, clip
+        x3 = crop[0]
+        p3 = p1.repeat(3, 1)
+        out = fused_polynomial(x3, p3, coeffs, True, True, half)
+        out_p = fused_polynomial_plain(x3, p3, coeffs, True, True, half)
+        err = float((out - out_p).abs().max())
+        name = f"fused_polynomial[ker_size={ks}, fused]"
+        require(err <= TOL_SPEC_F32, f"{name} error {err}")
+        h, wc = 480 + 2 * half, 640 + 2 * half
+        tabs = stage_tables(480, 640, torch.float32, str(dev), half, half)
+        K = wc // 2 + 1
+        qh = spectrum_plain(p3[:, 0], p3[:, 1], p3[:, 2], coeffs,
+                            tabs)[..., :K] * h
+        xp = F.pad(x3[:, None], (half,) * 4, mode="replicate")[:, 0]
+
+        def fft_fused():
+            y = torch.fft.irfft2(qh * torch.fft.rfft2(xp), s=(h, wc))
+            return y[:, half:half + 480, half:half + 640].clamp(0, 1)
+
+        report[name] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fused_polynomial(x3, p3, coeffs, True, True,
+                                                half)),
+            device_ms=device_ms(lambda: fused_polynomial(x3, p3, coeffs,
+                                                         True, True, half)),
+            plain_ms=cuda_ms(lambda: fused_polynomial_plain(
+                x3, p3, coeffs, True, True, half), reps=3),
+            library_ms=cuda_ms(fft_fused),
+            bound=bound_ms(2 * x3.numel() * 4 + p3.numel() * 4,
+                           3 * (spectrum_flops(h, wc)
+                                + application_flops(h, wc)), "f32"))
+        # the blocked route: the 2 MP photo's overlap-save blocks
+        view, _ = sep_poly._block_view(photo[0], half)
+        pb = p1.repeat(3, 1).repeat(view.n // 3, 1)
+        out = fused_polynomial(view, pb, coeffs, half=half)
+        out_p = fused_polynomial_plain(view, pb, coeffs, half=half)
+        err = float((out - out_p).abs().max())
+        bname = f"fused_polynomial[ker_size={ks}, blocked]"
+        require(err <= TOL_POLY_F32, f"{bname} error {err}")
+        bh, bw = view.patch
+        btabs = stage_tables(bh, bw, torch.float32, str(dev), 0, half)
+        qb = spectrum_plain(pb[:, 0], pb[:, 1], pb[:, 2], coeffs,
+                            btabs)[..., :bw // 2 + 1] * bh
+        blocks = view.tiles()[:, 0]
+
+        def fft_blocks():
+            return torch.fft.irfft2(qb * torch.fft.rfft2(blocks), s=(bh, bw))
+
+        report[bname] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fused_polynomial(view, pb, coeffs, half=half)),
+            device_ms=device_ms(lambda: fused_polynomial(view, pb, coeffs,
+                                                         half=half)),
+            plain_ms=cuda_ms(lambda: fused_polynomial_plain(
+                view, pb, coeffs, half=half), reps=3),
+            library_ms=cuda_ms(fft_blocks),
+            bound=bound_ms(view.data.numel() * 4 + out.numel() * 4
+                           + pb.numel() * 4,
+                           view.n * (spectrum_flops(bh, bw)
+                                     + application_flops(bh, bw)), "f32"))
+        for nm, shape in ((name, "3 x 480 x 640, pad %d, clip" % half),
+                          (bname, f"{view.n} blocks {bh}x{bw}, pad 0")):
+            r = report[nm]
+            print(f"{nm} [{shape}]: max_abs_err {r['max_abs_err']:.3e}, "
+                  f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+                  f"(plain {r['plain_ms']:.4f}, "
+                  f"rfft2/irfft2 {r['library_ms']:.4f}, bound "
+                  f"{r['bound'][0]:.5f} by {r['bound'][1]})")
+
+
+def generalized_paths(dev, card: str, launches: dict) -> None:
+    """(k)'s paths: the whole-image routes that reach the generalized
+    kernels, each counted and held against its plain run; records the
+    launches of (k)'s rows in ``launches``."""
+    import torch
+
+    import polyblur_torch
+
+    photo = load_png("tests/data/corpus_hr/peacock_tiled.png")   # 1200x1600
+    crop = torch.as_tensor(photo[:480, :640].transpose(2, 0, 1)[None].copy(),
+                           device=dev)
+    small = crop[..., :400, :600].contiguous()
+    four = torch.cat([crop, crop.mean(1, keepdim=True)], 1).contiguous()
+    scan_ds = ("polyblur_core", "scan/direct_separable")
+    fused = ("compute_polynomial_separable", "fused")
+    blocked = ("compute_polynomial_separable", "blocked")
+    maxima = ("directional_maxima", "fused")
+
+    def run(x, **kw):
+        return lambda: polyblur_torch.polyblur_deblurring(
+            x, device=dev, **dict(PATH_KW, **kw))
+
+    for label, x, kw, routes, kernels, rows in (
+            ("crop 480x640 direct_separable, ker_size 21, n_angles 8",
+             crop, dict(method="direct_separable", ker_size=21, n_angles=8),
+             (scan_ds, fused, maxima), ("fused_polynomial",
+                                        "directional_maxima"),
+             {"fused_polynomial[ker_size=21, fused]": "fused_polynomial",
+              "directional_maxima[n_angles=8]": "directional_maxima"}),
+            ("crop 400x600 direct_separable, ker_size 31, n_angles 12",
+             small, dict(method="direct_separable", ker_size=31,
+                         n_angles=12),
+             (scan_ds, fused, maxima), ("fused_polynomial",
+                                        "directional_maxima"),
+             {"fused_polynomial[ker_size=31, fused]": "fused_polynomial",
+              "directional_maxima[n_angles=12]": "directional_maxima"}),
+            ("2 MP photo direct_separable, ker_size 21 (blocked)", photo,
+             dict(method="direct_separable", ker_size=21),
+             (scan_ds, blocked), ("fused_polynomial",),
+             {"fused_polynomial[ker_size=21, blocked]": "fused_polynomial"}),
+            ("2 MP photo direct_separable, ker_size 31 (blocked)", photo,
+             dict(method="direct_separable", ker_size=31),
+             (scan_ds, blocked), ("fused_polynomial",),
+             {"fused_polynomial[ker_size=31, blocked]": "fused_polynomial"}),
+            ("crop 480x640 fft, n_angles 4", crop,
+             dict(method="fft", n_angles=4), (maxima,),
+             ("directional_maxima",),
+             {"directional_maxima[n_angles=4]": "directional_maxima"}),
+            ("1 x 4 x 480 x 640 fft, multichannel_kernel", four,
+             dict(method="fft", multichannel_kernel=True), (maxima,),
+             ("directional_maxima",),
+             {"directional_maxima[C=4 multichannel]": "directional_maxima"})):
+        shape = np.shape(x)
+        npx = shape[0] * shape[1] if isinstance(x, np.ndarray) else (
+            shape[-2] * shape[-1])
+        counts = drive_path(label, run(x, **kw), shape, routes, kernels,
+                            PSNR_F32_DB, card, npx)
+        for row, k in rows.items():
+            launches[row] = counts[k]
+        xt = torch.as_tensor(x, device=dev)
+        if xt.dim() == 3:
+            xt = xt.permute(2, 0, 1)[None]
+        est_kw = {k: v for k, v in kw.items() if k != "method"}
+        if "multichannel_kernel" in est_kw:
+            est_kw["multichannel"] = est_kw.pop("multichannel_kernel")
+        thetas_equal(label, xt, **est_kw)
+
+
+def main_path_launches(dev, img, card: str, when: str) -> dict:
+    """The 12 MP main path's launches per kernel (the counters zeroed just
+    before one call, read just after) and its MP/s (host clock, median of
+    5 calls)."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch.ops import cuda as pcuda
+
+    H, W = img.shape[-2:]
+
+    def main_path():
+        return polyblur_torch.deblur_patches(
+            img, patch_size=448, overlap=64.0 / 448.0,
+            work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,
+            method="direct_separable", **PATH_KW)
+
+    torch.cuda.synchronize()
+    pcuda.reset_launches()
+    main_path()
+    torch.cuda.synchronize()
+    counts = {k: pcuda.launches.get(k, 0) for k in NAMES}
+    ms = host_ms(main_path)
+    print(f"main path 12 MP bf16 {when}: {ms:.2f} ms = "
+          f"{H * W / 1e6 / (ms / 1e3):.2f} MP/s on {card}; launches {counts}")
+    return counts
+
+
+def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
+    """(i) the reference demo through ``method='direct'``, and again with
+    every flag and the 'nc' smoother; (j) the 12 MP patch engine with
+    ``method='direct'`` (the composed route), then with q = 1e-4 and the
+    saturation mask; (k) the generalized kernels and their paths; each
+    path counted and held against its plain run, and the 12 MP main
+    path's launches and MP/s before and after, which must not change."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch.patches import extract_patches, plan_patch_grid
+
+    img = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
+                          device=dev)
+    H, W = img.shape[-2:]
+    before = main_path_launches(dev, img, card, "before (i)-(k)")
+    require(before == {k: launches[k] for k in NAMES},
+            f"main path launches {before} differ from the first run's")
+
+    peacock = load_png("tests/data/peacock_defocus.png")        # (500, 700, 3)
+    scan_direct = ("polyblur_core", "scan/direct")
+    drive_path("(i) demo 700x500 polyblur_deblurring(method='direct')",
+               lambda: polyblur_torch.polyblur_deblurring(
+                   peacock, device=dev, method="direct", **PATH_KW),
+               peacock.shape, (scan_direct,
+                               ("inverse_filtering_rank3", "generic/direct"),
+                               ("directional_maxima", "plain")),
+               (), PSNR_F32_DB, card, 500 * 700)
+    x = torch.as_tensor(peacock.transpose(2, 0, 1)[None].copy(), device=dev)
+    drive_path("(i) demo 700x500, every flag, smoother 'nc' (polyblur_apply)",
+               lambda: polyblur_torch.polyblur_apply(
+                   x, method="direct", smoother="nc", device=dev,
+                   **FLAGS_KW, **PATH_KW),
+               x.shape, (scan_direct, ("nc_box_filter", "windowed")), (),
+               PSNR_F32_DB, card, 500 * 700)
+    direct_gradients(dev, card)
+
+    grid = plan_patch_grid(H, W, 448, 64.0 / 448.0)
+    tiles = extract_patches(img.to(torch.bfloat16), grid)
+    composed = ("deblur_patches", "composed")
+    for label, kw, routes, kernels in (
+            ("(j) 12 MP deblur_patches 448/384 bf16, method='direct'", {},
+             (composed, scan_direct, ("directional_maxima", "fused")),
+             ("edge_pad_cast", "directional_maxima", "blend_overlap_add")),
+            ("(j) the same with q=1e-4, discard_saturation",
+             dict(q=1e-4, discard_saturation=True),
+             (composed, scan_direct, ("directional_maxima", "plain")),
+             ("edge_pad_cast", "blend_overlap_add"))):
+        def call(kw=kw):
+            return polyblur_torch.deblur_patches(
+                img, patch_size=448, overlap=64.0 / 448.0,
+                work_dtype=torch.bfloat16, out_dtype=torch.float32,
+                device=dev, method="direct", **PATH_KW, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = drive_path(label, call, img.shape, routes, kernels,
+                            PSNR_BF16_DB, card, H * W)
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{label}: peak memory {gib:.2f} GiB on {card}; launches "
+              f"{counts}")
+        thetas_equal(f"{label}, first iteration's {tiles.shape[0]} tiles",
+                     tiles, **kw)
+    del tiles
+    torch.cuda.empty_cache()
+    generalized_kernels(dev, report)
+    generalized_paths(dev, card, launches)
+    torch.cuda.empty_cache()
+    after = main_path_launches(dev, img, card, "after (i)-(k)")
+    require(after == before, f"main path launches {after} after (i)-(k), "
+                             f"{before} before")
 
 
 # ---------------------------------------------------------------- training
@@ -2366,17 +2806,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     feature_paths(dev, img2, card, launches)
 
+    # ---------------------------------------------------------- (i)-(k)
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice phases (i)-(k)")
+    del img2
+    torch.cuda.empty_cache()
+    slice_phases(dev, card, launches, report)
+
     # ---------------------------------------------------------- training
     print(f"[{time.perf_counter() - t_start:.1f} s] training phases")
-    del img2
     torch.cuda.empty_cache()
     training = training_phases(dev, card)
     print(f"[{time.perf_counter() - t_start:.1f} s] done")
 
     # ---------------------------------------------------------- report
     rows = []
-    for name in NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
-                                         "directional_maxima") + FEATURES:
+    for name in (NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
+                                          "directional_maxima") + FEATURES
+                 + GENERALIZED):
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]

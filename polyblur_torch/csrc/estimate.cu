@@ -15,8 +15,8 @@
 //                     and writes its (min, max) to an (n, bands, 2)
 //                     scratch; the band height is chosen so that the grid
 //                     has ~1024 blocks at any tile count (one 480 x 640
-//                     image: 480 one-row bands). Band 0 zeroes the tile's 7
-//                     maxima;
+//                     image: 480 one-row bands). Band 0 zeroes the tile's
+//                     maxima (7, or n_angles + 1);
 //   (2) gray_norm     32 x 32 blocks: g = clip((gray - min) / range), min
 //                     and max folded from the band partials, split for the
 //                     tensor cores and written as g and its transpose (the
@@ -35,9 +35,13 @@
 //
 // Stages (1)-(3) alone are also the directional-maxima reduction of the
 // whole-image estimate, replacing polyblur_tpu/ops/pallas/est_fused.py::
-// directional_maxima_pallas (the (B, 7) maxima of the normalized channel
-// mean, for C = 1 or 3): the wrapper ops/cuda/est_fused.py launches stages
-// 1-3 and reads `maxima`.
+// directional_maxima_pallas (the (B, n_angles + 1) maxima of the
+// normalized channel mean, for any C): the wrapper ops/cuda/est_fused.py
+// launches stages 1-3 and reads `maxima`. The angle count is open there:
+// the patch engine's 7 angles keep their own epilogue (kMaxima, the
+// angles in registers, unchanged), any other count takes kMaximaAny,
+// which walks the angles in register groups of 8 (a block reduction and
+// an atomicMax per group). Stage (4) runs at 7 angles only.
 //
 // The same GEMM, with other epilogues, is the halo mask of the mega
 // kernel's do_halo flag (polyblur_fused.py:288-302, :503-512): once per
@@ -88,8 +92,9 @@
 
 namespace {
 
-constexpr int kAngles = 7;   // n_angles + 1
+constexpr int kAngles = 7;   // n_angles + 1 of the patch engine's estimate
 constexpr int kInterp = 30;  // n_interpolated_angles
+constexpr int kGroup = 8;    // angles per register group of kMaximaAny
 
 // ---------------------------------------------------------------- gray
 
@@ -145,7 +150,8 @@ __device__ __forceinline__ void gray8(const S* p, long long sC, int C,
 template <typename S, bool VEC>
 __global__ void __launch_bounds__(256)
 gray_minmax_kernel(pb::TileView v, int C, int ph, int pw, int rows,
-                   float* __restrict__ mm, float* __restrict__ maxima) {
+                   int na1, float* __restrict__ mm,
+                   float* __restrict__ maxima) {
   const int band = blockIdx.x, n = blockIdx.y, bands = gridDim.x;
   const S* base = static_cast<const S*>(v.ptr) + v.offset(n, 0, 0, 0);
   const float inv_c = 1.0f / static_cast<float>(C);
@@ -183,7 +189,9 @@ gray_minmax_kernel(pb::TileView v, int C, int ph, int pw, int rows,
     mm[((long long)n * bands + band) * 2] = lo;
     mm[((long long)n * bands + band) * 2 + 1] = hi;
   }
-  if (band == 0 && threadIdx.x < kAngles) maxima[n * kAngles + threadIdx.x] = 0.f;
+  if (band == 0)
+    for (int a = threadIdx.x; a < na1; a += blockDim.x)
+      maxima[(long long)n * na1 + a] = 0.f;
 }
 
 // Row pitch of the normalized planes: a whole number of 16 bytes, as TMA
@@ -295,6 +303,7 @@ constexpr int kBarCons = 1, kBarWg0 = 2;
 // Epilogues of the derivative GEMM pair (gx = g Dw^T, gy = Dh g):
 //   kMaxima  the 7 directional maxima of the estimate (atomicMax per tile);
 //            the operand is the normalized gray of the tile's C channels;
+//   kMaximaAny the same for na1 angles, in register groups of kGroup;
 //   kGrads   the halo mask's input gradients: gx, gy written in f32, and
 //            per output tile the partial sum of gx^2 + gy^2 (its plane's
 //            nM is the sum of the partials, taken in tile order);
@@ -304,14 +313,15 @@ constexpr int kBarCons = 1, kBarWg0 = 2;
 //            prefilter's noise and clipped again when given, stored in the
 //            work dtype (polyblur_fused.py:503-517).
 // The halo's operand planes are p = (p / C, p % C) of the view.
-enum Epilogue { kMaxima = 0, kGrads = 1, kHalo = 2 };
+enum Epilogue { kMaxima = 0, kGrads = 1, kHalo = 2, kMaximaAny = 3 };
 
 struct EstGemm {
   pb::TileView src;   // the operand tiles
   int C, ph, pw;
   int planes;         // kMaxima: tiles; halo: tiles x C
-  const float* cs;    // kMaxima: (7, 2) cos, sin
-  float* maxima;      // kMaxima: (n, 7)
+  const float* cs;    // kMaxima(Any): (na1, 2) cos, sin
+  float* maxima;      // kMaxima(Any): (n, na1)
+  int na1;            // kMaxima(Any): angles (7 for kMaxima)
   float* gx;          // kGrads: (planes, ph, pw) out; kHalo: gx0 in
   float* gy;          //   "  gy0
   float* part;        // kGrads: (planes, ntile) out; kHalo: in
@@ -475,10 +485,10 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
                 const __grid_constant__ CUtensorMap tgt, const EstGemm p) {
   // kMaxima: the whole stage arrives by TMA; the halo's planes are
   // written by the producer warpgroups
-  constexpr bool TMAD = EPI == kMaxima;
+  constexpr bool TMAD = EPI == kMaxima || EPI == kMaximaAny;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
-  __shared__ float red[4][kAngles];
+  __shared__ float red[4][kGroup];
   __shared__ float s_nm;
   const uint32_t raw_u32 = pb::smem_u32(smem_raw);
   const uint32_t base = (raw_u32 + 1023u) & ~1023u;
@@ -675,6 +685,46 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
                   __float_as_int(v));
       }
       pb::named_barrier(kBarWg0, WG);
+    } else if (EPI == kMaximaAny) {
+      // the angles a0 .. a0 + 7 per pass, as kMaxima's 7
+      const float* __restrict__ cs = p.cs;
+      for (int a0 = 0; a0 < p.na1; a0 += kGroup) {
+        float m[kGroup];
+#pragma unroll
+        for (int a = 0; a < kGroup; ++a) m[a] = 0.f;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const int y = at.y0 + i0 + 8 * ((r >> 1) & 1);
+          const int x = at.x0 + j0 + 8 * (r >> 2) + (r & 1);
+          if (y < p.ph && x < p.pw) {
+#pragma unroll
+            for (int a = 0; a < kGroup; ++a) {
+              if (a0 + a < p.na1) {
+                const float d =
+                    __fsub_rn(__fmul_rn(cs[2 * (a0 + a)], ax[r]),
+                              __fmul_rn(cs[2 * (a0 + a) + 1], ay[r]));
+                m[a] = fmaxf(m[a], fabsf(d));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < kGroup; ++a) {
+          float v = m[a];
+          for (int o = 16; o > 0; o >>= 1)
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+          if (lane == 0) red[warp][a] = v;
+        }
+        pb::named_barrier(kBarWg0, WG);
+        if (t < kGroup && a0 + t < p.na1) {
+          const float v = fmaxf(fmaxf(red[0][t], red[1][t]),
+                                fmaxf(red[2][t], red[3][t]));
+          atomicMax(reinterpret_cast<int*>(p.maxima) +
+                        (long long)pl * p.na1 + a0 + t,
+                    __float_as_int(v));
+        }
+        pb::named_barrier(kBarWg0, WG);
+      }
     } else if (EPI == kGrads) {
       float part = 0.f;
 #pragma unroll
@@ -848,7 +898,7 @@ int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
                            TN) &&
             pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, 2, lh, lh * p.ph,
                            TM);
-  if (EPI == kMaxima)
+  if (EPI == kMaxima || EPI == kMaximaAny)
     ok = ok &&
          pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, 2LL * p.planes, ldp,
                         ldp * p.ph, TM) &&
@@ -860,7 +910,7 @@ int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
     fprintf(stderr, "estimate GEMM: cuTensorMapEncodeTiled refused a map\n");
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (EPI == kMaxima) {
+  if constexpr (EPI == kMaxima || EPI == kMaximaAny) {
     return launch_gemm_io<EPI, S, true>(p, m, s);
   } else {
     if (vec_ok(p.src, sizeof(S)))
@@ -871,14 +921,14 @@ int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
 
 template <typename S>
 int launch_minmax(const pb::TileView& v, int C, int ph, int pw, int rows,
-                  int n, float* mm, float* maxima, cudaStream_t s) {
+                  int na1, int n, float* mm, float* maxima, cudaStream_t s) {
   dim3 grid((ph + rows - 1) / rows, n);
   if (vec_ok(v, sizeof(S)))
-    gray_minmax_kernel<S, true><<<grid, 256, 0, s>>>(v, C, ph, pw, rows, mm,
-                                                     maxima);
+    gray_minmax_kernel<S, true><<<grid, 256, 0, s>>>(v, C, ph, pw, rows, na1,
+                                                     mm, maxima);
   else
-    gray_minmax_kernel<S, false><<<grid, 256, 0, s>>>(v, C, ph, pw, rows, mm,
-                                                      maxima);
+    gray_minmax_kernel<S, false><<<grid, 256, 0, s>>>(v, C, ph, pw, rows,
+                                                      na1, mm, maxima);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -888,29 +938,34 @@ int launch_minmax(const pb::TileView& v, int C, int ph, int pw, int rows,
 // split derivative tables (2, pw, pad64(pw)) and (2, ph, pad64(ph)) f32
 // (hi, lo); mm: (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2,
 // gt2: (n, 2, ph, pitch4(pw)) and (n, 2, pw, pitch4(ph)) f32 scratch;
-// maxima: (n, 7) f32 scratch; est: (n, 8) f32 output. stage selects the
+// na1: the angle count (n_angles + 1), cs: its (na1, 2) f32 cos / sin;
+// maxima: (n, na1) f32 scratch; est: (n, 8) f32 output. stage selects the
 // launch (1 min/max, 2 normalize, 3 GEMM, 4 final) so the wrapper can
 // count each; the directional maxima launch stages 1-3 only (wts, coeffs,
-// est unused).
+// est unused); stage 4 needs na1 = 7.
 extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
                                 int step_w, int n, int C, int ph, int pw,
-                                int rows, const float* dw2, const float* dh2,
+                                int rows, int na1, const float* dw2,
+                                const float* dh2,
                                 const float* cs, const float* wts,
                                 const float* coeffs, float* mm, float* g2,
                                 float* gt2, float* maxima, float* est,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 65535 || rows < 1 || (dtype != pb::kBF16 && dtype != pb::kF32))
+  if (n > 65535 || rows < 1 || na1 < 1 || (stage == 4 && na1 != kAngles) ||
+      (dtype != pb::kBF16 && dtype != pb::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool b16 = dtype == pb::kBF16;
   const pb::TileView v = pb::make_view(ptr, sB, sC, sR, batch, tile0,
                                        tiles_w, step_h, step_w);
   const int bands = (ph + rows - 1) / rows;
   if (stage == 1)
-    return b16 ? launch_minmax<pb::bf16>(v, C, ph, pw, rows, n, mm, maxima, s)
-               : launch_minmax<float>(v, C, ph, pw, rows, n, mm, maxima, s);
+    return b16 ? launch_minmax<pb::bf16>(v, C, ph, pw, rows, na1, n, mm,
+                                         maxima, s)
+               : launch_minmax<float>(v, C, ph, pw, rows, na1, n, mm, maxima,
+                                      s);
   if (stage == 2) {
     dim3 grid((pw + 31) / 32, (ph + 31) / 32, n);
     if (b16)
@@ -930,7 +985,10 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
     p.planes = n;
     p.cs = cs;
     p.maxima = maxima;
-    return launch_gemm<kMaxima, float>(p, dw2, dh2, g2, gt2, s);
+    p.na1 = na1;
+    if (na1 == kAngles)
+      return launch_gemm<kMaxima, float>(p, dw2, dh2, g2, gt2, s);
+    return launch_gemm<kMaximaAny, float>(p, dw2, dh2, g2, gt2, s);
   }
   if (stage == 4) {
     tile_est_final_kernel<<<n, 32, 0, s>>>(maxima, wts, coeffs, n, est);

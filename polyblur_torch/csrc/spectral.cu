@@ -4,8 +4,10 @@
 // kernel_spectrum replaces polyblur_tpu/ops/pallas/sep_poly_fused.py::
 // _kernel_spectrum_block and the Horner/packing lines of
 // polyblur_fused.py::_make_kernel (:372-373) and of sep_poly_fused.py::
-// _make_kernel (:316-319): per plane, the 25 x 25 masked, normalized
-// Gaussian from its quadratic form (qa, qb, qc) -> (25 x Kp) tap products
+// _make_kernel (:316-319): per plane, the T x T masked, normalized
+// Gaussian (T = 2 half + 1 taps: 25 on the patch engine's path, up to 31
+// for the whole-image polynomial, as the TPU kernel's 32-column tap tables
+// allow) from its quadratic form (qa, qb, qc) -> (T x Kp) tap products
 // against the x-phase tables -> (h x Kp) real OTF through the y-phase
 // tables, all f32; then p(K_hat) by Horner and the packed [q | q] * (1/h)
 // spectrum. The quadratic forms are read from rows of any stride (the
@@ -85,7 +87,7 @@ using pb::bf16;
 // give the 132 SMs several blocks. The block forms the plane's normalized
 // Gaussian and its x-pass (tap products) for its 64 columns in shared
 // memory (forming them once per plane in a first launch measured slower
-// at n = 1, 12 and 88: PERF.md, tools/spectrum_variants.py); then walks
+// at n = 1, 12 and 88: PERF.md, the kernel_spectrum row); then walks
 // its rows in passes of 64, staging the y-phase rows transposed in shared
 // memory, with each thread computing a 4 x 4 block of rows x columns from
 // float4 reads (4 loads for 32 FMAs) and writing both halves of the
@@ -93,33 +95,48 @@ using pb::bf16;
 // share start all their global loads at once. Every dot product sums in the
 // same order as the plain version's steps (taps t, then row offsets j,
 // ascending; one FMA each).
+//
+// The half-support is a template parameter H: the patch engine's 12 (ker
+// size 25) is its own instantiation, with every tap loop's trip count a
+// constant, as before; H = -1 takes the half-support (0 .. kMaxHalf) at
+// run time, with shared arrays sized for 31 taps (~36 KB).
 
-constexpr int kHalf = 12;
-constexpr int kTaps = 2 * kHalf + 1;
+constexpr int kHalf = 12;         // the patch engine's half-support
+constexpr int kMaxHalf = 15;      // 31 taps: the tap tables' 32 columns
 constexpr int kSpecCols = 64;     // spectrum columns per block
 constexpr int kSpecRows = 64;     // rows per pass: 16 row groups of 4
 constexpr int kSpecThreads = 256; // 16 column groups x 16 row groups
 constexpr int kYPitch = kSpecRows + 4;  // staged y-phase rows (16-byte rows)
 
+// taps the shared arrays of instantiation H hold
+template <int H>
+constexpr int spec_taps() { return 2 * (H < 0 ? kMaxHalf : H) + 1; }
+
+template <int H>
 struct SpecTaps {
-  float km[kTaps * kTaps];
+  static constexpr int T = spec_taps<H>();
+  float km[T * T];
   float red[8];
-  __align__(16) float hr[kTaps][kSpecCols];
-  __align__(16) float hi[kTaps][kSpecCols];
+  __align__(16) float hr[T][kSpecCols];
+  __align__(16) float hi[T][kSpecCols];
 };
 
-// The normalized 25 x 25 Gaussian of the quadratic form (qa, qb, qc) into
-// s.km, then its tap products against the x-phase tables for columns
-// k0 .. k0 + 63: s.hr[j][c] = sum_t km[j][t] er[t][k0 + c], t ascending;
-// s.hi likewise with ei. Ends with a barrier.
+// The normalized taps x taps Gaussian (taps = 2 half + 1; half = H when H
+// >= 0) of the quadratic form (qa, qb, qc) into s.km, then its tap
+// products against the x-phase tables for columns k0 .. k0 + 63:
+// s.hr[j][c] = sum_t km[j][t] er[t][k0 + c], t ascending; s.hi likewise
+// with ei. Ends with a barrier.
+template <int H>
 __device__ __forceinline__ void spectrum_taps(
     float qa, float qb, float qc, const float* __restrict__ er,
-    const float* __restrict__ ei, int kp, int k0, SpecTaps& s) {
+    const float* __restrict__ ei, int kp, int k0, int half, SpecTaps<H>& s) {
+  const int hf = H < 0 ? half : H;
+  const int kTaps = 2 * hf + 1;
   const int tid = threadIdx.x;
   float part = 0.f;
   for (int e = tid; e < kTaps * kTaps; e += kSpecThreads) {
-    const float jf = static_cast<float>(e / kTaps - kHalf);  // row offset
-    const float tf = static_cast<float>(e % kTaps - kHalf);  // column offset
+    const float jf = static_cast<float>(e / kTaps - hf);  // row offset
+    const float tf = static_cast<float>(e % kTaps - hf);  // column offset
     const float quad = __fadd_rn(
         __fadd_rn(__fmul_rn(__fmul_rn(qa, tf), tf),
                   __fmul_rn(__fmul_rn(__fmul_rn(2.f, qb), tf), jf)),
@@ -140,11 +157,11 @@ __device__ __forceinline__ void spectrum_taps(
   for (int e = tid; e < kTaps * kTaps; e += kSpecThreads)
     s.km[e] = __fmul_rn(s.km[e], inv_total);
   __syncthreads();
-  // thread: column c, tap rows j0, j0 + 4, .. (7 at most); each er / ei
-  // value is loaded once for all of them
+  // thread: column c, tap rows j0, j0 + 4, .. (7 at most for 25 taps, 8
+  // for 31); each er / ei value is loaded once for all of them
   const int c = tid % kSpecCols;
   const int j0 = tid / kSpecCols;
-  constexpr int kRowsPerThread = (kTaps + 3) / 4;
+  constexpr int kRowsPerThread = (SpecTaps<H>::T + 3) / 4;
   float sr[kRowsPerThread], si[kRowsPerThread];
 #pragma unroll
   for (int m = 0; m < kRowsPerThread; ++m) sr[m] = si[m] = 0.f;
@@ -175,6 +192,7 @@ __device__ __forceinline__ void spectrum_taps(
 
 // plane n's quadratic form is q[n * stride + off + 0..2] = (qa, qb, qc).
 // Block (x, y, z) = (64 columns, `rows` rows, plane).
+template <int H>
 __global__ void __launch_bounds__(kSpecThreads)
 kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
                        const float* __restrict__ coeffs,
@@ -182,17 +200,20 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
                        const float* __restrict__ ei,   // (128, kp)
                        const float* __restrict__ cyt,  // (h, 32)
                        const float* __restrict__ syt,  // (h, 32)
-                       int h, int kp, int rows, float* __restrict__ qhat2) {
-  __shared__ SpecTaps s;
-  __shared__ __align__(16) float cys[kTaps][kYPitch];
-  __shared__ __align__(16) float sys[kTaps][kYPitch];
+                       int h, int kp, int rows, int half,
+                       float* __restrict__ qhat2) {
+  constexpr int T = SpecTaps<H>::T;
+  __shared__ SpecTaps<H> s;
+  __shared__ __align__(16) float cys[T][kYPitch];
+  __shared__ __align__(16) float sys[T][kYPitch];
+  const int kTaps = 2 * (H < 0 ? half : H) + 1;
   const int n = blockIdx.z;
   const int k0 = blockIdx.x * kSpecCols;
   const int r0 = blockIdx.y * rows;
   const int r1 = min(h, r0 + rows);
   const int tid = threadIdx.x;
   const float* qn = q + (long long)n * stride + off;
-  spectrum_taps(qn[0], qn[1], qn[2], er, ei, kp, k0, s);
+  spectrum_taps<H>(qn[0], qn[1], qn[2], er, ei, kp, k0, half, s);
   const float a3 = coeffs[0], a2 = coeffs[1], a1 = coeffs[2], beta = coeffs[3];
   const float inv_h = __fdiv_rn(1.f, static_cast<float>(h));
   const int cg = tid % 16, rg = tid / 16;
@@ -906,20 +927,26 @@ static int spectrum_rows(int n, int h, int kp) {
 
 // q: n rows of `stride` f32 with (qa, qb, qc) at column `off` (the (n, 8)
 // estimate rows: stride 8, off 5; fused_polynomial's (N, 3) params: 3, 0);
-// coeffs: f32 [a3, a2, a1, beta, ..]; qhat2: (n, h, 2 kp) f32 output; kp a
-// multiple of 64.
+// coeffs: f32 [a3, a2, a1, beta, ..]; half: the kernel half-support (0 ..
+// 15; the tap tables hold its 2 half + 1 taps); qhat2: (n, h, 2 kp) f32
+// output; kp a multiple of 64.
 extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
                                   const float* coeffs, const float* er,
                                   const float* ei, const float* cyt,
                                   const float* syt, int n, int h, int kp,
-                                  float* qhat2, void* stream) {
+                                  int half, float* qhat2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kp % kSpecCols != 0 || n < 1 || n > 65535)
+  if (kp % kSpecCols != 0 || n < 1 || n > 65535 || half < 0 ||
+      half > kMaxHalf)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = spectrum_rows(n, h, kp);
   dim3 grid(kp / kSpecCols, (h + rows - 1) / rows, n);
-  kernel_spectrum_kernel<<<grid, kSpecThreads, 0, s>>>(
-      q, stride, off, coeffs, er, ei, cyt, syt, h, kp, rows, qhat2);
+  if (half == kHalf)
+    kernel_spectrum_kernel<kHalf><<<grid, kSpecThreads, 0, s>>>(
+        q, stride, off, coeffs, er, ei, cyt, syt, h, kp, rows, half, qhat2);
+  else
+    kernel_spectrum_kernel<-1><<<grid, kSpecThreads, 0, s>>>(
+        q, stride, off, coeffs, er, ei, cyt, syt, h, kp, rows, half, qhat2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from .ops.fourier import fft_convolve2d
+from .ops.conv import convolve2d
 from .ops.gaussian import batch_gaussian_kernels
 
 __all__ = ["edgetaper", "edgetaper_alpha"]
-
-_TODO_DIRECT = "ROADMAP A.8 (ops/conv.py: method='direct')"
 
 
 def _projection_autocorr(proj: torch.Tensor, n: int) -> torch.Tensor:
@@ -54,8 +52,9 @@ def edgetaper(img: torch.Tensor, kernel, n_tapers: int = 3,
               method: str = "fft", ksize: int = 25) -> torch.Tensor:
     """Blend the image borders with blurred copies (edgetaper.py:26-33).
 
-    ``kernel`` is a (B, C, h, w) tensor (blurred by the circular FFT
-    convolution; ``method='direct'`` is not ported), or a ``(sigma, rho,
+    ``kernel`` is a (B, C, h, w) tensor, blurred by ``ops.conv.convolve2d``
+    with ``method`` (the circular FFT convolution for ``'fft'``, the zero
+    'same' grouped convolution for ``'direct'``), or a ``(sigma, rho,
     theta)`` tuple of (B, C') tensors: the weight map then comes from the
     parametric kernels and the blur is the exact sampled-kernel circular
     convolution ``ops.sep_poly.spectral_blur`` (the fused or blocked
@@ -72,11 +71,8 @@ def edgetaper(img: torch.Tensor, kernel, n_tapers: int = 3,
             blurred = spectral_blur(img, sigma, rho, theta, ker_size=ksize)
             img = alpha * img + (1.0 - alpha) * blurred
         return img
-    if method != "fft":
-        raise NotImplementedError(f"edgetaper with method={method!r}: see "
-                                  f"{_TODO_DIRECT}")
     alpha = edgetaper_alpha(kernel, (h, w)).to(img.dtype)
     for _ in range(n_tapers):
-        blurred = fft_convolve2d(img, kernel)
+        blurred = convolve2d(img, kernel, method=method)
         img = alpha * img + (1.0 - alpha) * blurred
     return img

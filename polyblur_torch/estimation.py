@@ -6,13 +6,15 @@ gradient maxima -> Keys-cubic interpolation to a finer angle grid -> argmin
 angle (the blur direction) -> affine model ``sigma^2 = c^2 / f^2 - b^2``
 with clamping.
 
-The port runs the q = 0, no-saturation branch with the C == 3 (or not
-multichannel) gray collapse, returning the ``(sigma, rho, theta)``
-parameters or the 2D kernels. The directional maxima of images up to
+Every branch of the JAX package (polyblur_tpu/estimation.py) is here: the
+C == 3 (or not multichannel) gray collapse or, for ``multichannel`` images
+of another channel count, each channel estimated on its own; ``q > 0``
+quantile normalization; the ``discard_saturation`` mask; any ``n_angles``.
+The q = 0, no-saturation directional maxima of images up to
 ``MEGA_MAX_TILE`` go through the fused reduction
-(``ops.cuda.est_fused.directional_maxima``), larger ones through the plain
-chain of spectral gradients, as the JAX package runs XLA there. The plain
-version of the patch engine's per-tile estimate
+(``ops.cuda.est_fused.directional_maxima``), larger ones and the other
+branches through the plain chain of spectral gradients, as the JAX package
+runs XLA there. The plain version of the patch engine's per-tile estimate
 (``ops.cuda.polyblur_fused.tile_estimate_plain``) is built from the steps
 here, fed with the kernel's host tables.
 """
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .envelopes import MEGA_MAX_TILE
@@ -31,11 +34,9 @@ from .utils.profiling import record_dispatch
 
 __all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
            "compute_gaussian_parameters", "cubic_interpolator",
-           "angle_grids", "normalize_range", "directional_maxima",
-           "keys_weights", "weighted_sum", "blur_direction",
-           "clamped_variances"]
-
-_TODO = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
+           "angle_grids", "normalize_range", "normalize_quantiles",
+           "quantile_linear", "directional_maxima", "keys_weights",
+           "weighted_sum", "blur_direction", "clamped_variances"]
 
 
 def angle_grids(n_angles: int, n_interpolated_angles: int,
@@ -60,6 +61,41 @@ def normalize_range(x: torch.Tensor) -> torch.Tensor:
     return clip_as_jax(v, 0.0, 1.0)
 
 
+def quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """(..., 1) ``q``-quantile of ``x`` over its last axis, linearly
+    interpolated between the sorted neighbours, in ``x``'s dtype:
+    ``jnp.quantile``'s arithmetic (the position ``q (n - 1)`` and the
+    weights in f32, the two values weighted in f32 and rounded once; NaN
+    when the row holds one). ``torch.quantile`` refuses bf16 and rows past
+    2^24 elements, which a 12 MP image has."""
+    n = x.shape[-1]
+    pos = np.float32(q) * np.float32(n - 1)
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w_hi = np.float32(pos - lo)
+    w_lo = np.float32(np.float32(1.0) - w_hi)
+    lo, hi = (int(min(max(v, 0), n - 1)) for v in (lo, hi))
+    xs = torch.sort(x, dim=-1).values
+    f32 = torch.float32
+    v = (xs[..., lo:lo + 1].float() * torch.tensor(w_lo, dtype=f32)
+         + xs[..., hi:hi + 1].float() * torch.tensor(w_hi, dtype=f32))
+    nan = torch.isnan(x).any(dim=-1, keepdim=True)
+    return torch.where(nan, torch.nan, v).to(x.dtype)
+
+
+def normalize_quantiles(x: torch.Tensor, q: float = 0.0) -> torch.Tensor:
+    """Range-normalize every (b, c) slice of a (B, C, H, W) batch: by the
+    (q, 1 - q) quantiles for q > 0, by min/max otherwise
+    (:func:`normalize_range`), guarded and clipped to [0, 1]
+    (polyblur_tpu/estimation.py:38-55)."""
+    if q <= 0:
+        return normalize_range(x)
+    flat = x.reshape(x.shape[:2] + (-1,))
+    vmin = quantile_linear(flat, q)[..., None]
+    vmax = quantile_linear(flat, 1.0 - q)[..., None]
+    v = (x - vmin) / torch.clamp(vmax - vmin, min=1e-8)
+    return clip_as_jax(v, 0.0, 1.0)
+
+
 def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
                        cs: torch.Tensor) -> torch.Tensor:
     """(..., n) maxima over the last two axes of ``|cos t gx - sin t gy|``
@@ -68,12 +104,19 @@ def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
                         .amax(dim=(-2, -1)) for a in range(cs.shape[0])], -1)
 
 
-def _mags_xla(img: torch.Tensor, n_angles: int) -> torch.Tensor:
-    """min/max normalize -> spectral gradients -> directional maxima
-    (the q=0 path) in the image dtype, as the JAX package's XLA chain runs
-    on every backend (the gradients are computed in f32 and rounded).
-    ``img`` is (B, C, H, W); returns (B, n_angles + 1)."""
-    gx, gy = spectral_gradients(normalize_range(img))
+def _mags_xla(img: torch.Tensor, n_angles: int, q: float = 0.0,
+              discard_saturation: bool = False) -> torch.Tensor:
+    """normalize -> spectral gradients -> directional maxima in the image
+    dtype, as the JAX package's XLA chain runs on every backend (the
+    gradients are computed in f32 and rounded): min/max or, for q > 0,
+    quantile normalization; with ``discard_saturation`` the gradients of
+    the pixels above 0.99 (of the image as given) are zeroed
+    (polyblur_tpu/estimation.py:184-195). ``img`` is (B, C, H, W);
+    returns (B, n_angles + 1)."""
+    gx, gy = spectral_gradients(normalize_quantiles(img, q))
+    if discard_saturation:
+        mask = img > 0.99
+        gx, gy = gx.masked_fill(mask, 0.0), gy.masked_fill(mask, 0.0)
     angles = torch.linspace(0.0, math.pi, n_angles + 1,
                             device=img.device).to(img.dtype)
     return directional_maxima(
@@ -95,9 +138,6 @@ def _mags_fast(img: torch.Tensor, n_angles: int) -> torch.Tensor:
         from .ops.cuda.autograd import replay
         from .ops.cuda.est_fused import directional_maxima as fused
 
-        if n_angles != 6:
-            raise NotImplementedError(f"n_angles={n_angles}: the fused "
-                                      f"reduction has 7 angles; see {_TODO}")
         record_dispatch("directional_maxima", "fused")
         return replay(lambda x: fused(x, n_angles).to(x.dtype),
                       lambda x: _mags_xla(x, n_angles), img)
@@ -220,26 +260,35 @@ def gaussian_blur_estimation(img: torch.Tensor, c=0.362, b=0.468,
     """Estimate per-image Gaussian blur parameters.
 
     :param img: (B, C, H, W) blurry image(s) in [0, 1]
-    :return: the (B, 1, ker_size, ker_size) kernels, or the ``(sigma, rho,
-        theta)`` tuple of (B, 1) tensors when ``return_2d_filters`` is
-        False, in the image dtype. As in the JAX package, the gray mean,
-        the plain maxima chain, the angle grids, the interpolation and the
-        blur model run in the image dtype; the fused maxima (and the plain
+    :return: the (B, C', ker_size, ker_size) kernels, or the ``(sigma,
+        rho, theta)`` tuple of (B, C') tensors when ``return_2d_filters``
+        is False, in the image dtype; C' = C for a ``multichannel`` image
+        of C != 3 channels (each estimated on its own), else 1 (the
+        channel mean). As in the JAX package, the gray mean, the plain
+        maxima chain, the angle grids, the interpolation and the blur
+        model run in the image dtype; the fused maxima (and the plain
         chain's gradients) are computed in f32 and rounded to it.
     """
-    if (q != 0.0 or discard_saturation
-            or (multichannel and img.shape[1] != 3)):
-        raise NotImplementedError(
-            "polyblur_torch estimates only the q=0, no-saturation, "
-            f"gray-collapsed parameters so far; see {_TODO}")
     dev, dt = img.device, img.dtype
     thetas, interpolated_thetas = angle_grids(n_angles, n_interpolated_angles,
                                               dt)
-    gray = img.mean(dim=1, keepdim=True)
-    mags = _mags_fast(gray, n_angles)
+    if img.shape[1] == 3 or not multichannel:
+        img = img.mean(dim=1, keepdim=True)
+    bsz, csz = img.shape[:2]
+    # each channel on its own: a (B C, 1, H, W) batch (the JAX package's
+    # vmap over channels)
+    planes = img.reshape(bsz * csz, 1, *img.shape[-2:])
+    if q == 0.0 and not discard_saturation:
+        mags = _mags_fast(planes, n_angles)
+    else:
+        record_dispatch("directional_maxima", "plain")
+        mags = _mags_xla(planes, n_angles, q, discard_saturation)
     m_n, m_o, theta = find_maximal_blur_direction(
         mags, thetas[None].to(dev), interpolated_thetas[None].to(dev))
     sigma, rho = compute_gaussian_parameters(m_n, m_o, c=c, b=b)
+    sigma, rho, theta = (v.reshape(bsz, csz) for v in (sigma, rho, theta))
     if not return_2d_filters:
         return sigma, rho, theta
-    return batch_gaussian_kernels(theta, sigma, rho, ker_size).to(dt)
+    k = batch_gaussian_kernels(theta.reshape(-1, 1), sigma.reshape(-1, 1),
+                               rho.reshape(-1, 1), ker_size)
+    return k.reshape(bsz, csz, ker_size, ker_size).to(dt)

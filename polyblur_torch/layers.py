@@ -51,8 +51,9 @@ class PolyblurLayer(nn.Module):
     :param c, b, alpha, beta: the pipeline scalars (initial values when
         ``learnable``)
     :param learnable: make (c, b, alpha, beta) f32 parameters
-    :param method: ``'fft'`` (exact) or ``'direct_separable'`` (the
-        kernels' route)
+    :param method: ``'fft'`` (exact), ``'direct_separable'`` (the
+        kernels' route) or ``'direct'`` (spatial convolutions, the
+        reference's method on CUDA)
     :param remat: checkpoint each iteration (recomputed in the backward)
     :param patch_size: > 0 routes the forward through the patch engine
         (``deblur_patches``) with ``patch_overlap``: the megapixel

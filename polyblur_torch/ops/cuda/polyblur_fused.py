@@ -73,9 +73,10 @@ __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "polyblur_tiles_fused", "polyblur_image_fused",
            "estimate_rows", "estimate_launches", "launch_estimate",
            "launch_spectrum", "launch_spectral_gemm",
-           "spectral_gemm_launches", "HALF", "pad64"]
+           "spectral_gemm_launches", "HALF", "MAX_HALF", "pad64"]
 
 HALF = 12            # kernel half-support (ker_size 25)
+MAX_HALF = 15        # 31 taps: the tap tables' 32 columns
 _N_EST = 8           # est row: [idx, mn, mo, sigma2, rho2, qa, qb, qc]
 _DEG6 = 6.0 * math.pi / 180.0
 
@@ -142,7 +143,7 @@ class EstimateTables(NamedTuple):
     """Constant tables of the blur estimate for one tile size."""
     dw: torch.Tensor     # (pw, pw) f32 x-derivative
     dh: torch.Tensor     # (ph, ph) f32 y-derivative
-    cs: torch.Tensor     # (7, 2) f32 cos/sin of the directional angles
+    cs: torch.Tensor     # (n_angles + 1, 2) f32 cos/sin of the angles
     wts: torch.Tensor    # (30, 7) f32 Keys interpolation weights
     dw2: torch.Tensor    # (2, pw, pad64(pw)) f32 [hi; lo] of dw (3xTF32)
     dh2: torch.Tensor    # (2, ph, pad64(ph)) f32 [hi; lo] of dh
@@ -164,10 +165,15 @@ def _split_tf32(a: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def estimate_tables(ph: int, pw: int, device: str) -> EstimateTables:
+def estimate_tables(ph: int, pw: int, device: str,
+                    n_angles: int = N_ANGLES) -> EstimateTables:
     """The estimate tables for (ph, pw) tiles on ``device`` (built once on
-    the host and cached)."""
-    angles = [k * math.pi / N_ANGLES for k in range(N_ANGLES + 1)]
+    the host and cached). The directional angles are the JAX kernel's,
+    ``k pi / n_angles`` in Python floats, their cos / sin rounded to f32
+    (polyblur_tpu/ops/pallas/est_fused.py:33)."""
+    if n_angles < 1:
+        raise ValueError(f"n_angles must be >= 1, got {n_angles}")
+    angles = [k * math.pi / n_angles for k in range(n_angles + 1)]
     cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
     dw, dh = _derivative_matrix_np(pw), _derivative_matrix_np(ph)
     return EstimateTables(*(torch.tensor(a, device=device) for a in (
@@ -180,7 +186,8 @@ class StageTables(NamedTuple):
     product tables are the GEMM operands of ``csrc/spectral.cu`` as they
     lie in memory: K-major, K zero-padded to a multiple of 64
     (:func:`pad64`)."""
-    pad: int             # pad/crop width: HALF, or 0 (canvas = the tile)
+    pad: int             # pad/crop width: the half-support, or 0 (canvas
+                         # = the tile)
     er: torch.Tensor     # (128, kp) f32 x tap phases (cos)
     ei: torch.Tensor     # (128, kp) f32 x tap phases (-sin)
     cyt: torch.Tensor    # (h, 32) f32 y tap phases (cos)
@@ -189,6 +196,7 @@ class StageTables(NamedTuple):
     inv_t: torch.Tensor  # (wc, 2 kp) work dtype, inverse [Ai ; Bi]^T
     ydft: torch.Tensor   # (2 h, pad64(2 h)) work dtype, [[Cy, Sy], [-Sy, Cy]]
     ydft_inv: torch.Tensor  # (2 h, pad64(2 h)), [[Cy, -Sy], [Sy, Cy]]
+    half: int = HALF     # kernel half-support of the tap tables
 
     @property
     def h(self) -> int:
@@ -214,18 +222,22 @@ def _k_padded(a: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
-                 pad: int = HALF) -> StageTables:
+                 pad: int = HALF, half: int = HALF) -> StageTables:
     """The spectral tables for (ph, pw) tiles padded by ``pad`` in work
     dtype ``dtype`` on ``device`` (built once on the host from
-    ops/tables.py and cached). The kernel taps always span 2 HALF + 1.
+    ops/tables.py and cached). The kernel taps span 2 ``half`` + 1 (25 on
+    the patch engine's path; ``half`` <= ``MAX_HALF``).
 
     The y-DFT pair acts on stacked real and imaginary parts: the forward
     ``[Yr ; Yi] = [[Cy, Sy], [-Sy, Cy]] [Rr ; Ri]`` and the inverse
     ``[[Cy, -Sy], [Sy, Cy]]``, so that no product needs a half-swap or a
     sign in its operand loads; every entry is +-Cy or +-Sy, rounded to the
     work dtype alike."""
+    if not 0 <= half <= MAX_HALF:
+        raise ValueError(f"half-support {half} past the {2 * MAX_HALF + 1}"
+                         f"-tap tables")
     h, wc = ph + 2 * pad, pw + 2 * pad
-    er, ei, cyt, syt = _tap_tables_np(h, wc, HALF)
+    er, ei, cyt, syt = _tap_tables_np(h, wc, half)
     fwd, inv = _dft_operands_packed(wc)
     cy, sy = _ydft_mats_np(h)
     t2 = np.block([[cy, sy], [-sy, cy]])
@@ -239,7 +251,7 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
 
     return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt),
                        wd(_k_padded(fwd.T)), wd(inv.T), wd(_k_padded(t2)),
-                       wd(_k_padded(t3)))
+                       wd(_k_padded(t3)), half)
 
 
 # ------------------------------------------------------------- estimation
@@ -255,12 +267,12 @@ def _gray_norm_plain(view: TileView) -> torch.Tensor:
     return normalize_range(gray * torch.tensor(1.0 / c, dtype=torch.float32))
 
 
-def _maxima_plain(view: TileView) -> torch.Tensor:
-    """(n, 7) directional gradient maxima of the tiles' normalized gray
-    images (stages 1-2 of the estimate kernel): the steps of
-    ``estimation`` on the kernel's tables."""
+def _maxima_plain(view: TileView, n_angles: int = N_ANGLES) -> torch.Tensor:
+    """(n, n_angles + 1) directional gradient maxima of the tiles'
+    normalized gray images (stages 1-3 of the estimate kernel): the steps
+    of ``estimation`` on the kernel's tables."""
     require_full_f32(view.data)
-    t = estimate_tables(*view.patch, str(view.data.device))
+    t = estimate_tables(*view.patch, str(view.data.device), n_angles)
     g = _gray_norm_plain(view)
     return directional_maxima(g @ t.dw.T, t.dh @ g, t.cs)
 
@@ -300,20 +312,22 @@ def _pitch4(n: int) -> int:
 
 
 def estimate_launches(view: TileView, name: str,
-                      coeffs: torch.Tensor | None = None):
+                      coeffs: torch.Tensor | None = None,
+                      n_angles: int = N_ANGLES):
     """The four launches of ``csrc/estimate.cu`` over the tiles of
-    ``view``, not yet run: (maxima (n, 7) f32, est (n, 8) f32, [stage 1,
+    ``view``, not yet run: (maxima (n, n_angles + 1) f32, est (n, 8) f32,
+    [stage 1,
     .., stage 4]), each a callable that launches its stage and counts it
     under ``name``. Stage 1 is the gray min/max pass, 2 the normalization
     (g and its transpose, split for the tensor cores), 3 the derivative
     GEMM with the directional maxima, 4 the final model (it writes
-    ``est``). Run in order they are the estimate; one alone reruns its
-    stage on what the last run left."""
+    ``est``; at ``n_angles`` = 6 only). Run in order they are the
+    estimate; one alone reruns its stage on what the last run left."""
     check_cuda(name, view.data)
     if view.n > 65535:
         raise ValueError(f"{name}: {view.n} tiles exceed the launch grid")
     ph, pw = view.patch
-    t = estimate_tables(ph, pw, str(view.data.device))
+    t = estimate_tables(ph, pw, str(view.data.device), n_angles)
     dev = view.data.device
     rows = _band_rows(ph, view.n)
     mm = torch.empty((view.n, -(-ph // rows), 2), dtype=torch.float32,
@@ -322,7 +336,7 @@ def estimate_launches(view: TileView, name: str,
                      device=dev)
     gt2 = torch.empty((view.n, 2, pw, _pitch4(ph)), dtype=torch.float32,
                       device=dev)
-    maxima = torch.empty((view.n, N_ANGLES + 1), dtype=torch.float32,
+    maxima = torch.empty((view.n, n_angles + 1), dtype=torch.float32,
                          device=dev)
     est = torch.empty((view.n, _N_EST), dtype=torch.float32, device=dev)
     if coeffs is None:
@@ -331,10 +345,10 @@ def estimate_launches(view: TileView, name: str,
     check_cuda(name, coeffs)
     lib = library("estimate")
     fn = lib.pb_tile_estimate
-    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 5 + [_P] * 10 + [_P]
+    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 6 + [_P] * 10 + [_P]
     fn.restype = _I
     args = ([dtype_code(view.data.dtype)] + view.c_args()
-            + [view.n, view.channels, ph, pw, rows]
+            + [view.n, view.channels, ph, pw, rows, n_angles + 1]
             + [p.data_ptr() for p in (t.dw2, t.dh2, t.cs, t.wts, coeffs, mm,
                                       g2, gt2, maxima, est)]
             + [stream_of(view.data)])
@@ -354,12 +368,16 @@ def estimate_launches(view: TileView, name: str,
 
 
 def launch_estimate(view: TileView, stages, name: str,
-                    coeffs: torch.Tensor | None = None):
+                    coeffs: torch.Tensor | None = None,
+                    n_angles: int = N_ANGLES):
     """Launch the given stages (of 1-4; see :func:`estimate_launches`)
     over the tiles of ``view``, each counted under ``name``. Returns
-    (maxima (n, 7) f32, est (n, 8) f32); ``est`` is written by stage 4
-    only."""
-    maxima, est, runs = estimate_launches(view, name, coeffs)
+    (maxima (n, n_angles + 1) f32, est (n, 8) f32); ``est`` is written by
+    stage 4 only."""
+    if 4 in stages and n_angles != N_ANGLES:
+        raise ValueError(f"{name}: the final stage is built for n_angles="
+                         f"{N_ANGLES}")
+    maxima, est, runs = estimate_launches(view, name, coeffs, n_angles)
     for stage in stages:
         runs[stage - 1]()
     return maxima, est
@@ -388,7 +406,7 @@ def spectrum_plain(qa, qb, qc, coeffs: torch.Tensor,
     ``ops.sep_poly`` on the kernel's tables."""
     require_full_f32(qa)
     h = tables.cyt.shape[0]
-    km = gaussian_taps(qa, qb, qc, HALF)
+    km = gaussian_taps(qa, qb, qc, tables.half)
     khat = otf_from_taps(km, tables.er, tables.ei, tables.cyt, tables.syt)
     qhat = _horner_spectrum(khat, (coeffs[0], coeffs[1], coeffs[2],
                                    coeffs[3]))
@@ -418,12 +436,12 @@ def launch_spectrum(q: torch.Tensor, off: int, coeffs: torch.Tensor,
     qhat2 = torch.empty((n, h, 2 * kp), dtype=torch.float32, device=q.device)
     lib = library("spectral")
     fn = lib.pb_kernel_spectrum
-    fn.argtypes = [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P, _P]
+    fn.argtypes = [_P, _I, _I] + [_P] * 5 + [_I] * 4 + [_P, _P]
     fn.restype = _I
     err = fn(q.data_ptr(), q.shape[1], off, coeffs.data_ptr(),
              tables.er.data_ptr(), tables.ei.data_ptr(),
              tables.cyt.data_ptr(), tables.syt.data_ptr(), n, h, kp,
-             qhat2.data_ptr(), stream_of(q))
+             tables.half, qhat2.data_ptr(), stream_of(q))
     count_launch(name)
     check(lib, err, name)
     return qhat2

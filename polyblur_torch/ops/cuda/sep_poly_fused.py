@@ -8,9 +8,12 @@ DFT products, an optional replicate pad by the kernel half-support (with
 the crop) and an optional clip to [0, 1]. The TPU holds one plane's canvas,
 spectra and tables in VMEM; here it is the patch engine's kernels of
 ``csrc/spectral.cu`` (see ops/cuda/polyblur_fused.py), generalized:
-``kernel_spectrum`` reads the (N, 3) params rows directly, and the four
-``spectral_gemm`` launches take a pad/crop width of 12 or 0 and a clip
-flag. 1 + 4 launches per application, counted as ``fused_polynomial``.
+``kernel_spectrum`` reads the (N, 3) params rows directly and takes the
+kernel half-support (12, the patch engine's, is its own instantiation; any
+other up to 15, as the TPU kernel's 32-column tap tables allow), and the
+four ``spectral_gemm`` launches take a pad/crop width of the half-support
+or 0 and a clip flag. 1 + 4 launches per application, counted as
+``fused_polynomial``.
 
 Callers: ``ops.sep_poly._apply_param_operator`` with the replicate pad on
 whole images up to a 664 px canvas, and ``ops.sep_poly._blocked_polynomial``
@@ -42,13 +45,13 @@ from .polyblur_fused import (HALF, TileView, launch_spectral_gemm,
 __all__ = ["fused_polynomial", "fused_polynomial_plain"]
 
 
-def _view_and_tables(x, replicate_pad: bool):
+def _view_and_tables(x, replicate_pad: bool, half: int):
     """(view, spectral tables) of an (N, H, W) tensor (one channel per
-    plane) or a :class:`TileView`."""
+    plane) or a :class:`TileView`, for ``2 half + 1`` taps."""
     view = x if isinstance(x, TileView) else TileView.of_tiles(
         x.contiguous()[:, None])
     tables = stage_tables(*view.patch, view.data.dtype, str(view.data.device),
-                          HALF if replicate_pad else 0)
+                          half if replicate_pad else 0, half)
     return view, tables
 
 
@@ -57,12 +60,12 @@ def _shape_like(out: torch.Tensor, x) -> torch.Tensor:
 
 
 def fused_polynomial_plain(x, params: torch.Tensor, coeffs: torch.Tensor,
-                           replicate_pad: bool = False,
-                           clip: bool = False) -> torch.Tensor:
+                           replicate_pad: bool = False, clip: bool = False,
+                           half: int = HALF) -> torch.Tensor:
     """Plain version of :func:`fused_polynomial`: the spectrum of
     ``ops.sep_poly`` and the same four products, rounded where the kernel
     rounds."""
-    view, tables = _view_and_tables(x, replicate_pad)
+    view, tables = _view_and_tables(x, replicate_pad, half)
     params = params.float()
     q2 = spectrum_plain(params[:, 0], params[:, 1], params[:, 2],
                         coeffs.float(), tables)
@@ -70,8 +73,8 @@ def fused_polynomial_plain(x, params: torch.Tensor, coeffs: torch.Tensor,
 
 
 def fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
-                     replicate_pad: bool = False,
-                     clip: bool = False) -> torch.Tensor:
+                     replicate_pad: bool = False, clip: bool = False,
+                     half: int = HALF) -> torch.Tensor:
     """p(K) on a plane batch.
 
     :param x: (N, H, W) planes in the work dtype (f32 or bf16; rectangles
@@ -81,10 +84,11 @@ def fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
         (``ops.sep_poly.gaussian_quadratic_coeffs``)
     :param coeffs: Horner coefficients [a3, a2, a1, beta]: a (4,) vector,
         or the first four of the (8,) ``pipeline._mega_pack`` vector
-    :param replicate_pad: pad by the kernel half-support (12) before and
-        crop after (whole images); else the canvas is the plane itself
+    :param replicate_pad: pad by the kernel half-support before and crop
+        after (whole images); else the canvas is the plane itself
         (circular, the overlap-save blocks)
     :param clip: clip the result to [0, 1]
+    :param half: the kernel half-support, ``ker_size // 2`` (0 .. 15)
     :returns: same shape and dtype as ``x`` ((n, C, ph, pw) for a view)
     """
     def on(data):
@@ -92,17 +96,20 @@ def fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
 
     data = x.data if isinstance(x, TileView) else x
     return replay(
-        lambda d, p, c: _fused_polynomial(on(d), p, c, replicate_pad, clip),
+        lambda d, p, c: _fused_polynomial(on(d), p, c, replicate_pad, clip,
+                                          half),
         lambda d, p, c: fused_polynomial_plain(on(d), p, c, replicate_pad,
-                                               clip),
+                                               clip, half),
         data, params, coeffs)
 
 
 def _fused_polynomial(x, params: torch.Tensor, coeffs: torch.Tensor,
-                      replicate_pad: bool, clip: bool) -> torch.Tensor:
-    view, tables = _view_and_tables(x, replicate_pad)
+                      replicate_pad: bool, clip: bool,
+                      half: int) -> torch.Tensor:
+    view, tables = _view_and_tables(x, replicate_pad, half)
     if runs_plain(view.data):
-        return fused_polynomial_plain(x, params, coeffs, replicate_pad, clip)
+        return fused_polynomial_plain(x, params, coeffs, replicate_pad, clip,
+                                      half)
     if params.shape != (view.n, 3):
         raise ValueError(f"fused_polynomial: params {tuple(params.shape)} "
                          f"for {view.n} planes")

@@ -41,10 +41,6 @@ __all__ = ["gaussian_quadratic_coeffs", "quadratic_form", "gaussian_taps",
            "otf_from_taps", "kernel_spectrum", "compute_polynomial_separable",
            "spectral_blur"]
 
-_TODO_KER = ("ROADMAP A.3 (ker_size other than 25 on the kernels: "
-             "csrc/spectral.cu has 25 taps)")
-
-
 def quadratic_form(sigma2, rho2, theta):
     """(a, b, c) of the kernel's quadratic form from the variances along
     and across the blur direction ``theta`` (radians)."""
@@ -185,8 +181,8 @@ def _apply_param_operator(img, sigma, rho, theta, horner, prepad: bool,
         raise ValueError("sigma/rho/theta must be (B, C') tensors")
     bsz, csz, h, w = img.shape
     half = ker_size // 2
-    if half != 12:
-        raise NotImplementedError(f"ker_size={ker_size}: see {_TODO_KER}")
+    if half > 15:
+        raise ValueError("ker_size > 31 exceeds the kernel tap tables")
     use_fused = (not prefer_xla
                  and _fused_path_eligible(h, w, prepad, half=half))
     if prepad and not use_fused:
@@ -205,7 +201,8 @@ def _apply_param_operator(img, sigma, rho, theta, horner, prepad: bool,
     if use_fused:
         record_dispatch("compute_polynomial_separable", "fused")
         out = fused_polynomial(x, torch.stack([a, b, c], -1),
-                               f32_vector(horner, x.device), prepad, clip)
+                               f32_vector(horner, x.device), prepad, clip,
+                               half)
         return out.reshape(bsz, csz, h, w)
     if prefer_xla:
         record_dispatch("compute_polynomial_separable", "xla_sep")
@@ -310,7 +307,8 @@ def _blocked_polynomial(x: torch.Tensor, a, b, c, horner, half: int,
     view, (th, b0h, tw, b0w, ap) = _block_view(x, half, block)
     bh, bw = view.patch
     params = torch.stack([a, b, c], -1).float().repeat(th * tw, 1)
-    out = fused_polynomial(view, params, f32_vector(horner, x.device))
+    out = fused_polynomial(view, params, f32_vector(horner, x.device),
+                           half=half)
     # (th tw n, 1, bh, bw), tile-major -> cores -> (n, th b0h, tw b0w)
     out = out.reshape(th, tw, n, bh, bw)[..., ap:ap + b0h, ap:ap + b0w]
     out = out.permute(2, 0, 3, 1, 4).reshape(n, th * b0h, tw * b0w)

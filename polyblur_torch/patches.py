@@ -11,11 +11,14 @@ overlap-add. On the card the path is the kernels of ``ops/cuda``:
 Tiles are cut from the padded canvas by index (no extracted tile tensor);
 every regular grid and every batch size takes this one route, with the
 feature flags (prefilter, edgetaper, halo removal) as stages of
-``pipeline.restore_tiles``. Methods other than ``'direct_separable'``
-(``'fft'``), ``remat``, and feature flags on tiles past the tiles route's
-edge (``pipeline.mega_tile_cap``), take the composed route of the JAX
-package (patches.py:479-500): extract the tiles, run
-``pipeline.polyblur_core`` on them, blend.
+``pipeline.restore_tiles``, wherever the JAX package's mega-kernel routes
+take the configuration (its static predicate ``pipeline._mega_static_ok``
+on the tile size: ``'direct_separable'``, no ``remat``, q = 0, no
+saturation mask or multichannel kernel, ker_size 25, 6 + 1 angles
+interpolated to 30, the bilateral or domain-transform smoother, tiles
+within ``pipeline.mega_tile_cap``). Every other configuration takes the
+composed route of the JAX package (patches.py:479-500): extract the
+tiles, run ``pipeline.polyblur_core`` on them, blend.
 
 Both routes are differentiable in the image and in (c, b, alpha, beta),
 with every feature flag. The staged route is a chain of three autograd
@@ -31,6 +34,7 @@ flagged VJPs do.
 from __future__ import annotations
 
 import functools
+import inspect
 import math
 from typing import NamedTuple, Optional
 
@@ -40,8 +44,8 @@ import torch
 from .ops.cuda.overlap_add import blend_overlap_add
 from .ops.cuda.pad_cast import edge_pad_cast
 from .ops.cuda.polyblur_fused import polyblur_image_fused
-from .pipeline import (_check_smoother, _mega_pack, mega_tile_cap,
-                       polyblur_core, prefilter_of, resolve_device)
+from .pipeline import (_mega_pack, _mega_static_ok, polyblur_core,
+                       prefilter_of, resolve_device)
 from .utils.imaging import build_window_np
 from .utils.profiling import record_dispatch
 
@@ -49,8 +53,6 @@ __all__ = ["PatchGrid", "plan_patch_grid", "extract_patches", "overlap_add",
            "deblur_patches"]
 
 _TODO_IRREGULAR = "ROADMAP A.6 (irregular tile grids)"
-_TODO_ESTIMATE = "ROADMAP A.3 (quantile, saturation and multichannel estimation)"
-_TODO_METHODS = "ROADMAP A.8 (ops/conv.py: method='direct')"
 
 
 class PatchGrid(NamedTuple):
@@ -157,39 +159,38 @@ def overlap_add(patches: torch.Tensor, grid: PatchGrid, batch: int,
                              out_dtype)
 
 
+def _staged(ph: int, pw: int, method: str = "fft", remat: bool = False,
+            discard_saturation: bool = False,
+            multichannel_kernel: bool = False, prefiltering: bool = False,
+            smoother: str = "bilateral", q: float = 0.0, ker_size: int = 25,
+            n_angles: int = 6, n_interpolated_angles: int = 30,
+            _disable_mega: bool = False, **_traced) -> bool:
+    """Whether (ph, pw) tiles with these keywords take the staged route:
+    the JAX package's ``mega_padded_eligible`` (polyblur_tpu/pipeline.py:
+    67-92), its static predicate with the card in the TPU's place."""
+    return _mega_static_ok(method, remat, discard_saturation,
+                           multichannel_kernel, prefiltering, smoother, q,
+                           ker_size, n_angles, n_interpolated_angles, ph, pw,
+                           disable=_disable_mega)
+
+
 def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         beta=3.0, sigma_r=0.8, sigma_s=2.0,
-                        ker_size: int = 25, q: float = 0.0,
-                        n_angles: int = 6, n_interpolated_angles: int = 30,
                         remove_halo: bool = False, edgetaping: bool = False,
                         prefiltering: bool = False,
-                        discard_saturation: bool = False,
-                        multichannel_kernel: bool = False,
-                        method: str = "fft",
-                        smoother: str = "bilateral", remat: bool = False):
-    """Validate the staged route's keywords against what the port runs
-    and return (n_iter, (c, b, alpha, beta, sigma_s, sigma_r), the
-    feature-flag keywords of ``pipeline.restore_tiles``). The prefilter is
-    ``'dt'`` for the domain-transform
-    smoother and ``'bilateral'`` otherwise (polyblur_tpu/patches.py:
-    395-403). ``remat`` never reaches the staged route: it refuses it, as
-    it refuses the JAX package's mega-kernel routes."""
-    del remat
-    if method != "direct_separable":
-        raise NotImplementedError(f"method={method!r}: the port runs "
-                                  f"'direct_separable' and 'fft'; see "
-                                  f"{_TODO_METHODS}")
-    if q != 0.0 or discard_saturation or multichannel_kernel:
-        raise NotImplementedError(f"see {_TODO_ESTIMATE}")
-    if (ker_size, n_angles, n_interpolated_angles) != (25, 6, 30):
-        raise NotImplementedError(
-            "the per-tile kernels are built for ker_size=25, n_angles=6, "
-            f"n_interpolated_angles=30; see {_TODO_ESTIMATE}")
-    if prefiltering:
-        _check_smoother(smoother)
+                        smoother: str = "bilateral", **_static):
+    """(n_iter, (c, b, alpha, beta, sigma_s, sigma_r), the feature-flag
+    keywords of ``pipeline.restore_tiles``) of a configuration
+    :func:`_staged` admits (its other keywords are those the predicate
+    read). The prefilter is ``'dt'`` for the domain-transform smoother and
+    ``'bilateral'`` otherwise (polyblur_tpu/patches.py:395-403)."""
     flags = dict(do_taper=bool(edgetaping), do_halo=bool(remove_halo),
                  prefilter=prefilter_of(prefiltering, smoother))
     return int(n_iter), (c, b, alpha, beta, sigma_s, sigma_r), flags
+
+
+_CORE_KEYWORDS = frozenset(inspect.signature(polyblur_core).parameters
+                           ) - {"img", "device"}
 
 
 def deblur_patches(images, patch_size=400, overlap=0.25,
@@ -212,12 +213,13 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         ``None`` or ``<= 0`` runs every tile at once
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
         beta, remove_halo, edgetaping, prefiltering, smoother, ...).
-        ``method='direct_separable'`` takes the staged route; ``'fft'``,
-        the default as in the JAX package, ``remat=True`` (and the feature
-        flags on tiles past ``mega_tile_cap``) the composed one. ``c, b,
-        alpha, beta`` (and ``sigma_s``, ``sigma_r``) may be 0-d tensors:
-        the result is differentiable in them and in ``images``, flags
-        included.
+        ``method='direct_separable'`` takes the staged route where the
+        JAX package's mega kernels would (:func:`_staged`); ``'fft'``, the
+        default as in the JAX package, ``'direct'``, ``remat=True``, the
+        estimate's other branches, the ``'nc'`` smoother and tiles past
+        ``pipeline.mega_tile_cap`` the composed one. ``c, b, alpha, beta``
+        (and ``sigma_s``, ``sigma_r``) may be 0-d tensors: the result is
+        differentiable in them and in ``images``, flags included.
     :returns: (B, C, h, w) with (h, w) the even-cropped input size
     """
     dev = resolve_device(device)
@@ -225,6 +227,11 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     if x.dim() != 4:
         raise ValueError(f"expected a (B, C, H, W) image batch, got "
                          f"{tuple(x.shape)}")
+    unknown = sorted(set(polyblur_kwargs) - _CORE_KEYWORDS)
+    if unknown:
+        # both routes refuse what polyblur_core would: the staged route
+        # reads only some of the keywords
+        raise TypeError(f"deblur_patches: unexpected keyword(s) {unknown}")
     b = x.shape[0]
     grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
     reg = _grid_steps(grid)
@@ -236,13 +243,7 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     n_tiles = len(grid.coords)
     chunk = (n_tiles if batch_size is None or batch_size <= 0
              else min(batch_size, n_tiles))
-    kw = polyblur_kwargs
-    flags_on = (kw.get("remove_halo") or kw.get("edgetaping")
-                or kw.get("prefiltering"))
-    cap = mega_tile_cap(bool(kw.get("prefiltering")),
-                        kw.get("smoother", "bilateral"))
-    if (kw.get("method", "fft") == "fft" or kw.get("remat")
-            or (flags_on and max(grid.patch_size) > cap)):
+    if not _staged(*grid.patch_size, **polyblur_kwargs):
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
         tiles = extract_patches(x.to(wd), grid)

@@ -12,8 +12,9 @@ Two routes, dispatched as the JAX package's ``polyblur_core`` dispatches
   products of ``spectral_poly``. The state is stored in the work dtype
   after every iteration, as the TPU kernel stores it. The patch engine
   runs the same loop over its tiles.
-* the scan route: every other image and method, a Python loop of the
-  whole-image estimate (``estimation.gaussian_blur_estimation``), the
+* the scan route: every other image and method (``'fft'``, ``'direct'``,
+  the estimate's other branches, the ``'nc'`` smoother), a Python loop of
+  the whole-image estimate (``estimation.gaussian_blur_estimation``), the
   optional edge-aware prefilter (:func:`edge_aware_filtering`) and
   ``restoration.inverse_filtering_rank3`` (with the optional edgetaper and
   halo masking).
@@ -64,7 +65,7 @@ from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
 from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
                                       polyblur_tiles_fused, spectral_poly,
                                       stage_tables, tile_estimate)
-from .ops.domain_transform import _TODO_NC, recursive_filter
+from .ops.domain_transform import normalized_convolution, recursive_filter
 from .ops.fourier import spectral_gradients
 from .ops.sep_poly import f32_vector
 from .restoration import inverse_filtering_rank3, polynomial_coefficients
@@ -258,9 +259,7 @@ def _mega_static_ok(method, remat, discard_saturation, multichannel_kernel,
 
 
 def _check_smoother(smoother: str) -> None:
-    if smoother == "nc":
-        raise NotImplementedError(f"smoother='nc': see {_TODO_NC}")
-    if smoother not in ("bilateral", "domain_transform"):
+    if smoother not in ("bilateral", "domain_transform", "nc"):
         raise ValueError(f"unknown smoother {smoother!r}")
 
 
@@ -268,15 +267,18 @@ def edge_aware_filtering(img: torch.Tensor, sigma_s, sigma_r,
                          smoother: str = "bilateral"):
     """Split an image into smooth + noise components (deblurring.py:99-110):
     the bilateral filter (5 x 5, sigma_spatial 5, sigma_color 0.1 — it does
-    not read sigma_s / sigma_r) or one iteration of the domain transform's
-    recursive filter. The normalized-convolution smoother (``'nc'``) is not
-    ported."""
+    not read sigma_s / sigma_r), or one iteration of the domain transform:
+    its recursive filter (``'domain_transform'``) or its normalized
+    convolution (``'nc'``)."""
     _check_smoother(smoother)
     if smoother == "bilateral":
         smooth = bilateral_filter(img)
-    else:
+    elif smoother == "domain_transform":
         smooth = recursive_filter(img, sigma_s=sigma_s, sigma_r=sigma_r,
                                   num_iterations=1)
+    else:
+        smooth = normalized_convolution(img, sigma_s=sigma_s,
+                                        sigma_r=sigma_r, num_iterations=1)
     return smooth, img - smooth
 
 
@@ -303,6 +305,12 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
     :param c, b, alpha, beta, sigma_s, sigma_r: Python numbers or 0-d
         tensors; the result is differentiable in them and in ``img``
         (in ``sigma_s`` / ``sigma_r`` through the domain transform)
+    :param method: ``'fft'``, ``'direct_separable'`` (the kernels:
+        the tiles route, else the scan route's spectral polynomial) or
+        ``'direct'`` (three grouped spatial convolutions per iteration,
+        ``ops.conv``)
+    :param smoother: the prefilter's ``'bilateral'``,
+        ``'domain_transform'`` or ``'nc'`` (normalized convolution)
     :param remat: checkpoint each iteration of the scan route (its
         activations are recomputed in the backward), with the polynomial
         on the plain composition and the tiles route refused, as the JAX
@@ -328,7 +336,10 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                                                            smoother))
     record_dispatch("polyblur_core", f"scan/{method}")
     grad_img = spectral_gradients(x) if remove_halo else None
-    features = prefiltering or remove_halo or edgetaping
+    # the separable route's kernels clip without features; every other
+    # case takes one more clip, as the JAX package's scan body
+    clip_again = (method != "direct_separable" or prefiltering
+                  or remove_halo or edgetaping)
 
     def body(impred):
         kernel = gaussian_blur_estimation(
@@ -348,9 +359,10 @@ def polyblur_core(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
         if noise is not None:
             restored = restored + noise
         # inverse_filtering_rank3 clips to [0, 1] on every route (the
-        # separable route inside its kernel); the noise and the features
-        # take one more clip (pipeline.py:254-258)
-        return clip_as_jax(restored) if features else restored
+        # separable route inside its kernel); the noise, the features and
+        # the other methods take one more clip (pipeline.py:254-258): the
+        # same values, and jnp.clip's half gradient at the bounds again
+        return clip_as_jax(restored) if clip_again else restored
 
     impred = x
     for _ in range(int(n_iter)):

@@ -10,9 +10,10 @@ patch engine evaluates it per tile in the spectral kernels of
 ops/cuda/polyblur_fused.py; the whole-image route through
 :func:`inverse_filtering_rank3`: ``'direct_separable'`` with the
 ``(sigma, rho, theta)`` parameters takes ``ops.sep_poly`` (the fused or
-blocked kernel), ``'fft'`` with the 2D kernel takes ``torch.fft``; the
-optional edgetaper (``edgetaper.py``) and halo masking
-(:func:`halo_masking`) wrap it as in the JAX package.
+blocked kernel), ``'fft'`` with the 2D kernel takes ``torch.fft``,
+``'direct'`` (the reference's own method on CUDA) three grouped spatial
+convolutions (``ops.conv``); the optional edgetaper (``edgetaper.py``) and
+halo masking (:func:`halo_masking`) wrap it as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,16 +21,15 @@ from __future__ import annotations
 import torch
 
 from . import edgetaper as _edgetaper
+from .ops.conv import convolve2d
 from .ops.fourier import p2o, spectral_gradients
 from .ops.sep_poly import compute_polynomial_separable
 from .utils.imaging import clip_as_jax, crop_with_kernel, pad_with_kernel
 from .utils.profiling import record_dispatch
 
 __all__ = ["polynomial_coefficients", "compute_polynomial",
-           "compute_polynomial_fft", "halo_masking",
-           "inverse_filtering_rank3"]
-
-_TODO_DIRECT = "ROADMAP A.8 (ops/conv.py: method='direct')"
+           "compute_polynomial_fft", "compute_polynomial_direct",
+           "halo_masking", "inverse_filtering_rank3"]
 
 
 def polynomial_coefficients(alpha, beta):
@@ -59,10 +59,26 @@ def compute_polynomial_fft(img: torch.Tensor, kernel: torch.Tensor, alpha,
     return torch.fft.ifft2(X).real.to(img.dtype)
 
 
+def compute_polynomial_direct(img: torch.Tensor, kernel, alpha, beta,
+                              method: str = "direct") -> torch.Tensor:
+    """Spatial-domain polynomial filter (deblurring.py:122-138): Horner
+    with three convolutions, ``((a3 u) * k + a2 u) * k + a1 u) * k + beta
+    u``. ``kernel`` is a (B, C, h, w) / (B, 1, h, w) tensor (grouped 2D
+    convolution, zero 'same' padding) or a ``(sigma, rho, theta)`` tuple
+    (the separable Gaussian passes)."""
+    a3, a2, a1 = polynomial_coefficients(alpha, beta)
+    out = a3 * img
+    out = convolve2d(out, kernel, method=method) + a2 * img
+    out = convolve2d(out, kernel, method=method) + a1 * img
+    return convolve2d(out, kernel, method=method) + beta * img
+
+
 def compute_polynomial(img, kernel, alpha, beta, method: str = "fft",
                        not_symmetric: bool = False, ker_size: int = 25):
     """Backend dispatcher (deblurring.py:113-119): ``'fft'`` with a 2D
-    kernel, ``'direct_separable'`` with a ``(sigma, rho, theta)`` tuple."""
+    kernel, ``'direct_separable'`` with a ``(sigma, rho, theta)`` tuple
+    (the spectral kernels), ``'direct'`` (and ``'direct_separable'`` with a
+    2D kernel) by spatial convolutions."""
     if method == "fft":
         return compute_polynomial_fft(img, kernel, alpha, beta, not_symmetric)
     if method == "direct_separable" and isinstance(kernel, (tuple, list)):
@@ -70,8 +86,7 @@ def compute_polynomial(img, kernel, alpha, beta, method: str = "fft",
         return compute_polynomial_separable(img, sigma, rho, theta, alpha,
                                             beta, ker_size=ker_size)
     if method in ("direct", "direct_separable"):
-        raise NotImplementedError(f"method={method!r} with a 2D kernel: "
-                                  f"see {_TODO_DIRECT}")
+        return compute_polynomial_direct(img, kernel, alpha, beta, method)
     raise ValueError(f"{method!r} not implemented")
 
 
@@ -137,8 +152,10 @@ def inverse_filtering_rank3(img: torch.Tensor, kernel, alpha=2.0, beta=4.0,
         kernel = torch.rot90(kernel, 2, dims=(-2, -1))
     padded = pad_with_kernel(img, ksize=ksize)
     if do_edgetaper:
-        padded = _edgetaper.edgetaper(padded, kernel, method=method,
-                                      ksize=ksize)
+        # the taper of parametric kernels samples 25 taps whatever
+        # ker_size is: the JAX package passes no support here
+        # (polyblur_tpu/restoration.py:185)
+        padded = _edgetaper.edgetaper(padded, kernel, method=method)
     imout = compute_polynomial(padded, kernel, alpha, beta, method=method,
                                ker_size=ksize)
     imout = crop_with_kernel(imout, ksize=ksize)

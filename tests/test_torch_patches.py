@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import polyblur_tpu.api as japi
+import polyblur_tpu.pipeline as jpipe
 from polyblur_tpu.api import PolyblurDeblurring as JaxModule
 from polyblur_tpu.ops.pallas.sep_poly_fused import f32_dot_mode_scope
 from polyblur_tpu.patches import deblur_patches as jax_deblur
@@ -142,22 +144,54 @@ def test_cuda_by_default_and_raises_without_it(img):
 
 
 @pytest.mark.parametrize("call", [
-    lambda x: polyblur_torch.pipeline.polyblur_core(
+    lambda x: (polyblur_torch.pipeline.polyblur_core(
         x, device="cpu", prefiltering=True, smoother="nc"),
-    lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
-                                                 discard_saturation=True),
-    lambda x: polyblur_torch.polyblur_deblurring(x, device="cpu",
-                                                 method="direct"),
-    lambda x: deblur_patches(x, device="cpu", method="direct_separable",
-                             multichannel_kernel=True),
-    lambda x: deblur_patches(x, device="cpu", method="direct_separable",
-                             q=0.01),
-    lambda x: deblur_patches(x, device="cpu", patch_size=160, overlap=0.6),
+        jpipe.polyblur_core(jnp.asarray(x.numpy()), prefiltering=True,
+                            smoother="nc")),
+    lambda x: (polyblur_torch.polyblur_deblurring(x, device="cpu",
+                                                  discard_saturation=True),
+               japi.polyblur_deblurring(jnp.asarray(x.numpy()),
+                                        method="direct_separable",
+                                        discard_saturation=True)),
+    lambda x: (polyblur_torch.polyblur_deblurring(x, device="cpu",
+                                                  method="direct"),
+               japi.polyblur_deblurring(jnp.asarray(x.numpy()),
+                                        method="direct")),
+    lambda x: (deblur_patches(x, device="cpu", method="direct_separable",
+                              multichannel_kernel=True),
+               jax_deblur(jnp.asarray(x.numpy()), method="direct_separable",
+                          multichannel_kernel=True)),
+    lambda x: (deblur_patches(x, device="cpu", method="direct_separable",
+                              q=0.01),
+               jax_deblur(jnp.asarray(x.numpy()), method="direct_separable",
+                          q=0.01)),
+    lambda x: (lambda: deblur_patches(x, device="cpu", patch_size=160,
+                                      overlap=0.6), None),
 ])
 def test_unported_routes_raise_naming_the_roadmap(call):
-    x = torch.rand(1, 3, 200, 300)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(x)
+    """The routes that raised naming their ROADMAP item until A.3 and A.8
+    were ported (the 'nc' smoother, the saturation mask, method='direct',
+    the multichannel kernel and q > 0 through the patch engine, which
+    composes them as the JAX package does) run on the CPU and hold the
+    JAX package's output at >= 60 dB; the irregular grid (A.6) still
+    raises naming its item."""
+    x = torch.rand(1, 3, 200, 300, generator=torch.Generator().manual_seed(7))
+    got, want = call(x)
+    if want is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+            got()
+        return
+    assert _psnr(got.numpy(), np.asarray(want)) >= 60.0
+
+
+@pytest.mark.parametrize("method", ["direct_separable", "fft"])
+def test_misspelt_keyword_raises_on_both_routes(method):
+    """A keyword polyblur_core does not take raises TypeError, on the
+    staged route ('direct_separable') as on the composed one ('fft')."""
+    x = torch.rand(1, 3, 96, 128, generator=torch.Generator().manual_seed(3))
+    with pytest.raises(TypeError, match="edgetapping"):
+        deblur_patches(x, device="cpu", patch_size=64, overlap=0.25,
+                       method=method, edgetapping=True)
 
 
 def test_port_imports_no_jax():
