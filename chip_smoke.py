@@ -115,7 +115,18 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    4-channel multichannel batch, and ``fused_polynomial`` at ker_size 21
    and 31 (fused and blocked) against their plain versions, and drives
    six whole-image paths that launch them; the 12 MP main path's
-   launches, read before and after (i)-(k), must not change;
+   launches, read before and after (i)-(l), must not change;
+   (l) holds ``bilateral`` against its plain version at the 12 MP path's
+   88 tiles (bf16 canvas -> f32 smooth and noise, with its device time
+   and bound, and the MUFU time worked out beside it in the printed text;
+   the 2 MP and 12-tile rows of 7 carry the same),
+   then drives the 12 MP image through ``deblur_patches`` (448/384, bf16
+   work, f32 out, 3 iterations) with ``prefiltering=True`` and the
+   default smoother (the staged route's bilateral stage): >= 40 dB against
+   its plain run, ``bilateral`` launched once per iteration, theta
+   identical kernel vs plain on the 88 tiles of every iteration, its ms,
+   MP/s and the bilateral stage's share of its device time (a
+   ``torch.profiler`` trace);
 10. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
@@ -184,6 +195,17 @@ CFG2_KW = dict(PATH_KW, remove_halo=True, edgetaping=True, prefiltering=True,
                smoother="domain_transform")
 FLAGS_KW = dict(remove_halo=True, edgetaping=True, prefiltering=True)
 BILATERAL_FLOPS_PX = 25 * 8 + 2  # per tap: sub, 2 mul, exp, 2 mul, 2 add
+# the bilateral kernel's MUFU time, printed beside its bound (which counts
+# an exponential as one f32 operation): 12 ex2 per pixel at 16 per SM and
+# clock, 132 SMs at 1.98 GHz; worked out, not measured
+BILATERAL_EX2_PX = 12
+MUFU_RATE = 16 * 132 * 1.98e9
+
+
+def mufu_ms(pixels: int) -> float:
+    return pixels * BILATERAL_EX2_PX / MUFU_RATE * 1e3
+# (l): the 12 MP patch engine with the default prefilter (bilateral)
+PREFILTER_KW = dict(PATH_KW, method="direct_separable", prefiltering=True)
 LIBRARY_GEMM_PAIR = ("GEMM pair only: torch.matmul of x Dw^T and Dh x in f32, "
                      "TF32 off")
 SOURCES = {
@@ -210,6 +232,9 @@ SOURCES = {
                            "polyblur_tpu/ops/pallas/est_fused.py:95"),
     "bilateral": ("polyblur_torch/csrc/bilateral.cu",
                   "polyblur_tpu/ops/pallas/bilateral.py:89"),
+    # the mega kernel's bilateral prefilter stage (polyblur_fused.py:475-478)
+    "bilateral[n=88]": ("polyblur_torch/csrc/bilateral.cu",
+                        "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "iir_scan_rows": ("polyblur_torch/csrc/iir.cu",
                       "polyblur_tpu/ops/pallas/iir.py:145"),
     "dt_coeffs": ("polyblur_torch/csrc/iir.cu",
@@ -981,11 +1006,15 @@ def feature_kernels(dev, img2, report: dict) -> None:
     require(err <= TOL_BILATERAL, f"bilateral 2 MP error {err}")
     report["bilateral"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: bilateral_filter(img2)),
+        device_ms=device_ms(lambda: bilateral(tv2)),
         plain_ms=cuda_ms(lambda: bilateral_plain(tv2), reps=3),
         library_ms=None,
         bound=bound_ms(2 * n_el * 4, n_el * BILATERAL_FLOPS_PX, "f32"))
+    r = report["bilateral"]
     print(f"bilateral[{tuple(img2.shape)} f32]: max_abs_err {err:.3e}, "
-          f"{report['bilateral']['ms']:.3f} ms")
+          f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; MUFU at "
+          f"{BILATERAL_EX2_PX} ex2 per pixel {mufu_ms(n_el):.4f} ms)")
 
     # -- the config 2 tiles: 448 px at step 384 on the bf16 canvas
     grid = plan_patch_grid(img2.shape[-2], img2.shape[-1], 448, 1.0 / 7.0)
@@ -1003,12 +1032,15 @@ def feature_kernels(dev, img2, report: dict) -> None:
         shape=f"{view.n} x 3 x 448^2 bf16 tiles -> f32 smooth + noise",
         max_abs_err=err,
         ms=cuda_ms(lambda: bilateral(view, out_dtype=f32, with_noise=True)),
+        device_ms=device_ms(lambda: bilateral(view, out_dtype=f32,
+                                              with_noise=True)),
         plain_ms=cuda_ms(lambda: bilateral_plain(view, out_dtype=f32,
                                                  with_noise=True), reps=3),
         bound_ms=bms, bound_by=by)
     report["bilateral"]["tile_stage"] = stage
     print(f"bilateral[{stage['shape']}]: max_abs_err {err:.3e}, "
-          f"{stage['ms']:.3f} ms, bound {bms:.4f} ms ({by})")
+          f"{stage['ms']:.4f} ms, device {stage['device_ms']:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}; MUFU {mufu_ms(tiles_el):.4f} ms)")
 
     # -- iir_scan_rows: one recursive-filter iteration of the 2 MP image
     # (config 2c: sigma_s 2, sigma_r 0.8), row pass then column pass; then
@@ -1599,6 +1631,137 @@ def generalized_paths(dev, card: str, launches: dict) -> None:
         thetas_equal(label, xt, **est_kw)
 
 
+# (l): the bilateral kernel at the 12 MP path's 88 tiles, and the path with
+# the default prefilter
+
+def bilateral_tiles88(dev, img, report: dict) -> None:
+    """The ``bilateral[n=88]`` row: the 12 MP main path's first-iteration
+    tiles (448 px at step 384 on the bf16 canvas) -> f32 smooth and noise,
+    against the plain version, with its device time and bound (the MUFU
+    time, worked out, only in the printed line)."""
+    import torch
+
+    from polyblur_torch.ops.cuda.bilateral import bilateral, bilateral_plain
+    from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
+    from polyblur_torch.ops.cuda.polyblur_fused import TileView
+    from polyblur_torch.patches import _grid_steps, plan_patch_grid
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    grid = plan_patch_grid(img.shape[-2], img.shape[-1], 448, 64.0 / 448.0)
+    th, tw, sh, sw = _grid_steps(grid)
+    canvas = edge_pad_cast(img, grid.orig_size, grid.pad, bf16)
+    view = TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
+    tiles_el = view.n * 3 * 448 * 448
+
+    def kernel():
+        return bilateral(view, out_dtype=f32, with_noise=True)
+
+    s, nz = kernel()
+    s_p, nz_p = bilateral_plain(view, out_dtype=f32, with_noise=True)
+    err = max(float((s - s_p).abs().max()), float((nz - nz_p).abs().max()))
+    require(err <= TOL_BILATERAL, f"bilateral 88 tiles error {err}")
+    del s, nz, s_p, nz_p
+    report["bilateral[n=88]"] = r = dict(
+        max_abs_err=err, ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=cuda_ms(lambda: bilateral_plain(view, out_dtype=f32,
+                                                 with_noise=True), reps=3),
+        library_ms=None,
+        bound=bound_ms(canvas.numel() * 2 + tiles_el * 2 * 4,
+                       tiles_el * BILATERAL_FLOPS_PX, "f32"))
+    print(f"bilateral[{view.n} x 3 x 448^2 bf16 tiles -> f32 smooth + "
+          f"noise, 12 MP]: max_abs_err {err:.3e}, {r['ms']:.4f} ms, device "
+          f"{r['device_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}; MUFU {mufu_ms(tiles_el):.4f} ms)")
+
+
+def traced_kernels(fn) -> list:
+    """The device kernels of one warm call of ``fn``, traced with
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_device_ms(kernels, key: str = "") -> float:
+    """Device time in ms of the traced ``kernels`` whose name holds ``key``
+    (all of them by default)."""
+    return sum(e.device_time for e in kernels if key in e.name) / 1e3
+
+
+def prefilter_path(dev, img, card: str, launches: dict) -> None:
+    """(l): the 12 MP image through ``deblur_patches`` (448/384, bf16
+    work, f32 out, ``direct_separable``, 3 iterations) with
+    ``prefiltering=True`` and the default smoother (bilateral), the staged
+    route: counted and held against its plain run (>= 40 dB), the
+    bilateral stage launched once per iteration, theta identical kernel vs
+    plain on the 88 tiles of every iteration, and the bilateral stage's
+    share of the call's device time."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch import pipeline as ppipe
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.ops.cuda._build import plain_mode
+    from polyblur_torch.patches import extract_patches, plan_patch_grid
+
+    H, W = img.shape[-2:]
+    label = ("(l) 12 MP deblur_patches 448/384 bf16, prefiltering (bilateral "
+             "smoother)")
+
+    def call():
+        return polyblur_torch.deblur_patches(
+            img, patch_size=448, overlap=64.0 / 448.0,
+            work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,
+            **PREFILTER_KW)
+
+    # theta of every iteration's estimate, kernel vs plain on the same tiles
+    thetas = []
+    estimate = ppipe.tile_estimate
+
+    def recording(view, coeffs):
+        est = estimate(view, coeffs)
+        if not plain_mode():
+            with pcuda.plain_versions():
+                same = estimate(view, coeffs)
+            thetas.append(bool(torch.equal(est[:, 0], same[:, 0])))
+        return est
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = drive_path(label, call, img.shape,
+                        (("deblur_patches", "staged_tiles"),),
+                        NAMES + ("bilateral",), PSNR_BF16_DB, card, H * W)
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(counts["bilateral"] == PREFILTER_KW["n_iter"],
+            f"{label}: {counts['bilateral']} bilateral launches for "
+            f"{PREFILTER_KW['n_iter']} iterations")
+    launches["bilateral[n=88]"] = counts["bilateral"]
+    ppipe.tile_estimate = recording
+    try:
+        call()
+    finally:
+        ppipe.tile_estimate = estimate
+    require(len(thetas) == PREFILTER_KW["n_iter"] and all(thetas),
+            f"{label}: theta kernel vs plain per iteration {thetas}")
+    grid = plan_patch_grid(H, W, 448, 64.0 / 448.0)
+    thetas_equal(f"{label}, first iteration's {len(grid.coords)} tiles",
+                 extract_patches(img.to(torch.bfloat16), grid))
+    kernels = traced_kernels(call)
+    total = kernel_device_ms(kernels)
+    part = kernel_device_ms(kernels, "bilateral_kernel")
+    print(f"{label}: peak memory {gib:.2f} GiB; theta kernel vs plain "
+          f"identical on the tiles of all {len(thetas)} iterations; device "
+          f"time {total:.3f} ms, bilateral stage {part:.3f} ms = "
+          f"{part / total:.3f} of it, on {card}")
+
+
 def main_path_launches(dev, img, card: str, when: str) -> dict:
     """The 12 MP main path's launches per kernel (the counters zeroed just
     before one call, read just after) and its MP/s (host clock, median of
@@ -1631,9 +1794,11 @@ def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
     """(i) the reference demo through ``method='direct'``, and again with
     every flag and the 'nc' smoother; (j) the 12 MP patch engine with
     ``method='direct'`` (the composed route), then with q = 1e-4 and the
-    saturation mask; (k) the generalized kernels and their paths; each
-    path counted and held against its plain run, and the 12 MP main
-    path's launches and MP/s before and after, which must not change."""
+    saturation mask; (k) the generalized kernels and their paths; (l) the
+    bilateral kernel at 88 tiles and the 12 MP path with the default
+    prefilter; each path counted and held against its plain run, and the
+    12 MP main path's launches and MP/s before and after, which must not
+    change."""
     import torch
 
     import polyblur_torch
@@ -1642,7 +1807,7 @@ def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
     img = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
                           device=dev)
     H, W = img.shape[-2:]
-    before = main_path_launches(dev, img, card, "before (i)-(k)")
+    before = main_path_launches(dev, img, card, "before (i)-(l)")
     require(before == {k: launches[k] for k in NAMES},
             f"main path launches {before} differ from the first run's")
 
@@ -1695,8 +1860,12 @@ def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
     generalized_kernels(dev, report)
     generalized_paths(dev, card, launches)
     torch.cuda.empty_cache()
-    after = main_path_launches(dev, img, card, "after (i)-(k)")
-    require(after == before, f"main path launches {after} after (i)-(k), "
+    bilateral_tiles88(dev, img, report)
+    torch.cuda.empty_cache()
+    prefilter_path(dev, img, card, launches)
+    torch.cuda.empty_cache()
+    after = main_path_launches(dev, img, card, "after (i)-(l)")
+    require(after == before, f"main path launches {after} after (i)-(l), "
                              f"{before} before")
 
 
@@ -2807,7 +2976,7 @@ def main() -> int:
     feature_paths(dev, img2, card, launches)
 
     # ---------------------------------------------------------- (i)-(k)
-    print(f"[{time.perf_counter() - t_start:.1f} s] slice phases (i)-(k)")
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice phases (i)-(l)")
     del img2
     torch.cuda.empty_cache()
     slice_phases(dev, card, launches, report)
@@ -2822,7 +2991,7 @@ def main() -> int:
     rows = []
     for name in (NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
                                           "directional_maxima") + FEATURES
-                 + GENERALIZED):
+                 + ("bilateral[n=88]",) + GENERALIZED):
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]

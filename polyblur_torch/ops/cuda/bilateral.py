@@ -6,8 +6,9 @@ mega kernel, polyblur_fused.py:475-478). One launch, counted as
 ``bilateral``, serves ``ops.bilateral.bilateral_filter`` (whole images of
 any size, output in the input dtype) and the tiles route's prefilter
 (``smooth`` and ``noise = x - smooth`` in f32, read from the tiles through
-a :class:`TileView`). Bound on the H100: operations (25 exponentials per
-pixel), see the source.
+a :class:`TileView`). Bound on the H100: operations; the kernel spends
+one exponential per neighbour pair (12 per pixel, the MUFU's ex2), see
+the source.
 """
 
 from __future__ import annotations

@@ -658,22 +658,37 @@ def _canvas_view(dev, dt, seed, size=(300, 420), patch=160):
 @pytest.mark.parametrize("dt, tol", [(torch.float32, 1e-5),
                                      (torch.bfloat16, 2.0 ** -7)])
 def test_cuda_bilateral_matches_plain(cuda_dev, dt, tol):
+    """Whole planes of 1 x 1, 2 x 3 and 5 x 5 (the clamp makes several
+    taps one pixel), 7 x 33, 8 x 64 and 301 x 419 (widths that are and are
+    not multiples of 4: the 16-byte and the scalar stores; 419 > 124, the
+    columns of one warp), output in the input dtype; then tiles read from
+    a canvas, f32 smooth and noise: the patch engine's grid, and a grid at
+    odd steps (rows off the 8-byte pair loads) of 160^2 and 157 x 161
+    tiles."""
     from polyblur_torch.ops.bilateral import bilateral_filter
     from polyblur_torch.ops.cuda.bilateral import bilateral, bilateral_plain
 
-    x = torch.rand((2, 3, 301, 419), generator=torch.Generator()
-                   .manual_seed(20)).to(cuda_dev).to(dt)
-    before = dict(pcuda.launches)
-    got = bilateral_filter(x)
-    assert _counts(before, "bilateral") == 1 and got.dtype == dt
-    with pcuda.plain_versions():
-        want = bilateral_filter(x)
-    assert float((got.float() - want.float()).abs().max()) <= tol
-    view = _canvas_view(cuda_dev, dt, 21)
-    smooth, noise = bilateral(view, out_dtype=torch.float32, with_noise=True)
-    s_p, n_p = bilateral_plain(view, out_dtype=torch.float32, with_noise=True)
-    assert float((smooth - s_p).abs().max()) <= 1e-5
-    assert float((noise - n_p).abs().max()) <= 1e-5
+    g = torch.Generator().manual_seed(20)
+    for h, w in ((1, 1), (2, 3), (5, 5), (7, 33), (8, 64), (301, 419)):
+        x = torch.rand((2, 3, h, w), generator=g).to(cuda_dev).to(dt)
+        before = dict(pcuda.launches)
+        got = bilateral_filter(x)
+        assert _counts(before, "bilateral") == 1 and got.dtype == dt
+        with pcuda.plain_versions():
+            want = bilateral_filter(x)
+        assert float((got.float() - want.float()).abs().max()) <= tol, (h, w)
+    odd = torch.rand((1, 3, 2 * 127 + 161, 3 * 129 + 161),
+                     generator=g).to(cuda_dev).to(dt)
+    views = [_canvas_view(cuda_dev, dt, 21)] + [
+        TileView(odd, 1, 0, 12, 4, (127, 129), patch)
+        for patch in ((160, 160), (157, 161))]
+    for view in views:
+        smooth, noise = bilateral(view, out_dtype=torch.float32,
+                                  with_noise=True)
+        s_p, n_p = bilateral_plain(view, out_dtype=torch.float32,
+                                   with_noise=True)
+        assert float((smooth - s_p).abs().max()) <= 1e-5, view.patch
+        assert float((noise - n_p).abs().max()) <= 1e-5, view.patch
 
 
 def test_cuda_iir_matches_plain(cuda_dev):

@@ -14,7 +14,9 @@ alternating processes. ``paths`` is a comma-separated list of:
   ``chip_smoke.make_config2_image`` (1200 x 1600, ``deblur_patches`` at
   448 px and overlap 1/7, bf16 work, taper + dt prefilter + halo);
 - ``config2c``: the same photo through ``polyblur_core(method='fft')``
-  with config 2's flags.
+  with config 2's flags;
+- ``prefilter``: ``main`` with ``prefiltering=True`` and the default
+  smoother (the bilateral stage on the 88 tiles of every iteration).
 
 It builds the tree's kernels, then for each path in turn warms up and per
 repetition prints the host time of a call (median of 5 calls, each ending
@@ -67,7 +69,7 @@ def main() -> int:
         return 2
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     paths = (sys.argv[2] if len(sys.argv) > 2 else "main").split(",")
-    unknown = set(paths) - {"main", "config2", "config2c"}
+    unknown = set(paths) - {"main", "config2", "config2c", "prefilter"}
     if unknown:
         print(f"main_path_ab: unknown paths {sorted(unknown)}",
               file=sys.stderr)
@@ -76,14 +78,19 @@ def main() -> int:
     dev = torch.device("cuda")
     photo = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
                             .copy(), device=dev)
+    img12 = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
+                            device=dev)
+
+    def patches12(img, **kw):
+        return pt.deblur_patches(
+            img, patch_size=448, overlap=64.0 / 448.0,
+            work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,
+            method="direct_separable", n_iter=3, c=0.362, b=0.468,
+            alpha=6.0, beta=1.0, **kw)
+
     calls = {
-        "main": (torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
-                                 device=dev),
-                 lambda img: pt.deblur_patches(
-                     img, patch_size=448, overlap=64.0 / 448.0,
-                     work_dtype=torch.bfloat16, out_dtype=torch.float32,
-                     device=dev, method="direct_separable", n_iter=3,
-                     c=0.362, b=0.468, alpha=6.0, beta=1.0)),
+        "main": (img12, patches12),
+        "prefilter": (img12, lambda img: patches12(img, prefiltering=True)),
         "config2": (photo, lambda img: pt.deblur_patches(
             img, patch_size=448, overlap=1.0 / 7.0,
             work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,

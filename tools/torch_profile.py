@@ -2,7 +2,7 @@
 """Where the time goes in polyblur_torch's paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
-``python3 tools/torch_profile.py [base] [features] [train]
+``python3 tools/torch_profile.py [base] [features] [prefilter] [train]
 [train_flags]`` (``base`` and ``features`` by default). For each path —
 ``base``: the 12 MP bf16
 patch engine, the reference demo and the 2 MP corpus photo through the
@@ -11,7 +11,10 @@ blocked route, a 480 x 640 crop through the tiles route and through
 the patch engine in bf16 with the taper, the domain-transform prefilter
 and the halo mask), config 2c (the same flags through ``method='fft'``)
 and the 480 x 640 tiles route with every flag and the bilateral
-smoother; ``train``: one Adam step of the 12 MP bf16 patch layer
+smoother; ``prefilter``: the 12 MP bf16 patch engine with
+``prefiltering=True`` and the default smoother (bilateral), printed with
+the bilateral stage's share of the call's device busy time; ``train``: one
+Adam step of the 12 MP bf16 patch layer
 (chip_smoke's training phase (a)) and its forward alone;
 ``train_flags``: the same for BASELINE config 2 as a learnable layer
 (chip_smoke's (f), bf16 work) and config 2c's layer (``method='fft'``,
@@ -86,9 +89,11 @@ def _is_hand(kernel: str) -> bool:
     return bool(m) and m.group(1) in _HAND
 
 
-def profile(name, fn, top: int = 10) -> None:
+def profile(name, fn, top: int = 10, share_of: str | None = None) -> None:
     import torch
     from torch.profiler import ProfilerActivity
+
+    from chip_smoke import kernel_device_ms
 
     fn()
     torch.cuda.synchronize()
@@ -108,10 +113,14 @@ def profile(name, fn, top: int = 10) -> None:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.device_time / 1e3)
     hand = sum(e.device_time for e in kernels if _is_hand(e.name)) / 1e3
-    total = sum(e.device_time for e in kernels) / 1e3
+    total = kernel_device_ms(kernels)
     print(f"\n== {name}: host {wall:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1.0 - busy / wall:.3f}, {len(kernels)} kernels; "
           f"hand kernels {hand:.2f} ms, other kernels {total - hand:.2f} ms")
+    if share_of is not None:
+        part = kernel_device_ms(kernels, share_of)
+        print(f"   {share_of}: {part:.3f} ms = {part / busy:.3f} of the "
+              f"device busy time")
     for k, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"   {t:9.3f} ms  {n:4d}x  {k[:90]}")
     return busy
@@ -190,6 +199,13 @@ def main() -> int:
         profile("480x640 tiles route, every flag (bilateral), f32",
                 lambda: pt.polyblur_deblurring(crop, device=dev, **kw,
                                                **flags), top=14)
+    if "prefilter" in sets:
+        profile("12 MP patch engine, bf16, prefiltering (bilateral)",
+                lambda: pt.deblur_patches(
+                    img12, patch_size=448, overlap=64.0 / 448.0,
+                    work_dtype=torch.bfloat16, out_dtype=torch.float32,
+                    device=dev, method="direct_separable", prefiltering=True,
+                    **kw), top=12, share_of="bilateral_kernel")
     if "train" in sets:
         from polyblur_torch import PolyblurLayer
 
