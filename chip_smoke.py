@@ -44,7 +44,10 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    3 x 4 = 12 tiles on a 1216 x 1600 canvas): ``bilateral`` on the whole
    image and on the tiles, ``iir_scan_rows`` (the row and the column pass,
    each checked and timed on its own with its byte bound) on the whole
-   image and on the tiles, ``dt_coeffs``, the taper (the weights, and the
+   image and on the tiles, ``dt_scan_rows`` (the dt maps folded into the
+   row pass: rows and ``v_v``, then the dt stage as a whole with the
+   column pass, each with its device time and byte bound), the taper (the
+   weights, and the
    three blends folded into their blurs' last products, held to the same
    products unfolded followed by the plain blend) and the halo (input
    gradients and mask, each GEMM launch timed with its TFLOP/s) stages on
@@ -160,11 +163,12 @@ TOL_SPEC_F32 = 1e-4             # spectral_gemm application, f32 out
 TOL_POLY_F32 = 1e-4             # fused_polynomial, f32 (unclipped blocks)
 TOL_REL_MAXIMA = 1e-4           # directional_maxima, relative
 TOL_BILATERAL = 1e-5            # bilateral, f32 out (expf vs float64 exp)
-# the kernels compose the recurrence in chunks of 32 (rows and columns),
-# the plain versions by a Hillis-Steele scan; it contracts (v < 1), so the
-# two stay within a few f32 ulps
+# the kernels compose the recurrence in runs of 16 under a 32-lane scan
+# (the row pass) and in chunks of 32 (the dt stage's rows, the columns),
+# the plain versions by a Hillis-Steele scan; it contracts (v < 1), so
+# they stay within a few f32 ulps
 TOL_IIR = 1e-5
-TOL_DT = 1e-6                   # dt_coeffs maps in (0, 1)
+TOL_DT = 1e-6                   # dt_scan_rows' v_v map, in (0, 1)
 # taper weights vs plain; each folded blend vs the same products unfolded
 # and the plain blend (the same f32 accumulator and rounding: 0 expected)
 TOL_TAPER = 1e-6
@@ -182,13 +186,13 @@ TILE_STAGES = ("tile_estimate", "kernel_spectrum", "spectral_gemm")
 # kernel_spectrum at config 2's 12 tiles and the 480 x 640 tiles route's
 # one image, beside the main path's 88 tiles
 SPECTRUM_ROWS = ("kernel_spectrum[n=12]", "kernel_spectrum[n=1]")
-FEATURES = ("bilateral", "iir_scan_rows", "dt_coeffs", "taper", "halo")
+FEATURES = ("bilateral", "iir_scan_rows", "dt_scan_rows", "taper", "halo")
 # (k): the kernels generalized in n_angles and in the half-support
 GENERALIZED = tuple(f"directional_maxima[{k}]" for k in (
     "n_angles=4", "n_angles=8", "n_angles=12", "C=4 multichannel")) + tuple(
     f"fused_polynomial[ker_size={k}, {r}]" for k in (21, 31)
     for r in ("fused", "blocked"))
-DT_STAGES = ("dt_coeffs", "iir_scan_rows", "taper", "halo")
+DT_STAGES = ("dt_scan_rows", "iir_scan_rows", "taper", "halo")
 PATH_KW = dict(n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0)
 # BASELINE config 2 (polyblur_tpu/cli/bench_suite.py:121-123)
 CFG2_KW = dict(PATH_KW, remove_halo=True, edgetaping=True, prefiltering=True,
@@ -237,8 +241,9 @@ SOURCES = {
                         "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "iir_scan_rows": ("polyblur_torch/csrc/iir.cu",
                       "polyblur_tpu/ops/pallas/iir.py:145"),
-    "dt_coeffs": ("polyblur_torch/csrc/iir.cu",
-                  "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
+    # the mega kernel's dt state (polyblur_fused.py:436-455) and row pass
+    "dt_scan_rows": ("polyblur_torch/csrc/iir.cu",
+                     "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "taper": ("polyblur_torch/csrc/features.cu",
               "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
     "halo": ("polyblur_torch/csrc/estimate.cu",
@@ -983,9 +988,9 @@ def feature_kernels(dev, img2, report: dict) -> None:
     from polyblur_torch.ops.cuda.features import (
         halo_grads, halo_grads_plain, halo_mask, halo_mask_plain,
         taper_weights, taper_weights_plain)
-    from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
-                                             scan_cols, scan_cols_plain,
-                                             scan_rows, scan_rows_plain)
+    from polyblur_torch.ops.cuda.iir import (
+        dt_coeffs_plain, dt_scan_rows, dt_scan_rows_plain, scan_cols,
+        scan_cols_plain, scan_rows, scan_rows_plain)
     from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
     from polyblur_torch.ops.cuda.polyblur_fused import (
         HALF, TileView, kernel_spectrum, spectral_poly, stage_tables,
@@ -1055,13 +1060,14 @@ def feature_kernels(dev, img2, report: dict) -> None:
     err_cols = float((cols - scan_cols_plain(rows, v_v)).abs().max())
     require(max(err, err_cols) <= TOL_IIR,
             f"iir_scan_rows 2 MP error rows {err}, columns {err_cols}")
-    vh, vv = dt_coeffs(view, coeffs)
-    vh_p, vv_p = dt_coeffs_plain(view, coeffs)
-    err_dt = max(float((vh - vh_p).abs().max()),
-                 float((vv - vv_p).abs().max()))
-    require(err_dt <= TOL_DT, f"dt_coeffs error {err_dt}")
-    rows_t = scan_rows(view, vh)
-    err_t = float((rows_t - scan_rows_plain(view, vh)).abs().max())
+    rows_t, vv = dt_scan_rows(view, coeffs)
+    rows_tp, vv_p = dt_scan_rows_plain(view, coeffs)
+    err_dt = float((vv - vv_p).abs().max())
+    err_dr = float((rows_t - rows_tp).abs().max())
+    require(err_dt <= TOL_DT, f"dt_scan_rows v_v error {err_dt}")
+    require(err_dr <= TOL_IIR, f"dt_scan_rows rows error {err_dr}")
+    vh = dt_coeffs_plain(view, coeffs)[0]
+    err_t = float((scan_rows(view, vh) - rows_tp).abs().max())
     sm, nz = scan_cols(rows_t.clone(), vv, src=view)
     sm_p, nz_p = scan_cols_plain(rows_t, vv, src=view)
     err_ct = max(float((sm - sm_p).abs().max()),
@@ -1112,14 +1118,45 @@ def feature_kernels(dev, img2, report: dict) -> None:
         passes=passes)
     print(f"iir_scan_rows[{tuple(img2.shape)} rows + columns]: "
           f"{report['iir_scan_rows']['ms']:.3f} ms")
-    report["dt_coeffs"] = dict(
-        max_abs_err=err_dt, ms=cuda_ms(lambda: dt_coeffs(view, coeffs)),
-        plain_ms=cuda_ms(lambda: dt_coeffs_plain(view, coeffs)),
-        library_ms=None,
-        bound=bound_ms(canvas.numel() * 2 + 2 * vh.numel() * 4,
-                       6.0 * tiles_el, "f32"))
-    print(f"dt_coeffs[{view.n} tiles]: max_abs_err {err_dt:.3e}, "
-          f"{report['dt_coeffs']['ms']:.3f} ms")
+
+    # -- the dt stage of config 2's tiles: the maps folded into the row
+    # pass (the canvas read once, rows and v_v written once; ~26 flops per
+    # pixel for the maps, 6 per element for the pass), then the whole
+    # stage with the column pass and the noise (the canvas read once,
+    # smooth and noise written once)
+    def dt_stage():
+        r, v = dt_scan_rows(view, coeffs)
+        return scan_cols(r, v, src=view)
+
+    def dt_stage_plain():
+        r, v = dt_scan_rows_plain(view, coeffs)
+        return scan_cols_plain(r, v, src=view)
+
+    n_px = view.n * 448 * 448
+    fused_b = bound_ms(canvas.numel() * 2 + vv.numel() * 4 + tile_b,
+                       26.0 * n_px + 6.0 * tiles_el, "f32")
+    stage_b = bound_ms(canvas.numel() * 2 + 2 * tile_b,
+                       26.0 * n_px + 12.0 * tiles_el + tiles_el, "f32")
+    report["dt_scan_rows"] = dict(
+        max_abs_err=max(err_dt, err_dr),
+        ms=cuda_ms(lambda: dt_scan_rows(view, coeffs)),
+        device_ms=device_ms(lambda: dt_scan_rows(view, coeffs)),
+        plain_ms=cuda_ms(lambda: dt_scan_rows_plain(view, coeffs), reps=3),
+        library_ms=None, bound=fused_b,
+        stage=dict(what="dt_scan_rows + scan_cols with the noise",
+                   ms=cuda_ms(dt_stage), device_ms=device_ms(dt_stage),
+                   plain_ms=cuda_ms(dt_stage_plain, reps=3),
+                   bound_ms=stage_b[0], bound_by=stage_b[1]))
+    r = report["dt_scan_rows"]
+    print(f"dt_scan_rows[{view.n} x 3 x 448^2 bf16 tiles]: v_v max_abs_err "
+          f"{err_dt:.3e}, rows {err_dr:.3e}, {r['ms']:.4f} ms, device "
+          f"{r['device_ms']:.4f} ms, bound {fused_b[0]:.4f} ms "
+          f"({fused_b[1]}), plain {r['plain_ms']:.3f} ms")
+    st = r["stage"]
+    print(f"dt stage[{view.n} x 3 x 448^2 bf16 tiles, {st['what']}]: "
+          f"{st['ms']:.4f} ms, device {st['device_ms']:.4f} ms, bound "
+          f"{st['bound_ms']:.4f} ms ({st['bound_by']}), plain "
+          f"{st['plain_ms']:.3f} ms")
 
     estimate_stages(view, coeffs, f"tile_estimate[bf16, {view.n} x 3 x "
                     "448^2, config 2]")
@@ -1271,11 +1308,16 @@ def feature_paths(dev, img2, card: str, launches: dict) -> None:
     require(counts["taper"] == CFG2_KW["n_iter"],
             f"config 2: {counts['taper']} taper launches for "
             f"{CFG2_KW['n_iter']} iterations (weights only expected)")
-    require(counts["iir_scan_rows"] == 2 * CFG2_KW["n_iter"],
-            f"config 2: {counts['iir_scan_rows']} IIR passes")
+    # the dt maps ride in the row pass: one dt_scan_rows and one column
+    # pass per iteration
+    require(counts["dt_scan_rows"] == CFG2_KW["n_iter"]
+            and counts["iir_scan_rows"] == CFG2_KW["n_iter"],
+            f"config 2: {counts['dt_scan_rows']} dt row passes, "
+            f"{counts['iir_scan_rows']} column passes")
     print(f"config 2 launches per call: taper weights {counts['taper']}, "
-          f"separate blends 0 (folded into spectral_gemm mode 4), IIR "
-          f"row + column passes {counts['iir_scan_rows']}")
+          f"separate blends 0 (folded into spectral_gemm mode 4), dt maps "
+          f"+ row passes {counts['dt_scan_rows']}, column passes "
+          f"{counts['iir_scan_rows']}")
     for k in DT_STAGES:
         launches[k] = counts[k]
     launches["kernel_spectrum[n=12]"] = counts["kernel_spectrum"]
@@ -2357,7 +2399,7 @@ def flag_functions(dev) -> dict:
     import torch
 
     from polyblur_torch.ops.bilateral import _bilateral_plain, bilateral_filter
-    from polyblur_torch.ops.cuda.iir import (dt_coeffs, scan_cols,
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs_plain, scan_cols,
                                              scan_cols_plain, scan_rows,
                                              scan_rows_plain)
     from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
@@ -2384,7 +2426,7 @@ def flag_functions(dev) -> dict:
     maps = {"1 x 3 x 1200 x 1600 f32": (img2, (a ** dh.double()).float(),
                                         (a ** dv.double()).float()),
             f"config 2's {view.n} x 3 x 448^2 bf16 tiles":
-                (tiles,) + dt_coeffs(view, coeffs)}
+                (tiles,) + dt_coeffs_plain(view, coeffs)}
     for shape, (x, v_h, v_v) in maps.items():
         out[f"bilateral {shape}"] = function_vs_plain(
             f"bilateral_filter (B.1.7, {shape})", bilateral_filter,
@@ -3001,7 +3043,7 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": r["library_ms"]})
         for extra in ("library_what", "tile_stage", "device_ms", "passes",
-                      "weights_device_ms"):
+                      "weights_device_ms", "stage"):
             if extra in r:
                 rows[-1][extra] = r[extra]
     print(json.dumps({"training": training}))

@@ -4,27 +4,32 @@ IIR along rows and along columns, and the tiles route's coefficient maps.
 Kernels: ``csrc/iir.cu``.
 
 * :func:`scan_rows` — replaces polyblur_tpu/ops/pallas/iir.py::
-  iir_scan_rows_pallas (one warp per row);
+  iir_scan_rows_pallas (a warp takes the planes sharing one map, a lane a
+  run of 16 elements; rows past 512 are split over the warps of a block);
 * :func:`scan_cols` — the same recurrence down the columns (a block per
-  strip of 32 columns, the row pass's chunked scan transposed through
-  shared memory), in place of the JAX code's swapaxes + row scan; it can
-  also write the prefilter's ``noise = x - smooth``;
-* :func:`dt_coeffs` — the mega kernel's dt prefilter state
-  (polyblur_fused.py:436-455): per tile, the joint-image derivatives over
-  its channels and the feedback maps ``v = exp(dH * (-sqrt 2 / sigma_s))``
-  of one iteration.
+  strip of 32 columns, chunks of 32 rows scanned through shared memory),
+  in place of the JAX code's swapaxes + row scan; it can also write the
+  prefilter's ``noise = x - smooth``;
+* :func:`dt_scan_rows` — the mega kernel's dt prefilter state
+  (polyblur_fused.py:436-455) folded into the row pass: per tile, the
+  joint-image derivatives over its channels, the feedback maps ``v =
+  exp(dH * (-sqrt 2 / sigma_s))`` of one iteration, and the row pass with
+  ``v_h`` in one launch, in the PR 3 kernel's scan order (bit-equal to
+  the two launches it replaces); it returns the rows and ``v_v`` for
+  :func:`scan_cols`.
 
-The scans count as ``iir_scan_rows``, the maps as ``dt_coeffs``. Both scans
-are differentiable in the signal and in ``v`` (ROADMAP B.1 item 8): each is
-an autograd Function (``autograd.replay``) whose backward runs autograd of
-its plain version, as ``_iir_pallas``'s custom VJP replays the associative
-scan (iir.py:110-127). ``dt_coeffs`` serves the tiles route's forward
-only. The plain
+The scans count as ``iir_scan_rows``, the dt stage's row pass as
+``dt_scan_rows``. Both scans are differentiable in the signal and in ``v``
+(ROADMAP B.1 item 8): each is an autograd Function (``autograd.replay``)
+whose backward runs autograd of its plain version, as ``_iir_pallas``'s
+custom VJP replays the associative scan (iir.py:110-127).
+``dt_scan_rows`` serves the tiles route's forward only. The plain
 versions run the TPU kernel's algorithm: the Hillis-Steele affine prefix
 and suffix compositions of iir.py:47-73, log2(W) shifted tensor steps. The
-kernels compose in chunks of 32 (a 5-step scan in each, a carry across
-them), which rounds differently; the recurrence contracts (``v <=
-exp(-sqrt 2 / sigma) < 1``), so they agree to ~1e-6 (tests hold 1e-5).
+kernels compose in other orders (the row pass in runs of 16 under a
+32-lane scan; the dt stage's rows and the columns in chunks of 32), which
+round differently; the recurrence contracts (``v <= exp(-sqrt 2 / sigma)
+< 1``), so they agree to ~1e-6 (tests hold 1e-5).
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from .autograd import records_graph, replay
 from .polyblur_fused import _NULL_VIEW_ARGS, _VIEW_ARGTYPES, TileView
 
 __all__ = ["iir_scan_rows_plain", "scan_rows", "scan_rows_plain",
-           "scan_cols", "scan_cols_plain", "dt_coeffs", "dt_coeffs_plain"]
+           "scan_cols", "scan_cols_plain", "dt_scan_rows",
+           "dt_scan_rows_plain", "dt_coeffs_plain"]
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -210,7 +216,11 @@ def _scan_cols(x: torch.Tensor, v: torch.Tensor, src: TileView | None):
 
 
 def dt_coeffs_plain(view: TileView, coeffs: torch.Tensor):
-    """Plain version of :func:`dt_coeffs`, in the TPU kernel's order."""
+    """The (n, H, W) f32 feedback maps (v_h, v_v) of one domain-transform
+    iteration (sigma_H = sigma_s) of each tile of ``view``, from its
+    channels' summed absolute differences, in the TPU kernel's order;
+    ``coeffs`` is the (8,) ``pipeline._mega_pack`` vector (sigma_s,
+    sigma_r at 6, 7)."""
     f = view.tiles().float()
     n, c, h, w = f.shape
     dx = torch.zeros((n, h, w - 1), dtype=torch.float32, device=f.device)
@@ -222,33 +232,52 @@ def dt_coeffs_plain(view: TileView, coeffs: torch.Tensor):
     ratio = coeffs[6] / coeffs[7]
     log_a = torch.tensor(-math.sqrt(2.0), dtype=torch.float32,
                          device=f.device) / coeffs[6]
-    dh = torch.cat([torch.zeros_like(dx[..., :1]), ratio * dx], -1) + 1.0
-    dv = torch.cat([torch.zeros_like(dy[..., :1, :]), ratio * dy], -2) + 1.0
+    zero = f.new_zeros(())
+    dh = torch.cat([zero.expand(n, h, 1), ratio * dx], -1) + 1.0
+    dv = torch.cat([zero.expand(n, 1, w), ratio * dy], -2) + 1.0
     # exp in float64 (see ops.sep_poly.gaussian_taps)
     return (torch.exp((dh * log_a).double()).float(),
             torch.exp((dv * log_a).double()).float())
 
 
-def dt_coeffs(view: TileView, coeffs: torch.Tensor):
-    """The (n, H, W) f32 feedback maps (v_h, v_v) of one domain-transform
-    iteration (sigma_H = sigma_s) of each tile of ``view``, from its
-    channels' summed absolute differences; ``coeffs`` is the (8,)
-    ``pipeline._mega_pack`` vector (sigma_s, sigma_r at 6, 7)."""
+def dt_scan_rows_plain(view: TileView, coeffs: torch.Tensor):
+    """Plain version of :func:`dt_scan_rows`: :func:`dt_coeffs_plain`, then
+    :func:`scan_rows_plain` with v_h."""
+    v_h, v_v = dt_coeffs_plain(view, coeffs)
+    return scan_rows_plain(view, v_h), v_v
+
+
+#: Widest tile :func:`dt_scan_rows` launches for (csrc/iir.cu: one span of
+#: 8 warps of 512 elements); the staged route's dt tiles are <= 512.
+DT_MAX_WIDTH = 4096
+
+
+def dt_scan_rows(view: TileView, coeffs: torch.Tensor):
+    """The dt prefilter's maps and row pass of each tile of ``view`` (f32
+    or bf16, (n, C, H, W) tiles) in one launch: ``rows``, the row pass of
+    the tiles with the row map v_h (which stays on chip), (n, C, H, W) f32,
+    and ``v_v``, the (n, H, W) f32 column map for :func:`scan_cols`.
+    ``coeffs`` is the (8,) ``pipeline._mega_pack`` vector (sigma_s,
+    sigma_r read on the card at 6, 7). Forward only."""
     if runs_plain(view.data):
-        return dt_coeffs_plain(view, coeffs)
-    check_cuda("dt_coeffs", view.data, coeffs)
+        return dt_scan_rows_plain(view, coeffs)
+    check_cuda("dt_scan_rows", view.data, coeffs)
     h, w = view.patch
+    if w > DT_MAX_WIDTH:
+        raise ValueError(f"dt_scan_rows: tiles {w} wide, the kernel takes "
+                         f"at most {DT_MAX_WIDTH}")
+    c = view.channels
     dev = view.data.device
-    v_h = torch.empty((view.n, h, w), dtype=torch.float32, device=dev)
-    v_v = torch.empty_like(v_h)
+    rows = torch.empty((view.n, c, h, w), dtype=torch.float32, device=dev)
+    v_v = torch.empty((view.n, h, w), dtype=torch.float32, device=dev)
     coeffs = coeffs.float().contiguous()
     lib = library("iir")
-    fn = lib.pb_dt_coeffs
+    fn = lib.pb_dt_rows
     fn.argtypes = [_I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 4
     fn.restype = _I
-    err = fn(dtype_code(view.data.dtype), *view.c_args(), view.n,
-             view.channels, h, w, coeffs.data_ptr(), v_h.data_ptr(),
-             v_v.data_ptr(), stream_of(v_h))
-    count_launch("dt_coeffs")
-    check(lib, err, "dt_coeffs")
-    return v_h, v_v
+    err = fn(dtype_code(view.data.dtype), *view.c_args(), view.n, c, h, w,
+             coeffs.data_ptr(), rows.data_ptr(), v_v.data_ptr(),
+             stream_of(rows))
+    count_launch("dt_scan_rows")
+    check(lib, err, "dt_scan_rows")
+    return rows, v_v

@@ -61,7 +61,7 @@ from .ops.cuda._build import plain_mode, plain_versions
 from .ops.cuda.autograd import records_graph
 from .ops.cuda.bilateral import bilateral
 from .ops.cuda.features import halo_grads, halo_mask, taper_weights
-from .ops.cuda.iir import dt_coeffs, scan_cols, scan_rows
+from .ops.cuda.iir import dt_scan_rows, scan_cols
 from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
                                       polyblur_tiles_fused, spectral_poly,
                                       stage_tables, tile_estimate)
@@ -122,8 +122,8 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
         smooth, noise = bilateral(src, out_dtype=f32, with_noise=True)
         base = TileView.of_tiles(smooth)
     elif prefilter == "dt":
-        v_h, v_v = dt_coeffs(src, coeffs)
-        smooth, noise = scan_cols(scan_rows(src, v_h), v_v, src=src)
+        rows, v_v = dt_scan_rows(src, coeffs)
+        smooth, noise = scan_cols(rows, v_v, src=src)
         base = TileView.of_tiles(smooth)
     poly_src, pad, ucmp = base, HALF, base
     if do_taper:

@@ -692,14 +692,15 @@ def test_cuda_bilateral_matches_plain(cuda_dev, dt, tol):
 
 
 def test_cuda_iir_matches_plain(cuda_dev):
-    """Row and column passes and the dt maps; the chunked composition
-    rounds differently from the Hillis-Steele plain version (1e-5). The
+    """Row and column passes and the dt stage's fused maps and row pass;
+    the kernels' compositions round differently from the Hillis-Steele
+    plain version (1e-5; the maps 1e-6). The
     column pass at H = 200 and 448 (the strip's forward result in shared
     memory, a last partial chunk at 200) and 777 (through device memory),
     at W = 333 (4-byte copies) and, at 777, W = 336 (16-byte copies and
     stores), in place, with and without the noise, and from a bf16
     canvas."""
-    from polyblur_torch.ops.cuda.iir import (dt_coeffs, dt_coeffs_plain,
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs_plain, dt_scan_rows,
                                              scan_cols, scan_cols_plain,
                                              scan_rows, scan_rows_plain)
     from polyblur_torch.ops.domain_transform import iir_scan_rows
@@ -740,11 +741,64 @@ def test_cuda_iir_matches_plain(cuda_dev):
     for dt in (torch.float32, torch.bfloat16):
         cv = _canvas_view(cuda_dev, dt, 23)
         before = dict(pcuda.launches)
-        vh, vv = dt_coeffs(cv, coeffs)
-        assert _counts(before, "dt_coeffs") == 1
+        rows, vv = dt_scan_rows(cv, coeffs)
+        assert _counts(before, "dt_scan_rows") == 1
         vh_p, vv_p = dt_coeffs_plain(cv, coeffs)
-        assert float((vh - vh_p).abs().max()) <= 1e-6
         assert float((vv - vv_p).abs().max()) <= 1e-6
+        assert float((rows - scan_rows_plain(cv, vh_p)).abs().max()) <= 1e-5
+
+
+def _odd_canvas_view(dev, dt, seed, patch, x0):
+    """A 2 x 2 grid of ``patch`` tiles at odd steps on a (1, 3) canvas
+    whose columns start ``x0`` elements past an allocation (x0 = 1: every
+    tile origin off 16 bytes)."""
+    ph, pw = patch
+    g = torch.Generator().manual_seed(seed)
+    full = torch.rand((1, 3, ph + 37, pw + 41 + x0), generator=g)
+    data = full.to(dev).to(dt)[..., x0:]
+    return TileView(data, 1, 0, 4, 2, (37, 41), patch)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [1, 31, 33, 160, 447, 448, 512, 513, 1600,
+                               4100])
+def test_cuda_iir_rows_geometries_match_plain(cuda_dev, dt, w):
+    """The row pass at widths in one lane's run, in one warp (<= 512: the
+    row in registers), split over the warps of a block (513, 1600) and
+    past one span of 4096; one map per plane (vdiv 1) and per tile (vdiv
+    C = 3); dense tiles and a canvas at odd steps, aligned and with every
+    tile origin off 16 bytes (the element-wise loads); then the dt
+    stage's fused maps and row pass on the same views (v_v within 1e-6;
+    past its one span it refuses the tiles)."""
+    from polyblur_torch.ops.cuda.iir import (DT_MAX_WIDTH, dt_coeffs_plain,
+                                             dt_scan_rows, scan_rows,
+                                             scan_rows_plain)
+
+    g = torch.Generator().manual_seed(40 + w)
+    h = 3 if w > 512 else 17
+    x = torch.rand((2, 3, h, w), generator=g).to(cuda_dev).to(dt)
+    views = [TileView.of_tiles(x)] + [
+        _odd_canvas_view(cuda_dev, dt, w, (h, w), x0) for x0 in (0, 1)]
+    coeffs = _mega_pack(*COEFFS, device=cuda_dev)
+    for view in views:
+        for maps in (view.n * 3, view.n):
+            v = (0.999 * torch.rand((maps, h, w), generator=g)).to(cuda_dev)
+            before = dict(pcuda.launches)
+            rows = scan_rows(view, v)
+            assert _counts(before, "iir_scan_rows") == 1
+            err = float((rows - scan_rows_plain(view, v)).abs().max())
+            assert err <= 1e-5, (view.step, maps, err)
+        if w > DT_MAX_WIDTH:
+            with pytest.raises(ValueError):
+                dt_scan_rows(view, coeffs)
+            continue
+        before = dict(pcuda.launches)
+        rows, vv = dt_scan_rows(view, coeffs)
+        assert _counts(before, "dt_scan_rows") == 1
+        vh_p, vv_p = dt_coeffs_plain(view, coeffs)
+        assert float((vv - vv_p).abs().max()) <= 1e-6, view.step
+        err = float((rows - scan_rows_plain(view, vh_p)).abs().max())
+        assert err <= 1e-5, (view.step, err)
 
 
 def test_cuda_taper_and_halo_stages_match_plain(cuda_dev):
@@ -888,7 +942,7 @@ def test_cuda_feature_stages_match_plain(cuda_dev, dt, prefilter, min_db):
     flags = dict(do_taper=True, do_halo=True, prefilter=prefilter)
     before = dict(pcuda.launches)
     got = restore_tiles(view, coeffs, 2, **flags)
-    for name in ("taper", "halo") + (("dt_coeffs", "iir_scan_rows")
+    for name in ("taper", "halo") + (("dt_scan_rows", "iir_scan_rows")
                                      if prefilter == "dt" else ("bilateral",)):
         assert _counts(before, name) > 0, name
     with pcuda.plain_versions():
@@ -1207,7 +1261,7 @@ def test_cuda_grad_free_flagged_calls_launch_as_before(cuda_dev, prefilter):
         return out, dict(pcuda.launches)
 
     ref, want = counted(img)
-    assert want[prefilter if prefilter == "bilateral" else "dt_coeffs"] == 2
+    assert want[prefilter if prefilter == "bilateral" else "dt_scan_rows"] == 2
     assert want["taper"] == 2 and want["halo"] == 3
     xg = img.clone().requires_grad_()
     out, n = counted(xg, grad=False)

@@ -57,7 +57,7 @@ def main() -> int:
         return 2
     from polyblur_torch.ops.cuda import features
     from polyblur_torch.ops.cuda import polyblur_fused as pf
-    from polyblur_torch.ops.cuda.iir import (dt_coeffs, scan_cols,
+    from polyblur_torch.ops.cuda.iir import (dt_coeffs_plain, scan_cols,
                                              scan_rows)
     from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
     from polyblur_torch.ops.domain_transform import (
@@ -87,7 +87,7 @@ def main() -> int:
     th, tw, sh, sw = _grid_steps(grid)
     canvas = edge_pad_cast(img, grid.orig_size, grid.pad, bf16)
     view = pf.TileView(canvas, 1, 0, th * tw, tw, (sh, sw), (448, 448))
-    vh, vv = dt_coeffs(view, coeffs)
+    vh, vv = dt_coeffs_plain(view, coeffs)
     rows_t = scan_rows(view, vh)
     show(f"iir rows {view.n}x3x448^2 bf16 tiles",
          lambda: scan_rows(view, vh))
