@@ -130,7 +130,25 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    identical kernel vs plain on the 88 tiles of every iteration, its ms,
    MP/s and the bilateral stage's share of its device time (a
    ``torch.profiler`` trace);
-10. prints the training times as one JSON line, the card line, one JSON
+10. after (i)-(l), (m) drives the 12 MP image through ``deblur_patches``
+   at 448 px tiles, overlap 0.6 (an irregular grid of 336 tiles: the
+   composed route, the tiles route's kernels on all tiles as one batch,
+   the plain slice-add blend; bf16 work, f32 out) against its plain run
+   (>= 40 dB), theta identical kernel vs plain on every iteration's tiles,
+   with its MP/s, device busy time, peak memory and the blend's own time,
+   then ``PolyblurDeblurring`` at that overlap on the 1200 x 1600 photo
+   and one ``PolyblurLayer`` step through the 12 MP irregular grid (f32)
+   against the plain step under (a)'s gates; (n) runs
+   ``polyblur_deblurring(verbose=True)`` on the demo, on config 2's photo
+   with every flag, on a 480 x 640 crop through ``'fft'`` and on 12 MP
+   ``auto``: the stage lines printed, the
+   result identical to ``verbose=False``; (o) runs ``cli.main`` on the
+   peacock (the demo's flags, then the patch engine at overlap 0.6), each
+   PNG equal to ``imsave_uint8`` of the API's output,
+   ``cli.bench_suite --quick`` (its table) and ``cli.calibrate`` at small
+   arguments; the main path's launches, read before and after (m)-(o),
+   must not change;
+11. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -1911,6 +1929,275 @@ def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
                              f"{before} before")
 
 
+# ------------------------------------------------ irregular, verbose, tools
+# (m)-(o): an irregular 12 MP tile grid, verbose=True and the user-facing
+# tools (polyblur_torch.cli).
+
+IRREGULAR_KW = dict(PATH_KW, method="direct_separable")
+# 12 MP at 448 px tiles, overlap 0.6: step int(448 * 0.4) = 179, 16 x 21
+IRREGULAR_TILES = 336
+VERBOSE_STAGES = 1 + 2 * PATH_KW["n_iter"]
+CLI_OUTDIR = "build/chip_smoke_cli"
+
+
+def irregular_path(dev, img, card: str) -> None:
+    """(m): the 12 MP image through ``deblur_patches`` at 448 px, overlap
+    0.6 (an irregular grid: the composed route, the tiles route's kernels
+    on all 336 tiles as one batch, the plain slice-add blend), bf16 work,
+    f32 out, counted and held against its plain run; theta identical
+    kernel vs plain on the tiles of every iteration; MP/s, device busy,
+    peak memory and the blend's own host and device time. Then
+    ``PolyblurDeblurring`` at that overlap on the 1200 x 1600 photo, and
+    one ``PolyblurLayer`` step through the 12 MP irregular grid in f32
+    against the plain step under (a)'s gates."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch import PolyblurLayer
+    from polyblur_torch import pipeline as ppipe
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.ops.cuda._build import plain_mode
+    from polyblur_torch.patches import (_grid_steps, extract_patches,
+                                        overlap_add, plan_patch_grid)
+
+    H, W = img.shape[-2:]
+    grid = plan_patch_grid(H, W, 448, 0.6)
+    require(_grid_steps(grid) is None and len(grid.coords) == IRREGULAR_TILES,
+            f"(m): the 448 / 0.6 grid has {len(grid.coords)} tiles")
+    label = "(m) 12 MP deblur_patches 448 px overlap 0.6 (336 tiles) bf16"
+
+    def call():
+        return polyblur_torch.deblur_patches(
+            img, patch_size=448, overlap=0.6, work_dtype=torch.bfloat16,
+            out_dtype=torch.float32, device=dev, **IRREGULAR_KW)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = drive_path(label, call, img.shape,
+                        (("deblur_patches", "composed"),
+                         ("polyblur_core", "tiles")),
+                        ("edge_pad_cast",) + TILE_STAGES, PSNR_BF16_DB, card,
+                        H * W)
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require("blend_overlap_add" not in counts,
+            f"{label}: the regular grids' blend kernel launched")
+    thetas = []
+    estimate = ppipe.tile_estimate
+
+    def recording(view, coeffs):
+        est = estimate(view, coeffs)
+        if not plain_mode():
+            with pcuda.plain_versions():
+                same = estimate(view, coeffs)
+            thetas.append(bool(torch.equal(est[:, 0], same[:, 0])))
+        return est
+
+    ppipe.tile_estimate = recording
+    try:
+        call()
+    finally:
+        ppipe.tile_estimate = estimate
+    require(len(thetas) == PATH_KW["n_iter"] and all(thetas),
+            f"{label}: theta kernel vs plain per iteration {thetas}")
+    ms = host_ms(call)
+    kernels = traced_kernels(call)
+    busy = kernel_device_ms(kernels)
+    # the blend alone, on the restored tiles
+    tiles = extract_patches(img.to(torch.bfloat16), grid)
+    restored = polyblur_torch.pipeline.polyblur_core(tiles, device=dev,
+                                                     **IRREGULAR_KW)
+    del tiles
+
+    def blend():
+        return overlap_add(restored, grid, 1, out_dtype=torch.float32)
+
+    blend_ms = host_ms(blend)
+    blend_busy = kernel_device_ms(traced_kernels(blend))
+    print(f"{label}: {ms:.2f} ms = {H * W / 1e6 / (ms / 1e3):.2f} MP/s "
+          f"(median of 5) on {card}; device busy {busy:.3f} ms "
+          f"({len(kernels)} device kernels); peak memory {gib:.2f} GiB; "
+          f"launches {counts}; theta kernel vs plain identical on the "
+          f"{IRREGULAR_TILES} tiles of all {len(thetas)} iterations; the "
+          f"blend ({IRREGULAR_TILES} slice-adds) alone {blend_ms:.3f} ms "
+          f"host, {blend_busy:.3f} ms device")
+    del restored
+    torch.cuda.empty_cache()
+
+    photo = make_config2_image()
+    module = polyblur_torch.PolyblurDeblurring(
+        patch_decomposition=True, patch_size=448, patch_overlap=0.6,
+        device=dev)
+    drive_path("(m) PolyblurDeblurring 448 px overlap 0.6, 1200x1600 photo",
+               lambda: module(photo, **PATH_KW), photo.shape,
+               (("deblur_patches", "composed"), ("polyblur_core", "tiles")),
+               ("edge_pad_cast",) + TILE_STAGES, PSNR_F32_DB, card,
+               photo.shape[0] * photo.shape[1])
+
+    # the layer step in f32: in bf16 the two steps' states differ by the
+    # output's rounding, and over 336 tiles x 3 iterations a first theta
+    # flip against the plain step drew a 1.456e-3 tie margin (gate
+    # TOL_TIE_STEP; on an H100 80GB HBM3 at 700 W); in f32 the states
+    # agree to ~90 dB
+    def layer_m():
+        return PolyblurLayer(n_iter=3, learnable=True, patch_size=448,
+                             patch_overlap=0.6, method="direct_separable",
+                             device=dev)
+
+    forward = free_launches(layer_m, img)
+    require(forward == counts, f"(m) layer: grad-free launches {forward}, "
+                               f"the path's {counts}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    theta_checked("(m)", lambda on_run: grads_vs_plain(
+        "(m) 12 MP f32 irregular patch layer", layer_m, img, img,
+        TOL_REL_GRAD_F32, PSNR_F32_DB, ("deblur_patches", "composed"),
+        forward, on_run=on_run))
+    torch.cuda.synchronize()
+    print(f"(m) layer step, kernels and plain: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}")
+    torch.cuda.empty_cache()
+
+
+def stage_lines(fn):
+    """(result, the printed ``-- ...`` lines) of ``fn()``; the lines are
+    printed again."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("-- ")]
+    for ln in lines:
+        print(f"  {ln}")
+    return out, lines
+
+
+def verbose_paths(dev, img12, card: str) -> None:
+    """(n): ``polyblur_deblurring(verbose=True)`` on the demo, on config
+    2's photo with every flag (the scan route's stages with the bilateral
+    smoother), on a 480 x 640 crop through ``'fft'`` (the fused maxima)
+    and on 12 MP ``auto`` (one line around the patch engine):
+    the stage lines printed, the stage loop's kernels launched, and the
+    result identical to ``verbose=False``."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch.ops import cuda as pcuda
+
+    peacock = load_png("tests/data/peacock_defocus.png")
+    photo = make_config2_image()
+    # past 640 px the estimate takes the plain maxima chain; the fused
+    # maxima kernel runs in the stage loop of an image within that edge
+    crop = np.ascontiguousarray(peacock[:480, :640])
+    for label, x, kw, n_lines, kernels in (
+            ("(n) verbose demo 700x500", peacock, {}, VERBOSE_STAGES,
+             ("fused_polynomial",)),
+            ("(n) verbose config 2's photo, every flag", photo, FLAGS_KW,
+             VERBOSE_STAGES, ("fused_polynomial", "bilateral")),
+            ("(n) verbose crop 480x640 method='fft'", crop,
+             dict(method="fft"), VERBOSE_STAGES, ("directional_maxima",)),
+            ("(n) verbose 12 MP method='auto'", img12, {}, 1, NAMES)):
+        def run(verbose, x=x, kw=kw):
+            return polyblur_torch.polyblur_deblurring(
+                x, device=dev, verbose=verbose, **PATH_KW, **kw)
+
+        quiet = torch.as_tensor(run(False))
+        torch.cuda.synchronize()
+        pcuda.reset_launches()
+        t0 = time.perf_counter()
+        loud, lines = stage_lines(lambda: run(True))
+        sec = time.perf_counter() - t0
+        counts = dict(pcuda.launches)
+        same = bool(torch.equal(torch.as_tensor(loud), quiet))
+        print(f"{label}: {len(lines)} stage lines, {sec * 1e3:.2f} ms with "
+              f"the syncs on {card}; launches {counts}; identical to "
+              f"verbose=False: {same}")
+        require(len(lines) == n_lines, f"{label}: {len(lines)} stage lines, "
+                                       f"expected {n_lines}")
+        for k in kernels:
+            require(counts.get(k, 0) > 0, f"{label}: {k} never launched")
+        require(same, f"{label}: verbose changed the result")
+
+
+def cli_phases(dev, card: str) -> None:
+    """(o): ``cli.main`` on the peacock with the demo's flags, then with
+    the patch engine at overlap 0.6, each PNG equal to ``imsave_uint8`` of
+    the API's output on the same arguments; ``cli.bench_suite --quick``
+    (its table printed); ``cli.calibrate`` at the JAX package's test
+    arguments (tests/test_runtime.py:101-107)."""
+    import os
+
+    from PIL import Image
+
+    import polyblur_torch
+    from polyblur_torch.cli import bench_suite as cbench
+    from polyblur_torch.cli import calibrate as ccal
+    from polyblur_torch.cli import main as cmain
+    from polyblur_torch.utils.io import imread_float, imsave_uint8
+
+    path = "tests/data/peacock_defocus.png"
+    base = ["--impath", path, "--N", "3", "--alpha", "6", "--beta", "1",
+            "--outdir", CLI_OUTDIR]
+    img = imread_float(path)
+    for label, extra, patches in (
+            ("(o) cli.main demo", [], None),
+            ("(o) cli.main patches 400 px overlap 0.6",
+             ["--do_patch_decomposition", "true", "--patch_overlap", "0.6"],
+             (400, 0.6))):
+        t0 = time.perf_counter()
+        out = cmain.main(base + extra)
+        sec = time.perf_counter() - t0
+        module = polyblur_torch.PolyblurDeblurring(
+            patch_decomposition=patches is not None,
+            patch_size=patches[0] if patches else 400,
+            patch_overlap=patches[1] if patches else 0.25, batch_size=20,
+            device=dev)
+        api = module(img, n_iter=3, c=0.362, b=0.468, alpha=6.0, beta=1.0,
+                     q=0.0, method="direct_separable")
+        ref = os.path.join(CLI_OUTDIR, "api.png")
+        imsave_uint8(ref, api)
+        same = bool(np.array_equal(np.asarray(Image.open(out)),
+                                   np.asarray(Image.open(ref))))
+        print(f"{label}: {out} in {sec:.2f} s (warm-up + timed run); PNG "
+              f"equal to imsave_uint8 of the API's output: {same}")
+        require(same, f"{label}: the PNG differs from the API's output")
+
+    t0 = time.perf_counter()
+    rows = cbench.main(["--quick"])
+    print(f"(o) bench_suite --quick: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    require(len(rows) == 10, f"(o) bench_suite --quick gave {len(rows)} "
+                             f"rows")
+
+    res = ccal.main(["--n_kernels", "4", "--n_synthetic", "2",
+                     "--patch_size", "128"])
+    require(set(res) == {"normal", "orthogonal"}
+            and res["normal"]["c"] > 0, f"(o) calibrate gave {res}")
+    print(f"(o) calibrate: normal c {res['normal']['c']!r} b "
+          f"{res['normal']['b']!r}, orthogonal c {res['orthogonal']['c']!r} "
+          f"b {res['orthogonal']['b']!r}")
+
+
+def tool_phases(dev, card: str, launches: dict) -> None:
+    """(m)-(o), with the 12 MP main path's launches and MP/s before and
+    after, which must not change."""
+    import torch
+
+    img = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
+                          device=dev)
+    before = main_path_launches(dev, img, card, "before (m)-(o)")
+    require(before == {k: launches[k] for k in NAMES},
+            f"main path launches {before} differ from the first run's")
+    irregular_path(dev, img, card)
+    verbose_paths(dev, img, card)
+    torch.cuda.empty_cache()
+    cli_phases(dev, card)
+    after = main_path_launches(dev, img, card, "after (m)-(o)")
+    require(after == before, f"main path launches {after} after (m)-(o), "
+                             f"{before} before")
+
+
 # ---------------------------------------------------------------- training
 # (a)-(e): the differentiable layer's steps and each autograd Function alone.
 # A Function's backward replays autograd of its plain version on the card,
@@ -3022,6 +3309,11 @@ def main() -> int:
     del img2
     torch.cuda.empty_cache()
     slice_phases(dev, card, launches, report)
+
+    # ---------------------------------------------------------- (m)-(o)
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice phases (m)-(o)")
+    torch.cuda.empty_cache()
+    tool_phases(dev, card, launches)
 
     # ---------------------------------------------------------- training
     print(f"[{time.perf_counter() - t_start:.1f} s] training phases")

@@ -10,6 +10,11 @@ tensors take. :class:`PolyblurLayer` and the training functions make the
 pipeline a trainable layer: the kernels run forward, autograd of their
 plain versions backward.
 
+``polyblur_torch.cli`` holds the JAX package's tools on the port: the
+demo (``cli.main``), the benchmark suite (``cli.bench_suite``) and the
+calibration of (c, b) (``cli.calibrate``, host NumPy over the
+``oracle.numpy_ref`` copy).
+
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 The plain versions are an f32 reference: on the card they require
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) and

@@ -10,6 +10,7 @@ returned as such; tensors must be ``(B, C, H, W)``. Calls run on
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -21,12 +22,10 @@ from .envelopes import (AUTO_TILE_MIN_AREA, BLOCKED_COST_MACS_PX,
                         TILE_FIXED_MACS)
 from .patches import deblur_patches
 from .pipeline import mega_tile_cap, polyblur_core, resolve_device
-from .utils.imaging import to_array, to_tensor
-from .utils.profiling import record_dispatch
+from .utils.imaging import clip_as_jax, to_array, to_tensor
+from .utils.profiling import force_execution, record_dispatch, stage_timer
 
 __all__ = ["polyblur_deblurring", "PolyblurDeblurring"]
-
-_TODO_VERBOSE = "ROADMAP A.11 (verbose per-stage timing)"
 
 #: Candidate (patch, step) grids of ``method='auto'`` tiling, as in the
 #: JAX package (api.py:37), so that both tile the same images alike.
@@ -73,6 +72,61 @@ def _resolve_auto(method: str) -> str:
     return "direct_separable" if method == "auto" else method
 
 
+def _run_verbose(x: torch.Tensor, cfg, dev: torch.device) -> torch.Tensor:
+    """The reference's per-stage timing prints (deblurring.py:59-90), as
+    the JAX package's ``_run_verbose`` (api.py:109-175): the scan route's
+    stages run one by one, each forced to finish (the device synchronized)
+    before its line is printed. The returned pixels are those of
+    ``verbose=False``: the same stages as ``polyblur_core``'s scan route,
+    and where ``polyblur_core`` takes the tiles route instead
+    (``pipeline._mega_static_ok``), its result."""
+    from .estimation import gaussian_blur_estimation
+    from .ops.fourier import spectral_gradients
+    from .pipeline import _mega_static_ok, edge_aware_filtering
+    from .restoration import inverse_filtering_rank3
+
+    start = time.time()
+    impred = x
+    grad_img = spectral_gradients(x) if cfg.remove_halo else None
+    if grad_img is not None:
+        force_execution(grad_img[0])
+    print("-- init tensors:      %1.5f" % (time.time() - start))
+
+    for n in range(cfg.n_iter):
+        start = time.time()
+        kernel = gaussian_blur_estimation(
+            impred, c=cfg.c, b=cfg.b, q=cfg.q, n_angles=cfg.n_angles,
+            n_interpolated_angles=cfg.n_interpolated_angles,
+            ker_size=cfg.ker_size, discard_saturation=cfg.discard_saturation,
+            multichannel=cfg.multichannel_kernel,
+            return_2d_filters=cfg.method != "direct_separable")
+        force_execution(kernel)
+        print("-- blur estimation %d: %1.5f" % (n + 1, time.time() - start))
+
+        start = time.time()
+        noise = None
+        if cfg.prefiltering:
+            impred, noise = edge_aware_filtering(
+                impred, cfg.sigma_s, cfg.sigma_r, smoother=cfg.smoother)
+        impred = inverse_filtering_rank3(
+            impred, kernel, alpha=cfg.alpha, beta=cfg.beta,
+            remove_halo=cfg.remove_halo, do_edgetaper=cfg.edgetaping,
+            grad_img=grad_img, method=cfg.method, ker_size=cfg.ker_size)
+        if noise is not None:
+            impred = impred + noise
+        impred = clip_as_jax(impred)
+        force_execution(impred)
+        print("-- deblurring %d:      %1.5f" % (n + 1, time.time() - start))
+
+    if _mega_static_ok(cfg.method, cfg.remat, cfg.discard_saturation,
+                       cfg.multichannel_kernel, cfg.prefiltering,
+                       cfg.smoother, cfg.q, cfg.ker_size, cfg.n_angles,
+                       cfg.n_interpolated_angles, x.shape[-2], x.shape[-1]):
+        return polyblur_core(x, device=dev, **cfg.traced_kwargs(),
+                             **cfg.static_kwargs())
+    return impred
+
+
 def _adapt_in(img, device: torch.device):
     """numpy (H,W)/(H,W,C) -> ((1,C,H,W) tensor, True); a (B,C,H,W)
     tensor -> (it on ``device``, False)."""
@@ -114,11 +168,13 @@ def polyblur_deblurring(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
 
     :param img: numpy ``(H, W)``/``(H, W, C)`` image or ``(B, C, H, W)``
         tensor in [0, 1]; the return type matches
+    :param verbose: print the reference's per-stage timing lines
+        (:func:`_run_verbose`; on the auto-tiled route one line for the
+        whole patch engine); the returned pixels are those of
+        ``verbose=False``
     :param device: where to run (default ``"cuda"``; raises without a
         card — pass ``"cpu"`` for the plain PyTorch path)
     """
-    if verbose:
-        raise NotImplementedError(f"verbose=True: see {_TODO_VERBOSE}")
     dev = resolve_device(device)
     x, was_numpy = _adapt_in(img, dev)
     cfg = FUNCTIONAL_DEFAULTS.replace(
@@ -136,16 +192,23 @@ def polyblur_deblurring(img, n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
         cap = mega_tile_cap(prefiltering, cfg.smoother)
         if _auto_tile_wanted(h, w, cap):
             plan = _auto_tile_plan(h, w, cap)
-    if plan is None:
-        out = polyblur_core(x, device=dev, **kw)
-    else:
+    if plan is not None:
         record_dispatch("polyblur_deblurring", f"auto_tiled/{plan[0]}")
         # the patch engine even-crops: edge-pad odd axes by one first
         xe = x
         if h % 2 or w % 2:
             xe = F.pad(x, (0, w % 2, 0, h % 2), mode="replicate")
-        out = deblur_patches(xe, patch_size=plan[0], overlap=plan[1],
-                             batch_size=0, device=dev, **kw)[..., :h, :w]
+        with stage_timer("polyblur_deblurring (auto-tiled, incl. any "
+                         "compile)", verbose=verbose):
+            out = deblur_patches(xe, patch_size=plan[0], overlap=plan[1],
+                                 batch_size=0, device=dev, **kw)
+            if verbose:
+                force_execution(out)
+        out = out[..., :h, :w]
+    elif verbose:
+        out = _run_verbose(x, cfg, dev)
+    else:
+        out = polyblur_core(x, device=dev, **kw)
     return to_array(out) if was_numpy else out
 
 

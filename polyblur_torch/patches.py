@@ -16,9 +16,12 @@ take the configuration (its static predicate ``pipeline._mega_static_ok``
 on the tile size: ``'direct_separable'``, no ``remat``, q = 0, no
 saturation mask or multichannel kernel, ker_size 25, 6 + 1 angles
 interpolated to 30, the bilateral or domain-transform smoother, tiles
-within ``pipeline.mega_tile_cap``). Every other configuration takes the
-composed route of the JAX package (patches.py:479-500): extract the
-tiles, run ``pipeline.polyblur_core`` on them, blend.
+within ``pipeline.mega_tile_cap``). Every other configuration, and every
+irregular grid (an overlap past 50%, or coordinates off one step), takes
+the composed route of the JAX package (patches.py:479-500): extract the
+tiles, run ``pipeline.polyblur_core`` on them, blend. An irregular grid
+is blended by plain PyTorch slice-adds in the grid's coordinate order,
+as the JAX package's scatter-add chain (patches.py:268-300).
 
 Both routes are differentiable in the image and in (c, b, alpha, beta),
 with every feature flag. The staged route is a chain of three autograd
@@ -46,13 +49,11 @@ from .ops.cuda.pad_cast import edge_pad_cast
 from .ops.cuda.polyblur_fused import polyblur_image_fused
 from .pipeline import (_mega_pack, _mega_static_ok, polyblur_core,
                        prefilter_of, resolve_device)
-from .utils.imaging import build_window_np
+from .utils.imaging import build_window_np, clip_as_jax
 from .utils.profiling import record_dispatch
 
 __all__ = ["PatchGrid", "plan_patch_grid", "extract_patches", "overlap_add",
            "deblur_patches"]
-
-_TODO_IRREGULAR = "ROADMAP A.6 (irregular tile grids)"
 
 
 class PatchGrid(NamedTuple):
@@ -145,18 +146,49 @@ def overlap_add(patches: torch.Tensor, grid: PatchGrid, batch: int,
                 window_type: str = "kaiser", out_dtype=None) -> torch.Tensor:
     """Blend (T*B, C, ph, pw) tiles back into (B, C, h, w): windowed sum,
     times the reciprocal window sum, clipped to [0, 1], cropped to the
-    original content. Accumulates in f32; ``out_dtype`` defaults to the
-    tile dtype."""
+    original content; ``out_dtype`` defaults to the tile dtype. A regular
+    grid accumulates in f32 (:func:`blend_overlap_add`), an irregular one
+    in the wider of the tile and output dtypes
+    (:func:`_overlap_add_irregular`)."""
     reg = _grid_steps(grid)
     if reg is None:
-        raise NotImplementedError(f"blending an irregular grid: see "
-                                  f"{_TODO_IRREGULAR}")
+        return _overlap_add_irregular(patches, grid, batch, window_type,
+                                      out_dtype)
     window, inv_wsum = _blend_constants(grid, window_type, patches.device)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
     return blend_overlap_add(patches, window, inv_wsum,
                              reg + grid.patch_size, batch, (pt, pl, h, w),
                              out_dtype)
+
+
+def _overlap_add_irregular(patches: torch.Tensor, grid: PatchGrid,
+                           batch: int, window_type: str,
+                           out_dtype) -> torch.Tensor:
+    """The JAX package's blend of an irregular grid (patches.py:268-300),
+    in plain PyTorch: the windowed tiles summed by slice-adds in
+    ``grid.coords`` order (its ``.at[].add`` chain; a slice-add, unlike
+    ``index_add_`` on the card, adds in one fixed order, and its backward
+    is slicing), times the f32 reciprocal window sum, clipped, cast and
+    cropped, all in the wider of the tile and output dtypes."""
+    ph, pw = grid.patch_size
+    H, W = grid.padded_size
+    blend_dt = patches.dtype
+    if (out_dtype is not None and torch.finfo(out_dtype).bits
+            > torch.finfo(blend_dt).bits):
+        blend_dt = out_dtype
+    window, inv_wsum = _blend_constants(grid, window_type, patches.device)
+    tiles = patches[..., :pw].to(blend_dt) * window.to(blend_dt)
+    tiles = tiles.reshape(len(grid.coords), batch, -1, ph, pw)
+    out = tiles.new_zeros((batch, tiles.shape[2], H, W))
+    for t, (i0, j0) in enumerate(grid.coords):
+        out[..., i0:i0 + ph, j0:j0 + pw] += tiles[t]
+    out = clip_as_jax(out * inv_wsum.to(blend_dt))
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    pt, _, pl, _ = grid.pad
+    h, w = grid.orig_size
+    return out[..., pt:pt + h, pl:pl + w]
 
 
 def _staged(ph: int, pw: int, method: str = "fft", remat: bool = False,
@@ -206,11 +238,14 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     :param work_dtype: dtype the tiles are computed in (default: the input
         dtype); an f32 image with ``work_dtype=torch.bfloat16`` is the
         serving configuration — the cast rides the canvas edge-pad's pass
-    :param out_dtype: output dtype (default: the working dtype); the blend
-        accumulates in f32 either way
+    :param out_dtype: output dtype (default: the working dtype); a regular
+        grid's blend accumulates in f32, an irregular one's in the wider
+        of the working and output dtypes (:func:`overlap_add`)
     :param batch_size: at most this many tile coordinates per pass through
         the stages (the memory ceiling of the reference's host loop);
         ``None`` or ``<= 0`` runs every tile at once
+    :param overlap: any overlap in [0, 1) per axis; past 50% the grid is
+        irregular and takes the composed route
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
         beta, remove_halo, edgetaping, prefiltering, smoother, ...).
         ``method='direct_separable'`` takes the staged route where the
@@ -235,15 +270,11 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     b = x.shape[0]
     grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
     reg = _grid_steps(grid)
-    if reg is None:
-        raise NotImplementedError(f"irregular tile grid {grid.patch_size} "
-                                  f"over {grid.padded_size}: see "
-                                  f"{_TODO_IRREGULAR}")
     wd = work_dtype or x.dtype
     n_tiles = len(grid.coords)
     chunk = (n_tiles if batch_size is None or batch_size <= 0
              else min(batch_size, n_tiles))
-    if not _staged(*grid.patch_size, **polyblur_kwargs):
+    if reg is None or not _staged(*grid.patch_size, **polyblur_kwargs):
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
         tiles = extract_patches(x.to(wd), grid)

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["to_tensor", "to_array", "build_window_np", "crop",
+__all__ = ["to_tensor", "to_array", "to_float", "to_uint",
+           "build_window_np", "crop",
            "pad_with_kernel", "crop_with_kernel", "replicate_pad",
            "clip_as_jax"]
 
@@ -33,6 +34,22 @@ def to_array(x: torch.Tensor) -> np.ndarray:
     if x.ndim == 2:
         return x
     return np.transpose(x, (1, 2, 0))
+
+
+def to_float(img: np.ndarray) -> np.ndarray:
+    """An image ndarray as float32, integers scaled by their dtype's
+    maximum to [0, 1] (reference utils.py:34-38)."""
+    img = np.asarray(img)
+    if np.issubdtype(img.dtype, np.integer):
+        img = img.astype(np.float32) / float(np.iinfo(img.dtype).max)
+    return img.astype(np.float32)
+
+
+def to_uint(img: np.ndarray) -> np.ndarray:
+    """An image ndarray as uint8: clipped to [0, 1], times 255, rounded
+    to nearest (reference utils.py:41-45)."""
+    img = to_float(img)
+    return (255.0 * np.clip(img, 0.0, 1.0) + 0.5).astype(np.uint8)
 
 
 def crop(image: torch.Tensor, new_size) -> torch.Tensor:

@@ -165,22 +165,19 @@ def test_cuda_by_default_and_raises_without_it(img):
                               q=0.01),
                jax_deblur(jnp.asarray(x.numpy()), method="direct_separable",
                           q=0.01)),
-    lambda x: (lambda: deblur_patches(x, device="cpu", patch_size=160,
-                                      overlap=0.6), None),
+    lambda x: (deblur_patches(x, device="cpu", patch_size=160, overlap=0.6),
+               jax_deblur(jnp.asarray(x.numpy()), patch_size=160,
+                          overlap=0.6)),
 ])
 def test_unported_routes_raise_naming_the_roadmap(call):
-    """The routes that raised naming their ROADMAP item until A.3 and A.8
-    were ported (the 'nc' smoother, the saturation mask, method='direct',
-    the multichannel kernel and q > 0 through the patch engine, which
-    composes them as the JAX package does) run on the CPU and hold the
-    JAX package's output at >= 60 dB; the irregular grid (A.6) still
-    raises naming its item."""
+    """The routes that raised naming their ROADMAP item until A.3, A.8
+    and A.6 were ported (the 'nc' smoother, the saturation mask,
+    method='direct', the multichannel kernel and q > 0 through the patch
+    engine, which composes them as the JAX package does, and an irregular
+    grid, overlap 0.6) run on the CPU and hold the JAX package's output
+    at >= 60 dB."""
     x = torch.rand(1, 3, 200, 300, generator=torch.Generator().manual_seed(7))
     got, want = call(x)
-    if want is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            got()
-        return
     assert _psnr(got.numpy(), np.asarray(want)) >= 60.0
 
 

@@ -186,9 +186,12 @@ def test_auto_tiles_exactly_as_the_jax_package_on_its_tpu():
     assert tapi._auto_tile_wanted(3000, 4000, 640)
     assert tapi._auto_tile_plan(3000, 4000, 640) == (448, 64.0 / 448.0)
     assert not tapi._auto_tile_wanted(1200, 1600, 640)
-    x = torch.rand(1, 3, 1201, 1601)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        polyblur_deblurring(x, device="cpu", verbose=True)
+    # verbose (A.11) no longer raises: the whole-image stage loop prints
+    # its lines and returns the pixels of verbose=False
+    x = torch.rand(1, 3, 40, 56, generator=torch.Generator().manual_seed(5))
+    kw = dict(n_iter=2, alpha=6.0, beta=1.0, device="cpu", method="fft")
+    assert torch.equal(polyblur_deblurring(x, verbose=True, **kw),
+                       polyblur_deblurring(x, **kw))
 
 
 def test_deblur_patches_fft_composed_route_matches_jax():
