@@ -148,7 +148,24 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    ``cli.bench_suite --quick`` (its table) and ``cli.calibrate`` at small
    arguments; the main path's launches, read before and after (m)-(o),
    must not change;
-11. prints the training times as one JSON line, the card line, one JSON
+11. after (m)-(o), (p) the f32 dot modes: the 'highest' instantiations
+   of ``spectral_gemm`` and of the estimate's GEMM at the 12 MP path's
+   shapes in f32 and of the halo's at config 2's, each under both modes
+   against its plain version (kernel rows ``spectral_gemm[highest]``,
+   ``tile_estimate[highest]``, ``halo[highest]``, bounds at six tf32
+   products per MAC); the f32 paths (12 MP patches, config 2b, the 480 x
+   640 tiles route, the 2 MP photo's blocked ``fused_polynomial``, training
+   (d)'s tiles-route step) under both modes against their plain runs:
+   launches under each mode's counters, dB, largest error, theta
+   identical to the plain run's on every estimate with the smallest tie
+   margin, 'highest' >= 110 dB and >= 10 dB above 'compensated'; the fft
+   route and the bf16 main path identical under both modes with the same
+   launches; (q) the burst serving path: ``cli.burst.main`` on four 12 MP
+   PNGs and the peacock in bf16 and f32, each PNG against the same CLI
+   under ``plain_versions()`` (bf16 >= 40 dB, f32 within one 8-bit step),
+   its steady-state MP/s, mean host decode and device ms per image, and
+   ``native_available()`` with its reason;
+12. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
 
@@ -195,7 +212,7 @@ TOL_HALO_BF16 = 2.0 ** -7       # halo mask, bf16 out
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 
 DEVICE = "cuda"
 NAMES = ("edge_pad_cast", "tile_estimate", "kernel_spectrum",
@@ -267,7 +284,12 @@ SOURCES = {
     "halo": ("polyblur_torch/csrc/estimate.cu",
              "polyblur_tpu/ops/pallas/polyblur_fused.py:776"),
 }
-SOURCES.update({k: SOURCES[k[:k.index("[")]] for k in GENERALIZED})
+# (p): the f32 dot mode's 'highest' instantiations (template cases of the
+# same sources)
+HIGHEST_ROWS = ("spectral_gemm[highest]", "tile_estimate[highest]",
+                "halo[highest]")
+SOURCES.update({k: SOURCES[k[:k.index("[")]]
+                for k in GENERALIZED + HIGHEST_ROWS})
 
 
 class SmokeFailure(Exception):
@@ -1929,6 +1951,513 @@ def slice_phases(dev, card: str, launches: dict, report: dict) -> None:
                              f"{before} before")
 
 
+# ---------------------------------------------------------- f32 dot modes
+# (p): every f32 path under both f32 dot modes against its plain run; the
+# 'highest' instantiations of spectral_gemm, the estimate's and the halo's
+# GEMMs as kernel rows; the bf16 main path unmoved by the mode.
+MODES = ("compensated", "highest")
+# 'highest' against the plain f32 path on the card (~120 dB per 448 px
+# application in a CPU emulation of its truncating tensor-core sums, where
+# plain f32 itself is ~122 dB from exact), and its margin over
+# 'compensated' on the same path
+PSNR_HIGHEST_DB = 110.0
+HIGHEST_GAIN_DB = 10.0
+# wrappers counting a mode-free kernel under their own name: per launch of
+# it, the launches of the mode's GEMM (fused_polynomial: its spectrum, then
+# spectral_gemm's 4 products)
+MODE_FREE_SHARE = {"fused_polynomial": 4}
+TIMED_PATH_REPS = 3
+
+
+def recording_thetas(records: list):
+    """Within the block, record the blur direction of every estimate a
+    path makes, as (index per tile or image, relative tie margin of the
+    plain interpolated maxima): the tiles and patch routes'
+    ``tile_estimate`` and the whole-image estimate's ``blur_direction``."""
+    import contextlib
+
+    import torch
+
+    import polyblur_torch.estimation as estimation
+    import polyblur_torch.pipeline as pipeline
+
+    te, bd = pipeline.tile_estimate, estimation.blur_direction
+    inside = []
+
+    def tile_estimate(view, coeffs):
+        inside.append(True)
+        try:
+            est = te(view, coeffs)
+        finally:
+            inside.pop()
+        records.append((est[:, 0].cpu(), tie_margins(view)[1].cpu()))
+        return est
+
+    def blur_direction(interp, grid):
+        res = bd(interp, grid)
+        if not inside:
+            srt = torch.sort(interp.float(), -1).values
+            margin = (srt[..., 1] - srt[..., 0]) / srt[..., 0]
+            records.append((res[0].flatten().cpu(), margin.flatten().cpu()))
+        return res
+
+    @contextlib.contextmanager
+    def patched():
+        pipeline.tile_estimate = tile_estimate
+        estimation.blur_direction = blur_direction
+        try:
+            yield
+        finally:
+            pipeline.tile_estimate = te
+            estimation.blur_direction = bd
+
+    return patched()
+
+
+def modes_path(name, fn, kernels, card, npx, modes=MODES):
+    """One f32 path under each f32 dot mode against its plain run on the
+    card: the launches (each of ``kernels`` under the mode's counter,
+    ``name[highest]`` for 'highest', and none under the other's but for
+    ``MODE_FREE_SHARE``'s mode-free launches), the PSNR
+    and largest error, the blur direction of every estimate identical to
+    the plain run's with the smallest tie margin, and the time; 'highest'
+    must reach ``PSNR_HIGHEST_DB`` and beat 'compensated' by
+    ``HIGHEST_GAIN_DB``. Returns {mode: (dB, launches)}."""
+    import torch
+
+    from polyblur_torch import f32_dot_mode_scope
+    from polyblur_torch.ops import cuda as pcuda
+
+    plain_rec = []
+    with pcuda.plain_versions(), recording_thetas(plain_rec):
+        ref = torch.as_tensor(fn()).float().cpu()
+    margin = min(float(m.min()) for _, m in plain_rec)
+    res = {}
+    for mode in modes:
+        rec = []
+        with f32_dot_mode_scope(mode):
+            torch.cuda.synchronize()
+            pcuda.reset_launches()
+            with recording_thetas(rec):
+                out = torch.as_tensor(fn()).float().cpu()
+            torch.cuda.synchronize()
+            counts = dict(pcuda.launches)
+            ms = host_ms(fn, reps=TIMED_PATH_REPS)
+        for k in kernels:
+            high = f"{k}[highest]"
+            if mode == "compensated":
+                ok = counts.get(k, 0) > 0 and high not in counts
+            elif k in MODE_FREE_SHARE:  # its mode-free launches keep k
+                ok = counts.get(high, 0) == MODE_FREE_SHARE[k] * counts.get(
+                    k, 0) > 0
+            else:
+                ok = counts.get(high, 0) > 0 and k not in counts
+            require(ok, f"{name} [{mode}]: launches {counts} for {k}")
+        require(bool(torch.isfinite(out).all()), f"{name} [{mode}]: not "
+                                                 f"finite")
+        same = len(rec) == len(plain_rec) and all(
+            torch.equal(a, b) for (a, _), (b, _) in zip(rec, plain_rec))
+        db = psnr(out, ref)
+        err = float((out - ref).abs().max())
+        print(f"(p) {name} [{mode}]: hand vs plain {db:.2f} dB, max_abs_err "
+              f"{err:.3e}; theta identical to plain on {len(rec)} estimates: "
+              f"{same} (smallest tie margin {margin:.3e}); {ms:.2f} ms = "
+              f"{npx / 1e6 / (ms / 1e3):.2f} MP/s on {card}; launches "
+              f"{counts}")
+        require(same, f"{name} [{mode}]: theta differs from the plain run")
+        require(db >= PSNR_F32_DB, f"{name} [{mode}]: {db:.2f} dB")
+        res[mode] = (db, counts)
+    if "highest" in res and "compensated" in res:
+        hi, co = res["highest"][0], res["compensated"][0]
+        require(hi >= PSNR_HIGHEST_DB and hi >= co + HIGHEST_GAIN_DB,
+                f"{name}: 'highest' {hi:.2f} dB, 'compensated' {co:.2f} dB "
+                f"(need >= {PSNR_HIGHEST_DB} and +{HIGHEST_GAIN_DB})")
+    return res
+
+
+def dense_macs(tabs) -> int:
+    """MACs of one spectral application per plane as the four dense GEMMs
+    the kernel runs."""
+    h, wc, kp = tabs.h, tabs.wc, tabs.er.shape[1]
+    oh, ow = h - 2 * tabs.pad, wc - 2 * tabs.pad
+    return (2 * kp * h * wc + kp * 2 * h * 2 * h + 2 * h * kp * 2 * h
+            + oh * ow * 2 * kp)
+
+
+def highest_kernels(dev, img12, img2, report: dict) -> None:
+    """The 'highest' instantiations of spectral_gemm and of the estimate
+    GEMM at the 12 MP main path's shapes in f32 (88 tiles of 448 px), and
+    of the halo's GEMM at config 2's (12 tiles), each under both modes
+    against the plain version; fills their kernel rows. Their bounds count
+    the six tf32 products per MAC of the GEMMs at the TF32 peak, or the
+    bytes, whichever is larger."""
+    import torch
+
+    from polyblur_torch import f32_dot_mode_scope
+    from polyblur_torch.ops.cuda.bilateral import bilateral
+    from polyblur_torch.ops.cuda.features import (
+        halo_grads, halo_grads_plain, halo_mask, halo_mask_plain)
+    from polyblur_torch.ops.cuda.pad_cast import edge_pad_cast
+    from polyblur_torch.ops.cuda.polyblur_fused import (
+        HALF, TileView, _gray_norm_plain, kernel_spectrum, spectral_poly,
+        spectral_poly_plain, stage_tables, tile_estimate,
+        tile_estimate_plain)
+    from polyblur_torch.patches import _grid_steps, plan_patch_grid
+    from polyblur_torch.pipeline import _mega_pack
+
+    f32 = torch.float32
+    coeffs = _mega_pack(0.362, 0.468, 6.0, 1.0, 2.0, 0.8, device=dev)
+
+    def tiles_of(img, overlap):
+        grid = plan_patch_grid(img.shape[-2], img.shape[-1], 448, overlap)
+        th, tw, sh, sw = _grid_steps(grid)
+        canvas = edge_pad_cast(img, grid.orig_size, grid.pad, f32)
+        return canvas, TileView(canvas, 1, 0, th * tw, tw, (sh, sw),
+                                (448, 448))
+
+    canvas, view = tiles_of(img12, 64.0 / 448.0)
+    n, c = view.n, view.channels
+    est_p = tile_estimate_plain(view, coeffs)
+    _, margins = tie_margins(view)
+    tabs = stage_tables(448, 448, f32, str(dev))
+    q2 = kernel_spectrum(est_p, coeffs, tabs)
+    out_p = spectral_poly_plain(view, q2, tabs)
+    pair_macs = n * 448 * 448 * (448 + 448)
+    for mode in MODES:
+        with f32_dot_mode_scope(mode):
+            est = tile_estimate(view, coeffs)
+            out = spectral_poly(view, q2, tabs)
+            est_ms = cuda_ms(lambda: tile_estimate(view, coeffs))
+            app_ms = cuda_ms(lambda: spectral_poly(view, q2, tabs))
+            spectral_modes(view, q2, tabs, f"spectral_gemm[f32 {mode}, "
+                           f"{n * c} planes, h {tabs.h}]")
+        same = bool(torch.equal(est[:, 0], est_p[:, 0]))
+        rel = float(((est[:, 1:] - est_p[:, 1:]).abs()
+                     / est_p[:, 1:].abs().clamp(min=1e-30)).max())
+        err = float((out - out_p).abs().max())
+        print(f"(p) tile_estimate[f32 {mode}, {n} x {c} x 448^2]: theta idx "
+              f"identical on {n} tiles: {same} (smallest tie margin "
+              f"{float(margins.min()):.3e}), max rel err {rel:.3e}, "
+              f"{est_ms:.4f} ms")
+        print(f"(p) spectral_gemm[f32 {mode}, {n * c} planes]: max_abs_err "
+              f"{err:.3e} (PSNR {psnr(out, out_p):.1f} dB), application "
+              f"{app_ms:.4f} ms")
+        require(same, f"tile_estimate f32 {mode}: theta differs")
+        require(rel <= TOL_REL_EST, f"tile_estimate f32 {mode}: {rel}")
+        require(err <= TOL_SPEC_F32, f"spectral_gemm f32 {mode}: {err}")
+    with f32_dot_mode_scope("highest"):
+        report["tile_estimate[highest]"] = dict(
+            max_abs_err=float((est[:, 1:] - est_p[:, 1:]).abs().max()),
+            ms=est_ms,
+            plain_ms=cuda_ms(lambda: tile_estimate_plain(view, coeffs),
+                             reps=3),
+            library_ms=gemm_pair_library_ms(_gray_norm_plain(view)),
+            library_what=LIBRARY_GEMM_PAIR,
+            bound=bound_ms(canvas.numel() * 4 + est.numel() * 4,
+                           12.0 * pair_macs, "tf32"))
+        xpad = torch.nn.functional.pad(
+            view.tiles().reshape(-1, 1, 448, 448), (HALF,) * 4,
+            mode="replicate")[:, 0]
+        K = tabs.wc // 2 + 1
+        qh = (q2[:, :, :K] * tabs.h).repeat_interleave(c, 0)
+
+        def fft_app():
+            y = torch.fft.irfft2(qh * torch.fft.rfft2(xpad),
+                                 s=(tabs.h, tabs.wc))
+            return y[:, HALF:HALF + 448, HALF:HALF + 448].clamp(0, 1)
+
+        report["spectral_gemm[highest]"] = dict(
+            max_abs_err=err, ms=app_ms,
+            plain_ms=cuda_ms(lambda: spectral_poly_plain(view, q2, tabs),
+                             reps=3),
+            library_ms=cuda_ms(fft_app, reps=3),
+            bound=bound_ms(2 * out.numel() * 4 + q2.numel() * 4,
+                           12.0 * n * c * dense_macs(tabs), "tf32"))
+    del canvas, view, est, est_p, q2, out, out_p, xpad, qh
+    torch.cuda.empty_cache()
+
+    # the halo at config 2's shapes in f32: the input gradients and one
+    # mask pass of the bilateral set's o
+    canvas, view = tiles_of(img2, 1.0 / 7.0)
+    n = view.n
+    smooth, nz = bilateral(view, out_dtype=f32, with_noise=True)
+    sv = TileView.of_tiles(smooth)
+    est = tile_estimate(view, coeffs)
+    q2 = kernel_spectrum(est, coeffs, tabs)
+    o = spectral_poly(sv, q2, tabs, clip=False, out_dtype=f32)
+    grads_p = halo_grads_plain(view)
+    ref = halo_mask_plain(o, grads_p, sv, nz, torch.empty_like(o))
+    gscale = float(grads_p.gx.abs().max())
+    for mode in MODES:
+        with f32_dot_mode_scope(mode):
+            grads = halo_grads(view)
+            out = halo_mask(o, grads, sv, nz, torch.empty_like(o))
+
+            def halo(g=halo_grads, m=halo_mask):
+                return m(o, g(view), sv, nz, torch.empty_like(o))
+
+            ms = cuda_ms(halo)
+        rel = max(float((grads.gx - grads_p.gx).abs().max()),
+                  float((grads.gy - grads_p.gy).abs().max())) / gscale
+        err = float((out - ref).abs().max())
+        print(f"(p) halo[f32 {mode}, {n} x 3 x 448^2]: gradients rel err "
+              f"{rel:.3e}, mask max_abs_err {err:.3e}, gradients + mask "
+              f"{ms:.4f} ms")
+        require(rel <= TOL_REL_GRADS, f"halo f32 {mode}: gradients {rel}")
+        require(err <= TOL_SPEC_F32, f"halo f32 {mode}: mask {err}")
+    el = n * 3 * 448 * 448
+    xin = view.tiles().float()
+    report["halo[highest]"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=cuda_ms(lambda: halo(halo_grads_plain, halo_mask_plain),
+                         reps=3),
+        library_ms=gemm_pair_library_ms(xin) + gemm_pair_library_ms(o),
+        library_what=LIBRARY_GEMM_PAIR + ", on the input planes and on o",
+        # the canvas, o, u_cmp and the noise read once, the f32 tiles
+        # written once; the two GEMM pairs at six tf32 products per MAC
+        bound=bound_ms(canvas.numel() * 4 + el * 4 * 4,
+                       2 * 12.0 * n * 3 * 448 * 448 * (448 + 448), "tf32"))
+    del canvas, view, smooth, nz, o, grads, grads_p, out, ref, xin
+    torch.cuda.empty_cache()
+
+    # fused_polynomial on the 2 MP photo's overlap-save blocks (as
+    # whole_image_kernels): spectral_gemm's 'highest' case at pad 0
+    from polyblur_torch.estimation import gaussian_blur_estimation
+    from polyblur_torch.ops import sep_poly
+    from polyblur_torch.ops.cuda.sep_poly_fused import (
+        fused_polynomial, fused_polynomial_plain)
+
+    photo = torch.as_tensor(load_png("tests/data/corpus_hr/peacock_tiled.png")
+                            .transpose(2, 0, 1)[None].copy(), device=dev)
+    sig, rho, theta = gaussian_blur_estimation(photo, c=0.362, b=0.468,
+                                               return_2d_filters=False)
+    qf = sep_poly.gaussian_quadratic_coeffs(sig[:, 0], rho[:, 0], theta[:, 0])
+    view, (th, _, tw, _, _) = sep_poly._block_view(photo[0], 12)
+    params = torch.stack(qf, -1).repeat(3, 1).repeat(th * tw, 1)
+    ref = fused_polynomial_plain(view, params, coeffs)
+    bh, bw = view.patch
+    tabs_b = stage_tables(bh, bw, f32, str(dev), 0)
+    for mode in MODES:
+        with f32_dot_mode_scope(mode):
+            out = fused_polynomial(view, params, coeffs)
+            ms = cuda_ms(lambda: fused_polynomial(view, params, coeffs))
+        err = float((out - ref).abs().max())
+        bms, by = bound_ms(2 * out.numel() * 4 + params.numel() * 4,
+                           12.0 * view.n * dense_macs(tabs_b), "tf32")
+        print(f"(p) fused_polynomial[f32 {mode}, {view.n} blocks {bh}x{bw}, "
+              f"pad 0]: max_abs_err {err:.3e} (PSNR {psnr(out, ref):.1f} "
+              f"dB), {ms:.4f} ms; 'highest' bound {bms:.4f} ms ({by}, six "
+              f"tf32 products per MAC)")
+        require(err <= TOL_POLY_F32, f"fused_polynomial f32 {mode}: {err}")
+
+
+def dot_mode_phases(dev, card: str, launches: dict, report: dict) -> None:
+    """(p): the 'highest' kernels (:func:`highest_kernels`); the f32 paths
+    (12 MP patches, config 2b, the 480 x 640 tiles route, the 2 MP photo's
+    blocked ``fused_polynomial`` route, training (d)'s tiles-route step)
+    under both modes against their plain runs (:func:`modes_path`); the
+    mode-free fft route (``directional_maxima``) and the bf16 main path
+    identical under both modes with the main path's launches."""
+    import torch
+
+    import polyblur_torch
+    from polyblur_torch import PolyblurLayer, f32_dot_mode_scope
+    from polyblur_torch.ops import cuda as pcuda
+
+    img = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
+                          device=dev)
+    img2 = torch.as_tensor(make_config2_image().transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    highest_kernels(dev, img, img2, report)
+    torch.cuda.empty_cache()
+    H, W = img.shape[-2:]
+
+    def main_path(wd):
+        return polyblur_torch.deblur_patches(
+            img, patch_size=448, overlap=64.0 / 448.0, work_dtype=wd,
+            out_dtype=torch.float32, device=dev, method="direct_separable",
+            **PATH_KW)
+
+    res = modes_path("12 MP deblur_patches 448/384 f32",
+                     lambda: main_path(torch.float32),
+                     ("tile_estimate", "spectral_gemm"), card, H * W)
+    for k in ("tile_estimate", "spectral_gemm"):
+        launches[f"{k}[highest]"] = res["highest"][1][f"{k}[highest]"]
+    res = modes_path(
+        "config 2b: 2 MP deblur_patches f32, taper + dt + halo",
+        lambda: polyblur_torch.deblur_patches(
+            img2, patch_size=448, overlap=1.0 / 7.0, work_dtype=torch.float32,
+            out_dtype=torch.float32, device=dev, method="direct_separable",
+            **CFG2_KW),
+        ("tile_estimate", "spectral_gemm", "halo"), card,
+        img2.shape[-2] * img2.shape[-1])
+    launches["halo[highest]"] = res["highest"][1]["halo[highest]"]
+    peacock = load_png("tests/data/peacock_defocus.png")
+    crop = torch.as_tensor(peacock[:480, :640].transpose(2, 0, 1)[None]
+                           .copy(), device=dev)
+    modes_path("crop 480x640 tiles route f32",
+               lambda: polyblur_torch.polyblur_deblurring(
+                   crop, device=dev, method="direct_separable", **PATH_KW),
+               ("tile_estimate", "spectral_gemm"), card, 480 * 640)
+    photo = load_png("tests/data/corpus_hr/peacock_tiled.png")
+    modes_path("2 MP photo 1600x1200 (blocked fused_polynomial)",
+               lambda: polyblur_torch.polyblur_deblurring(
+                   photo, device=dev, **PATH_KW),
+               ("fused_polynomial",), card, 1200 * 1600)
+
+    # training (d)'s tiles-route step under each mode (its forward is the
+    # crop's tiles route above; the backward replays the plain versions)
+    def layer_d():
+        return PolyblurLayer(n_iter=3, learnable=True,
+                             method="direct_separable", device=dev)
+
+    for mode in MODES:
+        high = "[highest]" if mode == "highest" else ""
+        with f32_dot_mode_scope(mode):
+            grads_vs_plain(f"(p) (d) tiles route 1 x 3 x 480 x 640 f32 "
+                           f"[{mode}]", layer_d, crop, crop,
+                           TOL_REL_GRAD_F32,
+                           PSNR_HIGHEST_DB if high else PSNR_F32_DB,
+                           ("polyblur_core", "tiles"),
+                           {f"tile_estimate{high}": 12, "kernel_spectrum": 3,
+                            f"spectral_gemm{high}": 12})
+
+    # mode-free: the fft route (directional_maxima, the composed rfft2
+    # polynomial) and the bf16 main path
+    outs = {}
+    for mode in MODES:
+        with f32_dot_mode_scope(mode):
+            torch.cuda.synchronize()
+            pcuda.reset_launches()
+            fft = polyblur_torch.polyblur_deblurring(crop, device=dev,
+                                                     method="fft", **PATH_KW)
+            torch.cuda.synchronize()
+            fft_counts = dict(pcuda.launches)
+            pcuda.reset_launches()
+            out16 = main_path(torch.bfloat16)
+            torch.cuda.synchronize()
+            outs[mode] = (fft, fft_counts, out16, dict(pcuda.launches))
+    (fa, fca, ma, mca), (fb, fcb, mb, mcb) = (outs[m] for m in MODES)
+    same_fft, same_main = bool(torch.equal(fa, fb)), bool(torch.equal(ma, mb))
+    print(f"(p) crop 480x640 method=fft under both modes: identical "
+          f"{same_fft}, launches {fca} / {fcb}")
+    print(f"(p) main path 12 MP bf16 under both modes: identical "
+          f"{same_main}, launches {mca} / {mcb} ({sum(mca.values())} "
+          f"launches)")
+    require(same_fft and fca == fcb and fca.get("directional_maxima", 0) > 0,
+            "the fft route moved with the f32 dot mode")
+    require(same_main and mca == mcb
+            and mca == {k: launches[k] for k in NAMES},
+            "the bf16 main path moved with the f32 dot mode")
+
+
+# ---------------------------------------------------------- burst
+# (q): the burst serving path (polyblur_torch.cli.burst over the host
+# runtime) on four 12 MP photos and the peacock
+BURST_DIR = "build/chip_smoke_burst"
+BURST_12MP = 4
+BURST_NAMES = ("edge_pad_cast", "tile_estimate", "kernel_spectrum",
+               "spectral_gemm", "blend_overlap_add")
+TOL_BURST_F32_LSB = 1   # f32 work: the outputs' 8 bits within one step
+
+
+def burst_phases(dev, card: str) -> None:
+    """(q): write four 12 MP photos (``make_12mp_image`` at seeds 1-4,
+    quantized to 8 bits) and the peacock as PNGs, run ``cli.burst.main``
+    on the card in bf16 and in f32 (its defaults: 400 px tiles at overlap
+    0.25, 3 iterations), each against the same CLI under
+    ``plain_versions()``: every kernel of the path launched, bf16 PNGs
+    >= 40 dB from the plain run's, f32 PNGs within one 8-bit step; prints
+    the steady-state MP/s (the images after the first), the mean host
+    decode and device times per image, and ``native_available()``."""
+    import concurrent.futures as cf
+    import glob
+    import os
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from polyblur_torch.cli import burst
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.runtime import native
+
+    status = native.native_available()
+    print(f"(q) native host runtime: available {status.available} "
+          f"({status.reason})")
+    src = os.path.join(BURST_DIR, "in")
+    shutil.rmtree(BURST_DIR, ignore_errors=True)
+    os.makedirs(src)
+
+    def photo(k):
+        x = make_12mp_image(np.random.default_rng(k + 1))[0]
+        u8 = (255.0 * x.transpose(1, 2, 0) + 0.5).astype(np.uint8)
+        Image.fromarray(u8).save(os.path.join(src, f"photo12mp_{k}.png"),
+                                 compress_level=1)
+
+    def read(path):
+        return np.asarray(Image.open(path)).astype(np.float64)
+
+    with cf.ThreadPoolExecutor(BURST_12MP) as pool:
+        list(pool.map(photo, range(BURST_12MP)))
+    shutil.copy("tests/data/peacock_defocus.png",
+                os.path.join(src, "peacock.png"))
+    paths = sorted(glob.glob(os.path.join(src, "*.png")))
+    for dtype in ("bfloat16", "float32"):
+        args = ["--images", os.path.join(src, "*.png"), "--dtype", dtype]
+        outs = {}
+        for plain in (False, True):
+            out = os.path.join(BURST_DIR, f"{dtype}_{'plain' if plain else 'hand'}")
+            stats = []
+            torch.cuda.synchronize()
+            pcuda.reset_launches()
+            with pcuda.plain_versions(plain):
+                n = burst.main(args + ["--outdir", out], stats=stats)
+            torch.cuda.synchronize()
+            counts = dict(pcuda.launches)
+            require(n == len(paths), f"(q) burst {dtype}: {n} images")
+            if not plain:
+                for k in BURST_NAMES:
+                    require(counts.get(k, 0) > 0, f"(q) burst {dtype}: {k} "
+                                                  f"never launched ({counts})")
+                hand_stats, hand_counts = stats, counts
+            else:
+                require(not counts, f"(q) plain burst launched {counts}")
+            outs[plain] = out
+        worst = None
+        names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        with cf.ThreadPoolExecutor(4) as pool:
+            pngs = list(pool.map(read, [
+                os.path.join(outs[plain], f"{name}_restored.png")
+                for name in names for plain in (False, True)]))
+        for path, name, a, b in zip(paths, names, pngs[::2], pngs[1::2]):
+            require(a.shape == b.shape == Image.open(path).size[::-1] + (3,),
+                    f"(q) burst {dtype} {name}: shapes {a.shape} {b.shape}")
+            lsb = int(np.abs(a - b).max())
+            db = psnr(torch.from_numpy(a / 255.0), torch.from_numpy(b / 255.0))
+            if dtype == "bfloat16":
+                require(db >= PSNR_BF16_DB, f"(q) burst bf16 {name}: "
+                                            f"{db:.2f} dB from plain")
+            else:
+                require(lsb <= TOL_BURST_F32_LSB, f"(q) burst f32 {name}: "
+                                                  f"{lsb} LSB from plain")
+            worst = (min(worst[0], db), max(worst[1], lsb)) if worst else (
+                db, lsb)
+        steady = hand_stats[1:]
+        mps = sum(s["mp"] for s in steady) / (steady[-1]["done"]
+                                              - hand_stats[0]["done"])
+        dec = statistics.mean(s["decode_ms"] for s in hand_stats)
+        devm = statistics.mean(s["device_ms"] for s in hand_stats)
+        dev12 = statistics.mean([s["device_ms"] for s in hand_stats
+                                 if s["mp"] > 10] or [math.nan])
+        print(f"(q) burst {dtype}: {len(paths)} images "
+              f"({BURST_12MP} x 12 MP + the peacock), steady state "
+              f"{mps:.2f} MP/s (images 2-{len(paths)}), mean host decode "
+              f"{dec:.1f} ms, mean device {devm:.1f} ms per image (12 MP: "
+              f"{dev12:.1f} ms); vs the plain run: worst {worst[0]:.2f} dB, "
+              f"{worst[1]} LSB; launches {hand_counts} on {card}")
+
+
 # ------------------------------------------------ irregular, verbose, tools
 # (m)-(o): an irregular 12 MP tile grid, verbose=True and the user-facing
 # tools (polyblur_torch.cli).
@@ -3315,6 +3844,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     tool_phases(dev, card, launches)
 
+    # ---------------------------------------------------------- (p), (q)
+    print(f"[{time.perf_counter() - t_start:.1f} s] f32 dot modes (p)")
+    torch.cuda.empty_cache()
+    dot_mode_phases(dev, card, launches, report)
+    print(f"[{time.perf_counter() - t_start:.1f} s] burst (q)")
+    torch.cuda.empty_cache()
+    burst_phases(dev, card)
+
     # ---------------------------------------------------------- training
     print(f"[{time.perf_counter() - t_start:.1f} s] training phases")
     torch.cuda.empty_cache()
@@ -3325,7 +3862,7 @@ def main() -> int:
     rows = []
     for name in (NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
                                           "directional_maxima") + FEATURES
-                 + ("bilateral[n=88]",) + GENERALIZED):
+                 + ("bilateral[n=88]",) + GENERALIZED + HIGHEST_ROWS):
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]

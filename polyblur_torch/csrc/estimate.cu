@@ -85,6 +85,19 @@
 // TPU kernel's error-compensated bf16x3 estimate (_EST_DOT_COMPENSATED),
 // whose ~2^-17 split error would not keep the gates.
 // tests/test_torch_estimate_precision.py emulates this split on the CPU.
+//
+// The f32 dot mode 'highest' (ops/cuda/sep_poly_fused.py set_f32_dot_mode;
+// polyblur_fused.py:251-252 reads it for f32 tiles only) is a template
+// case (HI) of stage 2 and of the GEMM: a = hi + mid + lo, each rounded to
+// tf32, six products per K step (lo hi, hi lo, mid mid, mid hi, hi mid for
+// the step's four 8-deep slices, then the four hi hi), ~2^-33 of each
+// operand left out, promoted into the running sum as above. On the TPU the
+// JAX package's 'highest' estimate dot is Mosaic's DEFAULT, which truncates
+// f32 operands to bf16 (polyblur_fused.py:242-244); in interpret mode on
+// the CPU, the port's reference, it is an exact f32 product. The port
+// follows the CPU reference: exact-f32-grade products, not the truncation.
+// A third piece makes a stage 96 KB, so the case runs 2 stages.
+// tests/test_torch_dot_mode.py emulates the six products on the CPU.
 #include <cstdio>
 
 #include "common.cuh"
@@ -199,16 +212,17 @@ gray_minmax_kernel(pb::TileView v, int C, int ph, int pw, int rows,
 __host__ __device__ inline int pitch4(int n) { return (n + 3) / 4 * 4; }
 
 // Stage 2: g = clip((gray - min) / range) of every tile (min and max folded
-// from the band partials), split into tf32 hi and lo and written in both
-// layouts the GEMM's TMA maps read: g (n, 2, ph, pitch4(pw)) and its
-// transpose g^T (n, 2, pw, pitch4(ph)), hi then lo. One 32 x 32 block of a
-// tile per thread block; the transpose goes through shared memory.
-template <typename S>
+// from the band partials), split into P tf32 pieces (hi, lo; or hi, mid,
+// lo for 'highest') and written in both layouts the GEMM's TMA maps read:
+// g (n, P, ph, pitch4(pw)) and its transpose g^T (n, P, pw, pitch4(ph)),
+// hi first. One 32 x 32 block of a tile per thread block; the transpose
+// goes through shared memory.
+template <typename S, int P>
 __global__ void __launch_bounds__(256)
 gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
                  const float* __restrict__ mm, float* __restrict__ g2,
                  float* __restrict__ gt2) {
-  __shared__ float sh[32][33], sl[32][33];
+  __shared__ float sp[P][32][33];
   __shared__ float sr[8][2];
   const int n = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * 32 + tx;
@@ -236,7 +250,7 @@ gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
   const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
   const int ldp = pitch4(pw), ldq = pitch4(ph);
   const long long pg = (long long)ph * ldp, pt = (long long)pw * ldq;
-  float* gh = g2 + 2 * n * pg;
+  float* gh = g2 + P * n * pg;
   const int x = x0 + tx;
   float raw[4][3];  // the loads of 3 channels in flight before any is used
 #pragma unroll
@@ -250,7 +264,7 @@ gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int y = y0 + ty + 8 * i;
-    float h = 0.f, l = 0.f;
+    float pc[P] = {};  // the pieces, hi first
     if (y < ph && x < pw) {
       float g = raw[i][0];
 #pragma unroll
@@ -260,22 +274,27 @@ gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
       for (int c = 3; c < C; ++c) g = __fadd_rn(g, pb::to_f32(q[c * v.sC]));
       g = __fmul_rn(g, inv_c);
       g = fminf(fmaxf(__fdiv_rn(__fsub_rn(g, vmin), range), 0.f), 1.f);
-      h = pb::tf32_hi(g);
-      l = pb::tf32_hi(g - h);
-      gh[(long long)y * ldp + x] = h;
-      gh[pg + (long long)y * ldp + x] = l;
+      // each piece the tf32 rounding of what the larger ones leave
+      float r = g;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        pc[k] = pb::tf32_hi(r);
+        r = r - pc[k];
+        gh[k * pg + (long long)y * ldp + x] = pc[k];
+      }
     }
-    sh[ty + 8 * i][tx] = h;
-    sl[ty + 8 * i][tx] = l;
+#pragma unroll
+    for (int k = 0; k < P; ++k) sp[k][ty + 8 * i][tx] = pc[k];
   }
   __syncthreads();
-  float* th = gt2 + 2 * n * pt;
+  float* th = gt2 + P * n * pt;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int xr = x0 + ty + 8 * i, yc = y0 + tx;
     if (xr < pw && yc < ph) {
-      th[(long long)xr * ldq + yc] = sh[tx][ty + 8 * i];
-      th[pt + (long long)xr * ldq + yc] = sl[tx][ty + 8 * i];
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        th[k * pt + (long long)xr * ldq + yc] = sp[k][tx][ty + 8 * i];
     }
   }
 }
@@ -284,19 +303,31 @@ gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
 
 constexpr int TM = 64, TN = 64;   // output tile
 constexpr int TK = 32;            // K per stage: one 128-byte f32 row
-constexpr int STAGES = 3;
 constexpr int WG = 128;           // threads of a warpgroup
 // warpgroups: 0 gx consumer, 1 gy consumer, 2 and 3 producers of the even
 // and odd K steps
 constexpr int NCONS = 2 * WG;
 constexpr int NT = 4 * WG;
 constexpr int BUF = 64 * 128;     // one 64-row x 32 f32 operand, 8 KB
-// the buffers of a stage: data operand hi / lo as gx's A (g rows y0..) and
-// as gy's B (g^T rows x0..), then the tables by TMA
-enum { kAh = 0, kAl, kBh, kBl, kDwh, kDwl, kDhh, kDhl, kBufs };
-constexpr int STAGE = kBufs * BUF;
 constexpr int XCHG = TM * TN * 4;  // gy of a tile, handed to warpgroup 0
-constexpr int SMEM = STAGES * STAGE + XCHG + 1024;
+// the operands of a stage: the data as gx's A (g rows y0..) and as gy's B
+// (g^T rows x0..), then the tables by TMA; each in P pieces, hi first
+enum { kOpA = 0, kOpB, kOpDw, kOpDh };
+
+// The ring of the 3xTF32 case (P = 2: 3 stages of 64 KB) or of 'highest'
+// (HI, P = 3: 2 stages of 96 KB).
+template <bool HI>
+struct EstCfg {
+  static constexpr int P = HI ? 3 : 2;
+  static constexpr int kBufs = 4 * P;
+  static constexpr int STAGE = kBufs * BUF;
+  static constexpr int STAGES = HI ? 2 : 3;
+  static constexpr int SMEM = STAGES * STAGE + XCHG + 1024;
+  // buffer of piece k of operand op
+  __host__ __device__ static constexpr int buf(int op, int k) {
+    return P * op + k;
+  }
+};
 // named barriers: 1 both consumer warpgroups, 2 warpgroup 0
 constexpr int kBarCons = 1, kBarWg0 = 2;
 
@@ -405,36 +436,70 @@ __device__ __forceinline__ void store16(uint8_t* d, const float (&f)[4]) {
   *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
-// hi / lo of 4 values
-__device__ __forceinline__ void split4(const float (&a)[4], float (&h)[4],
-                                       float (&l)[4]) {
+// the P tf32 pieces of 4 values (hi, lo; or hi, mid, lo), each the
+// rounding of what the larger ones leave
+template <int P>
+__device__ __forceinline__ void split4(const float (&a)[4],
+                                       float (&pc)[P][4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    h[e] = pb::tf32_hi(a[e]);
-    l[e] = pb::tf32_hi(a[e] - h[e]);
+    float r = a[e];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      pc[k][e] = pb::tf32_hi(r);
+      r = r - pc[k][e];
+    }
   }
 }
 
 // One K step of one product on the stage at sa into the fresh accumulator
-// t: 3xTF32 over 32 of K, the small terms first; one MMA group.
+// t, the small terms first; one MMA group. 3xTF32 over 32 of K, or
+// 'highest' (HI): the five small products of the step's four 8-deep
+// slices, then their four hi hi products.
 //   warpgroup 0: t = A_g Dw^T    (A = g rows, B = Dw rows)
 //   warpgroup 1: t = Dh B_g^T    (A = Dh rows, B = g^T rows)
+template <bool HI>
 __device__ __forceinline__ void mma_step(uint32_t sa, int wg, float (&t)[32]) {
-  const uint32_t ah = sa + (wg ? kDhh : kAh) * BUF;
-  const uint32_t al = sa + (wg ? kDhl : kAl) * BUF;
-  const uint32_t bh = sa + (wg ? kBh : kDwh) * BUF;
-  const uint32_t bl = sa + (wg ? kBl : kDwl) * BUF;
+  using Cf = EstCfg<HI>;
+  const int oa = wg ? kOpDh : kOpA, ob = wg ? kOpB : kOpDw;
+  const uint32_t ah = sa + Cf::buf(oa, 0) * BUF;
+  const uint32_t al = sa + Cf::buf(oa, Cf::P - 1) * BUF;
+  const uint32_t bh = sa + Cf::buf(ob, 0) * BUF;
+  const uint32_t bl = sa + Cf::buf(ob, Cf::P - 1) * BUF;
   pb::fence_regs(t);
   pb::wgmma_fence();
+  if constexpr (!HI) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t dah = pb::sw128_desc(ah) + 2 * kk;
-    const uint64_t dal = pb::sw128_desc(al) + 2 * kk;
-    const uint64_t dbh = pb::sw128_desc(bh) + 2 * kk;
-    const uint64_t dbl = pb::sw128_desc(bl) + 2 * kk;
-    pb::wgmma_tf32_n64(t, dah, dbl, kk);  // kk == 0 starts from zero
-    pb::wgmma_tf32_n64(t, dal, dbh);
-    pb::wgmma_tf32_n64(t, dah, dbh);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dah = pb::sw128_desc(ah) + 2 * kk;
+      const uint64_t dal = pb::sw128_desc(al) + 2 * kk;
+      const uint64_t dbh = pb::sw128_desc(bh) + 2 * kk;
+      const uint64_t dbl = pb::sw128_desc(bl) + 2 * kk;
+      pb::wgmma_tf32_n64(t, dah, dbl, kk);  // kk == 0 starts from zero
+      pb::wgmma_tf32_n64(t, dal, dbh);
+      pb::wgmma_tf32_n64(t, dah, dbh);
+    }
+  } else {
+    const uint32_t am = sa + Cf::buf(oa, 1) * BUF;
+    const uint32_t bm = sa + Cf::buf(ob, 1) * BUF;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dah = pb::sw128_desc(ah) + 2 * kk;
+      const uint64_t dam = pb::sw128_desc(am) + 2 * kk;
+      const uint64_t dal = pb::sw128_desc(al) + 2 * kk;
+      const uint64_t dbh = pb::sw128_desc(bh) + 2 * kk;
+      const uint64_t dbm = pb::sw128_desc(bm) + 2 * kk;
+      const uint64_t dbl = pb::sw128_desc(bl) + 2 * kk;
+      pb::wgmma_tf32_n64(t, dal, dbh, kk);  // kk == 0 starts from zero
+      pb::wgmma_tf32_n64(t, dah, dbl);
+      pb::wgmma_tf32_n64(t, dam, dbm);
+      pb::wgmma_tf32_n64(t, dam, dbh);
+      pb::wgmma_tf32_n64(t, dah, dbm);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      pb::wgmma_tf32_n64(t, pb::sw128_desc(ah) + 2 * kk,
+                         pb::sw128_desc(bh) + 2 * kk);
   }
   pb::wgmma_commit();
 }
@@ -476,13 +541,15 @@ __device__ __forceinline__ OperandBlock<S> step_block(const EstGemm& p,
 }
 
 // tdw, tdh: the split tables; tg, tgt (kMaxima): the split normalized
-// gray planes g and g^T, (2 n) planes of hi and lo.
-template <int EPI, typename S, bool VEC>
+// gray planes g and g^T, (P n) planes, P pieces per tile.
+template <int EPI, typename S, bool VEC, bool HI>
 __global__ void __launch_bounds__(NT, 1)
 est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
                 const __grid_constant__ CUtensorMap tdh,
                 const __grid_constant__ CUtensorMap tg,
                 const __grid_constant__ CUtensorMap tgt, const EstGemm p) {
+  using Cf = EstCfg<HI>;
+  constexpr int P = Cf::P, STAGES = Cf::STAGES, STAGE = Cf::STAGE;
   // kMaxima: the whole stage arrives by TMA; the halo's planes are
   // written by the producer warpgroups
   constexpr bool TMAD = EPI == kMaxima || EPI == kMaximaAny;
@@ -520,15 +587,21 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
         pb::mbar_wait(pb::smem_u32(&empty[s]), ((it / STAGES) & 1) ^ 1);
         const uint32_t sa = base + s * STAGE;
         const uint32_t fb = pb::smem_u32(&full[s]);
-        pb::mbar_arrive_tx(fb, kBufs * BUF);
-        pb::tma_load_3d(sa + kAh * BUF, &tg, k0, at.y0, 2 * at.pl, fb);
-        pb::tma_load_3d(sa + kAl * BUF, &tg, k0, at.y0, 2 * at.pl + 1, fb);
-        pb::tma_load_3d(sa + kBh * BUF, &tgt, k0, at.x0, 2 * at.pl, fb);
-        pb::tma_load_3d(sa + kBl * BUF, &tgt, k0, at.x0, 2 * at.pl + 1, fb);
-        pb::tma_load_3d(sa + kDwh * BUF, &tdw, k0, at.x0, 0, fb);
-        pb::tma_load_3d(sa + kDwl * BUF, &tdw, k0, at.x0, 1, fb);
-        pb::tma_load_3d(sa + kDhh * BUF, &tdh, k0, at.y0, 0, fb);
-        pb::tma_load_3d(sa + kDhl * BUF, &tdh, k0, at.y0, 1, fb);
+        pb::mbar_arrive_tx(fb, Cf::kBufs * BUF);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          pb::tma_load_3d(sa + Cf::buf(kOpA, k) * BUF, &tg, k0, at.y0,
+                          P * at.pl + k, fb);
+          pb::tma_load_3d(sa + Cf::buf(kOpB, k) * BUF, &tgt, k0, at.x0,
+                          P * at.pl + k, fb);
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          pb::tma_load_3d(sa + Cf::buf(kOpDw, k) * BUF, &tdw, k0, at.x0, k,
+                          fb);
+          pb::tma_load_3d(sa + Cf::buf(kOpDh, k) * BUF, &tdh, k0, at.y0, k,
+                          fb);
+        }
       }
       return;
     }
@@ -559,14 +632,17 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
       const uint32_t sa = base + s * STAGE;
       const uint32_t fb = pb::smem_u32(&full[s]);
       if (t == 0) {
-        pb::mbar_arrive_tx(fb, 4 * BUF);
-        pb::tma_load_3d(sa + kDwh * BUF, &tdw, k0, cur.x0, 0, fb);
-        pb::tma_load_3d(sa + kDwl * BUF, &tdw, k0, cur.x0, 1, fb);
-        pb::tma_load_3d(sa + kDhh * BUF, &tdh, k0, cur.y0, 0, fb);
-        pb::tma_load_3d(sa + kDhl * BUF, &tdh, k0, cur.y0, 1, fb);
+        pb::mbar_arrive_tx(fb, 2 * P * BUF);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          pb::tma_load_3d(sa + Cf::buf(kOpDw, k) * BUF, &tdw, k0, cur.x0, k,
+                          fb);
+          pb::tma_load_3d(sa + Cf::buf(kOpDh, k) * BUF, &tdh, k0, cur.y0, k,
+                          fb);
+        }
       }
       uint8_t* st = sbase + s * STAGE;
-      float h[4], l[4];
+      float pc[P][4];
       if (t < 64) {
         // odd row groups store their second half first, so that a
         // quarter-warp's 8 stores meet 8 different 16-byte columns
@@ -582,9 +658,10 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               a[e] = swap ? v[i][4 * (1 - step) + e] : v[i][4 * step + e];
-            split4(a, h, l);
-            store16(st + kAh * BUF + off, h);
-            store16(st + kAl * BUF + off, l);
+            split4<P>(a, pc);
+#pragma unroll
+            for (int k = 0; k < P; ++k)
+              store16(st + Cf::buf(kOpA, k) * BUF + off, pc[k]);
           }
         }
       } else {
@@ -593,9 +670,10 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
           const int jr = 8 * cg + e;
           const int off = jr * 128 + ((rg ^ (jr & 7)) << 4);
           const float a[4] = {v[0][e], v[1][e], v[2][e], v[3][e]};
-          split4(a, h, l);
-          store16(st + kBh * BUF + off, h);
-          store16(st + kBl * BUF + off, l);
+          split4<P>(a, pc);
+#pragma unroll
+          for (int k = 0; k < P; ++k)
+            store16(st + Cf::buf(kOpB, k) * BUF + off, pc[k]);
         }
       }
       // one arrival per warp, after every lane's stores are ordered for
@@ -625,7 +703,7 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % STAGES;
       pb::mbar_wait(pb::smem_u32(&full[s]), (it / STAGES) & 1);
-      mma_step(base + s * STAGE, wg, tmp);
+      mma_step<HI>(base + s * STAGE, wg, tmp);
       pb::wgmma_wait<0>();
       pb::fence_regs(tmp);
       pb::mbar_arrive(pb::smem_u32(&empty[s]));
@@ -867,42 +945,44 @@ int num_sms() {
   return n;
 }
 
-template <int EPI, typename S, bool VEC>
+template <int EPI, typename S, bool VEC, bool HI>
 int launch_gemm_io(const EstGemm& p, const CUtensorMap (&m)[4],
                    cudaStream_t s) {
-  auto kern = est_gemm_kernel<EPI, S, VEC>;
+  constexpr int kSmem = EstCfg<HI>::SMEM;
+  auto kern = est_gemm_kernel<EPI, S, VEC, HI>;
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
   const int tiles =
       p.planes * ((p.ph + TM - 1) / TM) * ((p.pw + TN - 1) / TN);
-  kern<<<min(tiles, num_sms()), NT, SMEM, s>>>(m[0], m[1], m[2], m[3], p);
+  kern<<<min(tiles, num_sms()), NT, kSmem, s>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The derivative GEMM pair over p.planes planes; g2, gt2 (kMaxima): the
 // split normalized planes of stage 2, else null (the halo's planes are
 // read from p.src).
-template <int EPI, typename S>
+template <int EPI, typename S, bool HI>
 int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
                 const float* g2, const float* gt2, cudaStream_t s) {
-  // the tables: (2, n, pad64(n)) f32, hi then lo, read as K = n columns
+  // the tables: (P, n, pad64(n)) f32, hi first, read as K = n columns
+  constexpr long long P = EstCfg<HI>::P;
   const long long lw = (p.pw + 63) / 64 * 64, lh = (p.ph + 63) / 64 * 64;
   const long long ldp = pitch4(p.pw), ldq = pitch4(p.ph);
   CUtensorMap m[4];
-  bool ok = pb::tma_map_3d(&m[0], dw2, true, p.pw, p.pw, 2, lw, lw * p.pw,
+  bool ok = pb::tma_map_3d(&m[0], dw2, true, p.pw, p.pw, P, lw, lw * p.pw,
                            TN) &&
-            pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, 2, lh, lh * p.ph,
+            pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, P, lh, lh * p.ph,
                            TM);
   if (EPI == kMaxima || EPI == kMaximaAny)
     ok = ok &&
-         pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, 2LL * p.planes, ldp,
+         pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, P * p.planes, ldp,
                         ldp * p.ph, TM) &&
-         pb::tma_map_3d(&m[3], gt2, true, p.ph, p.pw, 2LL * p.planes, ldq,
+         pb::tma_map_3d(&m[3], gt2, true, p.ph, p.pw, P * p.planes, ldq,
                         ldq * p.pw, TN);
   else
     m[2] = m[3] = m[0];  // not read
@@ -911,11 +991,11 @@ int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (EPI == kMaxima || EPI == kMaximaAny) {
-    return launch_gemm_io<EPI, S, true>(p, m, s);
+    return launch_gemm_io<EPI, S, true, HI>(p, m, s);
   } else {
     if (vec_ok(p.src, sizeof(S)))
-      return launch_gemm_io<EPI, S, true>(p, m, s);
-    return launch_gemm_io<EPI, S, false>(p, m, s);
+      return launch_gemm_io<EPI, S, true, HI>(p, m, s);
+    return launch_gemm_io<EPI, S, false, HI>(p, m, s);
   }
 }
 
@@ -934,10 +1014,12 @@ int launch_minmax(const pb::TileView& v, int C, int ph, int pw, int rows,
 
 }  // namespace
 
-// view: the n tiles (canvas or tile batch, dtype `dtype`); dw2, dh2: the
-// split derivative tables (2, pw, pad64(pw)) and (2, ph, pad64(ph)) f32
-// (hi, lo); mm: (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2,
-// gt2: (n, 2, ph, pitch4(pw)) and (n, 2, pw, pitch4(ph)) f32 scratch;
+// view: the n tiles (canvas or tile batch, dtype `dtype`); high: the
+// 'highest' instantiation (P = 3 pieces; f32 tiles only) or the 3xTF32
+// one (0: P = 2; ops/cuda/sep_poly_fused.py dot_variant); dw2, dh2: the split derivative
+// tables (P, pw, pad64(pw)) and (P, ph, pad64(ph)) f32 (hi first); mm:
+// (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2, gt2: (n, P, ph,
+// pitch4(pw)) and (n, P, pw, pitch4(ph)) f32 scratch;
 // na1: the angle count (n_angles + 1), cs: its (na1, 2) f32 cos / sin;
 // maxima: (n, na1) f32 scratch; est: (n, 8) f32 output. stage selects the
 // launch (1 min/max, 2 normalize, 3 GEMM, 4 final) so the wrapper can
@@ -952,10 +1034,11 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
                                 const float* cs, const float* wts,
                                 const float* coeffs, float* mm, float* g2,
                                 float* gt2, float* maxima, float* est,
-                                void* stream) {
+                                int high, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 65535 || rows < 1 || na1 < 1 || (stage == 4 && na1 != kAngles) ||
-      (dtype != pb::kBF16 && dtype != pb::kF32))
+      (dtype != pb::kBF16 && dtype != pb::kF32) || (high != 0 && high != 1) ||
+      (high && dtype != pb::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool b16 = dtype == pb::kBF16;
   const pb::TileView v = pb::make_view(ptr, sB, sC, sR, batch, tile0,
@@ -969,10 +1052,13 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
   if (stage == 2) {
     dim3 grid((pw + 31) / 32, (ph + 31) / 32, n);
     if (b16)
-      gray_norm_kernel<pb::bf16><<<grid, dim3(32, 8), 0, s>>>(
+      gray_norm_kernel<pb::bf16, 2><<<grid, dim3(32, 8), 0, s>>>(
+          v, C, ph, pw, bands, mm, g2, gt2);
+    else if (high)
+      gray_norm_kernel<float, 3><<<grid, dim3(32, 8), 0, s>>>(
           v, C, ph, pw, bands, mm, g2, gt2);
     else
-      gray_norm_kernel<float><<<grid, dim3(32, 8), 0, s>>>(
+      gray_norm_kernel<float, 2><<<grid, dim3(32, 8), 0, s>>>(
           v, C, ph, pw, bands, mm, g2, gt2);
     return static_cast<int>(cudaGetLastError());
   }
@@ -986,9 +1072,14 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
     p.cs = cs;
     p.maxima = maxima;
     p.na1 = na1;
+    if (high)
+      return na1 == kAngles
+                 ? launch_gemm<kMaxima, float, true>(p, dw2, dh2, g2, gt2, s)
+                 : launch_gemm<kMaximaAny, float, true>(p, dw2, dh2, g2, gt2,
+                                                         s);
     if (na1 == kAngles)
-      return launch_gemm<kMaxima, float>(p, dw2, dh2, g2, gt2, s);
-    return launch_gemm<kMaximaAny, float>(p, dw2, dh2, g2, gt2, s);
+      return launch_gemm<kMaxima, float, false>(p, dw2, dh2, g2, gt2, s);
+    return launch_gemm<kMaximaAny, float, false>(p, dw2, dh2, g2, gt2, s);
   }
   if (stage == 4) {
     tile_est_final_kernel<<<n, 32, 0, s>>>(maxima, wts, coeffs, n, est);
@@ -1004,7 +1095,8 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
 // the f32 output o as the operand (dtype f32), the unfiltered planes u (a
 // TileView in `ucmp_dtype`) and the optional noise ((n C, ph, pw) f32),
 // and writes the masked, clipped planes to `out` ((n C, ph, pw) in
-// `out_dtype`; it may be the tensor u reads).
+// `out_dtype`; it may be the tensor u reads). high: as pb_tile_estimate's
+// (the tables dw2, dh2 hold its P pieces).
 extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
                             long long sC, long long sR, int batch, int tile0,
                             int tiles_w, int step_h, int step_w, int n, int C,
@@ -1014,10 +1106,11 @@ extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
                             long long usC, long long usR, int ubatch,
                             int utile0, int utiles_w, int ustep_h,
                             int ustep_w, const float* noise, void* out,
-                            int out_dtype, void* stream) {
+                            int out_dtype, int high, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((long long)n * C * ((ph + TM - 1) / TM) * ((pw + TN - 1) / TN) >
-      0x7fffffffLL)
+          0x7fffffffLL ||
+      (high != 0 && high != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   EstGemm p = {};
   p.src = pb::make_view(ptr, sB, sC, sR, batch, tile0, tiles_w, step_h,
@@ -1030,10 +1123,15 @@ extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
   p.gy = gy;
   p.part = part;
   if (epi == kGrads) {
-    if (dtype == pb::kBF16)
-      return launch_gemm<kGrads, pb::bf16>(p, dw2, dh2, nullptr, nullptr, s);
+    if (dtype == pb::kBF16 && !high)
+      return launch_gemm<kGrads, pb::bf16, false>(p, dw2, dh2, nullptr,
+                                                  nullptr, s);
+    if (dtype == pb::kF32 && high)
+      return launch_gemm<kGrads, float, true>(p, dw2, dh2, nullptr, nullptr,
+                                              s);
     if (dtype == pb::kF32)
-      return launch_gemm<kGrads, float>(p, dw2, dh2, nullptr, nullptr, s);
+      return launch_gemm<kGrads, float, false>(p, dw2, dh2, nullptr, nullptr,
+                                               s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (epi == kHalo && dtype == pb::kF32) {
@@ -1046,7 +1144,11 @@ extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
     p.noise = noise;
     p.out = out;
     p.out_dtype = out_dtype;
-    return launch_gemm<kHalo, float>(p, dw2, dh2, nullptr, nullptr, s);
+    if (high)
+      return launch_gemm<kHalo, float, true>(p, dw2, dh2, nullptr, nullptr,
+                                             s);
+    return launch_gemm<kHalo, float, false>(p, dw2, dh2, nullptr, nullptr,
+                                            s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -67,6 +67,21 @@
 // counterpart of the TPU kernel's error-compensated bf16 split
 // (sep_poly_fused.py::_split_bf16); the split is made in shared memory by
 // the consumers.
+//
+// The f32 dot mode 'highest' (ops/cuda/sep_poly_fused.py set_f32_dot_mode,
+// the TPU kernel's Precision.HIGHEST, sep_poly_fused.py:255-258) is a
+// template case of its own (HI): a = hi + mid + lo, each rounded to tf32,
+// and six products (lo hi, hi lo, mid mid, mid hi, hi mid, then hi hi), a
+// split that leaves ~2^-33 of each operand. Adding lo lo to the two-piece
+// split would buy nothing: its lo already leaves ~2^-22. The tensor cores'
+// f32 accumulation truncates, which over the whole of K costs more than
+// the two-piece split itself (a CPU emulation: ~95 dB from plain f32 for
+// one 448 px application), so each 32-deep K stage runs into a fresh
+// accumulator, its five small products first, and is added to the
+// running sum with a rounded f32 add (~120 dB from plain f32, which is
+// itself ~122 dB from exact). The third piece makes a stage of 128 x 128
+// tiles 96 KB and the second accumulator would not fit the registers, so
+// the case runs 128 x 64 output tiles (m64n64k8) in 3 stages of 72 KB.
 #include <cstdio>
 #include <type_traits>
 
@@ -291,27 +306,32 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
 //
 // Every product is C = A B^T with A (M x K) and B (N x K) both K-major
 // (row-major with K contiguous), the one layout wgmma takes for tf32 and
-// its fastest for bf16. Block tile BM x BN = 128 x 128; K in steps of 128
+// its fastest for bf16. Block tile BM x BN = 128 x 128 (128 x 64 in the
+// 'highest' case); K in steps of 128
 // bytes (64 bf16 / 32 f32) through a ring of shared-memory stages. Warps
 // 0-7 are two consumer warpgroups (64 rows each) running wgmma; after
 // them comes the producer: one thread starts the TMA loads, and in mode 1
 // two warpgroups write B (the replicate-padded tiles, any stride or dtype)
 // into the swizzled stage themselves.
 
-constexpr int BM = 128, BN = 128;
+constexpr int BM = 128;
 constexpr int NCONS = 256;            // two consumer warpgroups
-constexpr int ACC = BN / 2;           // accumulator floats per thread
 
 // Per (product, dtype): bf16 modes 2-4 run two blocks per SM (3 stages,
 // one producer warp, 96 registers a thread), so that one block's
 // prologue and epilogue overlap the other's MMAs; mode 1 (whose producer
 // is two warpgroups writing B) and the f32 split (twice the stage bytes)
-// run one block per SM with a deeper ring.
-template <int MODE, typename T>
+// run one block per SM with a deeper ring. HI: the 'highest' case of an
+// f32 work dtype (three pieces, six products, 128 x 64 tiles).
+template <int MODE, typename T, bool HI = false>
 struct Cfg {
   static constexpr int BK = 128 / sizeof(T);       // K per stage
   static constexpr bool kSplit = sizeof(T) == 4;   // 3xTF32
+  static constexpr bool kHigh = kSplit && HI;      // three pieces
+  static constexpr int PIECES = kHigh ? 3 : kSplit ? 2 : 1;
   static constexpr bool kPair = !kSplit && MODE != 1;
+  static constexpr int BN = kHigh ? 64 : 128;      // tile columns
+  static constexpr int ACC = BN / 2;               // accumulator floats
   // producer threads: mode 1 writes B with two warpgroups
   static constexpr int NPROD = MODE == 1 ? 256 : kPair ? 32 : 128;
   static constexpr int NT = NCONS + NPROD;
@@ -319,8 +339,9 @@ struct Cfg {
   static constexpr int STAGES = kSplit || kPair ? 3 : 4;
   static constexpr int A_BYTES = BM * 128;
   static constexpr int B_BYTES = BN * 128;
-  // per stage: A, B, and for the split their small parts
-  static constexpr int STAGE = (A_BYTES + B_BYTES) * (kSplit ? 2 : 1);
+  // per stage: A, B, and for the split their smaller pieces after them
+  static constexpr int PAIR = A_BYTES + B_BYTES;
+  static constexpr int STAGE = PAIR * PIECES;
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
@@ -379,7 +400,8 @@ __device__ __forceinline__ uint32_t word(const uint4* r, int idx) {
 // Mode 1's B stage: rows n0.. of the (h x wc) replicate-padded canvas of
 // plane pl, columns k0 .. k0 + BK, zero outside it, in 16-byte chunks of
 // the 128B-swizzled rows (chunk c of row r sits at c ^ (r % 8)); each of
-// the PT producer threads writes BN * 8 / PT chunks, in batches of CB whose
+// the PT producer threads writes NB * 8 / PT chunks (NB rows: the tile's
+// BN), in batches of CB whose
 // loads are all in flight before any is used. K >= 0: every source row
 // starts K elements past a 16-byte boundary (the rows' stride is whole
 // 16-byte blocks), so a chunk inside the tile is NV aligned 16-byte
@@ -457,13 +479,13 @@ __device__ __forceinline__ void fill_batch(const GemmParams& p,
   }
 }
 
-template <typename T, typename TS, int K, int PT>
+template <typename T, typename TS, int K, int PT, int NB>
 __device__ __forceinline__ void fill_padded(const GemmParams& p,
                                             const TS* base, int n0, int k0,
                                             uint8_t* sb, int t) {
   constexpr int E = 16 / sizeof(T);
   constexpr int VI = 16 / sizeof(TS);
-  constexpr int CH = BN * 8 / PT;
+  constexpr int CH = NB * 8 / PT;
   constexpr int NV = K < 0 ? 1 : (K + E + VI - 1) / VI;
   constexpr int CB = NV > 2 ? CH / 2 : CH;  // chunks per batch of loads
 #pragma unroll
@@ -484,20 +506,20 @@ __device__ __forceinline__ int fill_shift(const GemmParams& p,
   return static_cast<int>(((e % VI) + VI) % VI);
 }
 
-template <typename T, typename TS, int PT>
+template <typename T, typename TS, int PT, int NB>
 __device__ __forceinline__ void fill_stage(const GemmParams& p,
                                            const TS* base, int shift, int n0,
                                            int k0, uint8_t* sb, int t) {
   switch (shift) {
-    case 0: fill_padded<T, TS, 0, PT>(p, base, n0, k0, sb, t); break;
-    case 1: fill_padded<T, TS, 1, PT>(p, base, n0, k0, sb, t); break;
-    case 2: fill_padded<T, TS, 2, PT>(p, base, n0, k0, sb, t); break;
-    case 3: fill_padded<T, TS, 3, PT>(p, base, n0, k0, sb, t); break;
-    case 4: fill_padded<T, TS, 4, PT>(p, base, n0, k0, sb, t); break;
-    case 5: fill_padded<T, TS, 5, PT>(p, base, n0, k0, sb, t); break;
-    case 6: fill_padded<T, TS, 6, PT>(p, base, n0, k0, sb, t); break;
-    case 7: fill_padded<T, TS, 7, PT>(p, base, n0, k0, sb, t); break;
-    default: fill_padded<T, TS, -1, PT>(p, base, n0, k0, sb, t); break;
+    case 0: fill_padded<T, TS, 0, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 1: fill_padded<T, TS, 1, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 2: fill_padded<T, TS, 2, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 3: fill_padded<T, TS, 3, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 4: fill_padded<T, TS, 4, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 5: fill_padded<T, TS, 5, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 6: fill_padded<T, TS, 6, PT, NB>(p, base, n0, k0, sb, t); break;
+    case 7: fill_padded<T, TS, 7, PT, NB>(p, base, n0, k0, sb, t); break;
+    default: fill_padded<T, TS, -1, PT, NB>(p, base, n0, k0, sb, t); break;
   }
 }
 
@@ -516,6 +538,33 @@ __device__ __forceinline__ void split_tf32(uint8_t* raw, uint8_t* lo,
     *reinterpret_cast<float4*>(lo + o) =
         make_float4(tf32_hi(v.x - h.x), tf32_hi(v.y - h.y),
                     tf32_hi(v.z - h.z), tf32_hi(v.w - h.w));
+  }
+}
+
+// 'highest': x = hi + mid + lo, each the tf32 rounding of what the larger
+// pieces leave (every difference exact in f32).
+__device__ __forceinline__ void split3(float x, float& h, float& m,
+                                       float& l) {
+  h = tf32_hi(x);
+  const float r = x - h;
+  m = tf32_hi(r);
+  l = tf32_hi(r - m);
+}
+
+// The three-piece split of the raw f32 tile at `raw`: hi in place, mid and
+// lo to `mid` and `lo`; 128 threads, 16 B each step.
+__device__ __forceinline__ void split_tf32x3(uint8_t* raw, uint8_t* mid,
+                                             uint8_t* lo, int bytes, int t) {
+  for (int o = t * 16; o < bytes; o += 128 * 16) {
+    const float4 v = *reinterpret_cast<float4*>(raw + o);
+    float4 h, m, l;
+    split3(v.x, h.x, m.x, l.x);
+    split3(v.y, h.y, m.y, l.y);
+    split3(v.z, h.z, m.z, l.z);
+    split3(v.w, h.w, m.w, l.w);
+    *reinterpret_cast<float4*>(raw + o) = h;
+    *reinterpret_cast<float4*>(mid + o) = m;
+    *reinterpret_cast<float4*>(lo + o) = l;
   }
 }
 
@@ -548,12 +597,11 @@ __device__ __forceinline__ float taper_blend(float a, float u, float ku) {
 // by tpad, or with tpad = 0 the destination itself: mode 1 has read it
 // before mode 4 runs, and each element is loaded and stored by the same
 // thread, loads first.
-constexpr int kTP = BN + 8;  // staged tile pitch, floats
-
-template <typename TU>
+template <typename TU, int BN>
 __device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
                                            int m0, int n0, const float* tile,
                                            int t) {
+  constexpr int kTP = BN + 8;            // staged tile pitch, floats
   constexpr int kC4 = BN / 4;            // float4 columns of the tile
   constexpr int kRows = NCONS / kC4;     // rows between a thread's chunks
   constexpr int kQ = BM / kRows;         // chunks per thread
@@ -687,14 +735,46 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int pl, int i,
   if (two && !pair) d[o + 1] = pb::from_f32<T>(b);
 }
 
+// One K stage of the 'highest' case into the fresh accumulator t: per
+// 8-deep step the five small products, then the four hi hi products, so
+// that the small terms are summed while t is small; one MMA group. a, b:
+// the consumer's A rows and the B tile of the stage's hi pieces, the mid
+// and lo pieces `pair` and 2 `pair` bytes after them.
+__device__ __forceinline__ void mma_stage_x6(uint32_t a, uint32_t b,
+                                             uint32_t pair, float (&t)[32]) {
+  pb::fence_regs(t);
+  pb::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t ah = pb::sw128_desc(a) + 2 * kk;
+    const uint64_t am = pb::sw128_desc(a + pair) + 2 * kk;
+    const uint64_t al = pb::sw128_desc(a + 2 * pair) + 2 * kk;
+    const uint64_t bh = pb::sw128_desc(b) + 2 * kk;
+    const uint64_t bm = pb::sw128_desc(b + pair) + 2 * kk;
+    const uint64_t bl = pb::sw128_desc(b + 2 * pair) + 2 * kk;
+    pb::wgmma_tf32_n64(t, al, bh, kk);  // kk == 0 starts from zero
+    pb::wgmma_tf32_n64(t, ah, bl);
+    pb::wgmma_tf32_n64(t, am, bm);
+    pb::wgmma_tf32_n64(t, am, bh);
+    pb::wgmma_tf32_n64(t, ah, bm);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    pb::wgmma_tf32_n64(t, pb::sw128_desc(a) + 2 * kk,
+                       pb::sw128_desc(b) + 2 * kk);
+  pb::wgmma_commit();
+}
+
 // One (BM x BN) tile of one plane's product. tma_a / tma_b: the A and B
 // operands as (planes, rows, K) maps (mode 1 has no B map: the producer
 // warpgroup writes B).
-template <int MODE, typename T, int IO>
-__global__ void __launch_bounds__(Cfg<MODE, T>::NT, Cfg<MODE, T>::BLOCKS)
+template <int MODE, typename T, int IO, bool HI>
+__global__ void __launch_bounds__(Cfg<MODE, T, HI>::NT,
+                                  Cfg<MODE, T, HI>::BLOCKS)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
             const __grid_constant__ CUtensorMap tma_b, const GemmParams p) {
-  using Cf = Cfg<MODE, T>;
+  using Cf = Cfg<MODE, T, HI>;
+  constexpr int BN = Cf::BN, ACC = Cf::ACC;
   constexpr bool kPadB = MODE == 1;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[Cf::STAGES], empty[Cf::STAGES];
@@ -743,8 +823,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                           pbp, fb);
       }
       if constexpr (kPadB) {
-        fill_stage<T, TS, Cf::NPROD>(p, src, shift, n0, kt * Cf::BK,
-                                     sbase + s * Cf::STAGE + Cf::A_BYTES, t);
+        fill_stage<T, TS, Cf::NPROD, BN>(p, src, shift, n0, kt * Cf::BK,
+                                         sbase + s * Cf::STAGE + Cf::A_BYTES,
+                                         t);
         pb::fence_proxy_async();
         pb::mbar_arrive(fb);
       }
@@ -757,6 +838,31 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   float acc[ACC];
 #pragma unroll
   for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
+  if constexpr (Cf::kHigh) {
+  for (int kt = 0; kt < nk; ++kt) {
+    // 'highest': split each stage in three, run it into a fresh
+    // accumulator, wait for it and add it to the running sum, rounded
+    const int s = kt % Cf::STAGES;
+    pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
+    uint8_t* st = sbase + s * Cf::STAGE;
+    split_tf32x3(st + wg * (64 * 128), st + Cf::PAIR + wg * (64 * 128),
+                 st + 2 * Cf::PAIR + wg * (64 * 128), 64 * 128, t);
+    split_tf32x3(st + Cf::A_BYTES + wg * (BN / 2 * 128),
+                 st + Cf::PAIR + Cf::A_BYTES + wg * (BN / 2 * 128),
+                 st + 2 * Cf::PAIR + Cf::A_BYTES + wg * (BN / 2 * 128),
+                 BN / 2 * 128, t);
+    pb::fence_proxy_async();
+    pb::named_barrier(1, NCONS);
+    float tmp[32];
+    mma_stage_x6(base + s * Cf::STAGE + wg * (64 * 128),
+                 base + s * Cf::STAGE + Cf::A_BYTES, Cf::PAIR, tmp);
+    pb::wgmma_wait<0>();
+    pb::fence_regs(tmp);
+    pb::mbar_arrive(pb::smem_u32(&empty[s]));
+#pragma unroll
+    for (int r = 0; r < ACC; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
+  }
+  } else {
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % Cf::STAGES;
     pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
@@ -796,8 +902,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
   pb::wgmma_wait<0>();
   pb::fence_regs(acc);
+  }
   const int warp = t >> 5, lane = t & 31;
   if constexpr (MODE == 4 && (IO & kTaper)) {
+    constexpr int kTP = BN + 8;  // taper_tile's pitch
     static_assert(BM * kTP * 4 <= Cf::STAGES * Cf::STAGE,
                   "the staged tile must fit the ring");
     // both warpgroups' MMAs are done reading the ring: stage the tile
@@ -811,9 +919,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                                                              acc[r + 1]);
     pb::named_barrier(1, NCONS);
     if (p.tu_f32)
-      taper_tile<float>(p, pl, m0, n0, tile, tid);
+      taper_tile<float, BN>(p, pl, m0, n0, tile, tid);
     else
-      taper_tile<T>(p, pl, m0, n0, tile, tid);
+      taper_tile<T, BN>(p, pl, m0, n0, tile, tid);
     return;
   }
   const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
@@ -828,46 +936,50 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                             acc[r], acc[r + 1]);
 }
 
-template <int MODE, typename T, int IO>
+template <int MODE, typename T, int IO, bool HI>
 int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
               int planes, cudaStream_t s) {
-  auto kern = gemm_kernel<MODE, T, IO>;
+  using Cf = Cfg<MODE, T, HI>;
+  auto kern = gemm_kernel<MODE, T, IO, HI>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<MODE, T>::SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, planes);
-  kern<<<grid, Cfg<MODE, T>::NT, Cfg<MODE, T>::SMEM, s>>>(a, b, p);
+  dim3 grid((p.N + Cf::BN - 1) / Cf::BN, (p.M + BM - 1) / BM, planes);
+  kern<<<grid, Cf::NT, Cf::SMEM, s>>>(a, b, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it;
-// taper: mode 4 blends (f32 out)
-template <int MODE, typename T>
+// taper: mode 4 blends (f32 out). An f32 work dtype reads and writes f32
+// anyway, so its f32io cases are not instantiated.
+template <int MODE, typename T, bool HI>
 int launch_gemm(bool f32io, bool noise, bool taper, const CUtensorMap& a,
                 const CUtensorMap& b, const GemmParams& p, int planes,
                 cudaStream_t s) {
-  if (sizeof(T) == 4) f32io = false;  // f32 work dtype: f32 anyway
   if constexpr (MODE == 4) {
     constexpr int kOut = sizeof(T) == 4 ? 0 : kF32IO;
-    if (taper) return launch_io<4, T, kOut | kTaper>(a, b, p, planes, s);
+    if (taper)
+      return launch_io<4, T, kOut | kTaper, HI>(a, b, p, planes, s);
   }
-  if (f32io && noise)
-    return launch_io<MODE, T, kF32IO | kNoise>(a, b, p, planes, s);
-  if (f32io) return launch_io<MODE, T, kF32IO>(a, b, p, planes, s);
-  if (noise) return launch_io<MODE, T, kNoise>(a, b, p, planes, s);
-  return launch_io<MODE, T, 0>(a, b, p, planes, s);
+  if constexpr (sizeof(T) == 2) {
+    if (f32io && noise)
+      return launch_io<MODE, T, kF32IO | kNoise, HI>(a, b, p, planes, s);
+    if (f32io) return launch_io<MODE, T, kF32IO, HI>(a, b, p, planes, s);
+  }
+  if (noise) return launch_io<MODE, T, kNoise, HI>(a, b, p, planes, s);
+  return launch_io<MODE, T, 0, HI>(a, b, p, planes, s);
 }
 
 // Padded row lengths, shared with ops/cuda/polyblur_fused.py: K widths of
 // the tables and of RS / PS round up to a whole number of 64-element rows.
 inline int pad64(int n) { return (n + 63) / 64 * 64; }
 
-template <typename T>
+template <typename T, bool HI>
 int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                   const void* mid, GemmParams& p, int planes,
                   cudaStream_t s) {
   const bool f32 = sizeof(T) == 4;
+  constexpr int BN = Cfg<1, T, HI>::BN;  // B's box rows, every mode
   const int h = p.h, kp = p.kp, l2 = pad64(2 * h);
   const long long rs = static_cast<long long>(kp) * l2;  // RS / PS plane
   const long long zz = static_cast<long long>(h) * 2 * kp;
@@ -880,21 +992,21 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                           2LL * kp * pad64(p.wc), BM);
       b = a;
       if (!ok) break;
-      return launch_gemm<1, T>(src_f32, false, false, a, b, p, planes, s);
+      return launch_gemm<1, T, HI>(src_f32, false, false, a, b, p, planes, s);
     case 2:  // A = RS (kp x 2h), B = T2 (2h x 2h)
       p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
       ok = pb::tma_map_3d(&a, mid, f32, 2 * h, kp, planes, l2, rs, BM) &&
            pb::tma_map_3d(&b, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BN);
       if (!ok) break;
-      return launch_gemm<2, T>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<2, T, HI>(false, false, false, a, b, p, planes, s);
     case 3:  // A = T3 (2h x 2h), B = PS (kp x 2h)
       p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
       ok = pb::tma_map_3d(&a, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BM) &&
            pb::tma_map_3d(&b, mid, f32, 2 * h, kp, planes, l2, rs, BN);
       if (!ok) break;
-      return launch_gemm<3, T>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<3, T, HI>(false, false, false, a, b, p, planes, s);
     case 4:  // A = ZZ (h x 2kp) from row `half`, B = G^T (wc x 2kp)
       p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
       p.dplane = static_cast<long long>(p.ph) * p.pw;
@@ -902,7 +1014,7 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
            pb::tma_map_3d(&b, tab, f32, 2 * kp, p.wc, 1, 2 * kp,
                           2LL * kp * p.wc, BN);
       if (!ok) break;
-      return launch_gemm<4, T>(dst_f32, p.noise != nullptr, p.av != nullptr,
+      return launch_gemm<4, T, HI>(dst_f32, p.noise != nullptr, p.av != nullptr,
                                a, b, p, planes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -967,6 +1079,8 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
 // again. av, ah (mode 4, the taper's (n, h) and (n, wc) f32 weights, or
 // null): the output is the whole canvas (half 0) in f32, unclipped, blended
 // with the tiles of the TileView padded by tpad, x' = a pad(x) + (1 - a) x'.
+// high (f32 only): the 'highest' instantiation (three pieces, six
+// products); 0 the 3xTF32 one (ops/cuda/sep_poly_fused.py dot_variant).
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
@@ -976,9 +1090,11 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 int planes, int C, int ph, int pw, int h,
                                 int wc, int kp, int half, int clip,
                                 const float* av, const float* ah, int tpad,
-                                void* stream) {
+                                int high, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool taper = mode == 4 && av != nullptr;
+  if (high != 0 && (high != 1 || dtype != pb::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (taper && (ah == nullptr || clip || noise != nullptr || half != 0 ||
                 ph != h || pw != wc || tpad < 0 || h <= 2 * tpad ||
                 wc <= 2 * tpad || (dtype == pb::kBF16 && !dst_f32)))
@@ -1002,10 +1118,13 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.tpad = tpad;
   p.tu_f32 = src_f32 != 0 || dtype == pb::kF32;
   if (dtype == pb::kBF16)
-    return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, tab, mid, p,
-                               planes, s);
+    return spectral_gemm<bf16, false>(mode, src_f32 != 0, dst_f32 != 0, tab,
+                                      mid, p, planes, s);
+  if (dtype == pb::kF32 && high)
+    return spectral_gemm<float, true>(mode, false, dst_f32 != 0, tab, mid, p,
+                                      planes, s);
   if (dtype == pb::kF32)
-    return spectral_gemm<float>(mode, false, dst_f32 != 0, tab, mid, p,
-                                planes, s);
+    return spectral_gemm<float, false>(mode, false, dst_f32 != 0, tab, mid,
+                                       p, planes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

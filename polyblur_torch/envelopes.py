@@ -6,7 +6,7 @@ takes the tiles route, the fused or blocked polynomial, the fused
 directional maxima, or the patch engine in both. They were fitted to a
 TPU's memory envelope and speed; they are NOT measured on the H100 and are
 no speed target for the port (re-planning the routes for the H100 is
-ROADMAP D work).
+ROADMAP B.2 item 9).
 """
 
 from __future__ import annotations

@@ -11,6 +11,8 @@ the tensor cores; the derivative GEMM pair on the tensor cores in 3xTF32
 with the maxima reduced in its epilogue — the patch engine's 7 angles in
 registers, any other count in register groups of 8), launched over the
 images as one tile each and counted as ``directional_maxima``: 3 launches.
+They run the 3xTF32 instantiation under either f32 dot mode: the JAX
+kernel does not read the mode (est_fused.py:52-56).
 
 Bound on the H100: operations — 2 (H^2 W + H W^2) MACs per image, 0.34 G
 at 480 x 640 (the function needs f32 products: 67 TFLOP/s outside the
@@ -51,4 +53,5 @@ def directional_maxima(img: torch.Tensor,
     if runs_plain(img):
         return directional_maxima_plain(img, n_angles)
     return launch_estimate(TileView.of_tiles(img.contiguous()), (1, 2, 3),
-                           "directional_maxima", n_angles=n_angles)[0]
+                           "directional_maxima", n_angles=n_angles,
+                           mode_free=True)[0]

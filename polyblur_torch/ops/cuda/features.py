@@ -12,7 +12,8 @@ tile batch.
   and their per-plane |grad|^2 sums once per call, then per iteration the
   gradient-inversion mask of the output, its clip, the prefilter's noise
   and the store in the work dtype (polyblur_fused.py:288-302, :503-517);
-  counted as ``halo``.
+  counted as ``halo`` (``halo[highest]`` in the f32 dot mode's
+  ``'highest'`` case, which an f32 work dtype takes under that mode).
 
 Each has a plain version beside it that computes what the TPU kernel
 computes, in its order; the wrappers take it for CPU tensors.
@@ -30,6 +31,7 @@ from ._build import (check, check_cuda, count_launch, dtype_code, library,
                      runs_plain, stream_of)
 from .polyblur_fused import (HALF, _NULL_VIEW_ARGS, _VIEW_ARGTYPES, TileView,
                              estimate_tables)
+from .sep_poly_fused import dot_variant, launch_name
 
 __all__ = ["taper_weights", "taper_weights_plain", "HaloGrads",
            "halo_grads", "halo_grads_plain", "halo_mask", "halo_mask_plain"]
@@ -135,9 +137,12 @@ def _blocks(ph: int, pw: int) -> int:
 
 def _halo_launch(epi: int, src: TileView, grads: HaloGrads,
                  ucmp: TileView | None = None, noise=None, out=None) -> None:
+    """Epilogue ``epi`` of the halo's GEMM; the f32 dot mode's instantiation
+    follows the work dtype (the input tiles', or the mask's ``out``)."""
     ph, pw = src.patch
     c = src.channels
-    t = estimate_tables(ph, pw, str(src.data.device))
+    variant = dot_variant(src.data.dtype if out is None else out.dtype)
+    t = estimate_tables(ph, pw, str(src.data.device), pieces=2 + variant)
     uargs, udt = _NULL_VIEW_ARGS, torch.float32
     odt = torch.float32
     if ucmp is not None:
@@ -145,15 +150,15 @@ def _halo_launch(epi: int, src: TileView, grads: HaloGrads,
     lib = library("estimate")
     fn = lib.pb_halo_gemm
     fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] * 4 + [_P] * 5 + [_I]
-                   + _VIEW_ARGTYPES + [_P, _P, _I, _P])
+                   + _VIEW_ARGTYPES + [_P, _P, _I, _I, _P])
     fn.restype = _I
     err = fn(epi, dtype_code(src.data.dtype), *src.c_args(), src.n, c, ph,
              pw, t.dw2.data_ptr(), t.dh2.data_ptr(), grads.gx.data_ptr(),
              grads.gy.data_ptr(), grads.part.data_ptr(), dtype_code(udt),
              *uargs, None if noise is None else noise.data_ptr(),
              None if out is None else out.data_ptr(), dtype_code(odt),
-             stream_of(grads.gx))
-    count_launch("halo")
+             variant, stream_of(grads.gx))
+    count_launch(launch_name("halo", variant))
     check(lib, err, f"halo epilogue {epi}")
 
 

@@ -35,8 +35,10 @@ reuse these kernels with counters of their own.
 Each has a plain PyTorch version beside it that rounds where the kernel
 (and the TPU kernel) rounds: the state and every DFT-product operand in the
 work dtype, accumulation and spectra in f32 (with f32 operands the
-kernel's products run 3xTF32, ~2^-22 relative per product, against the
-plain version's full f32). The plain estimate and
+kernel's products run 3xTF32, ~2^-22 relative per product, or under the
+f32 dot mode ``'highest'`` six products of a three-piece split, against
+the plain version's full f32; ``sep_poly_fused.dot_variant`` picks the
+instantiation at each launch). The plain estimate and
 spectrum are composed of the steps of ``estimation`` and ``ops.sep_poly``,
 fed with the kernels' host tables. The wrappers take the plain version for
 CPU tensors (and inside ``plain_versions()``); for CUDA tensors they launch
@@ -145,8 +147,9 @@ class EstimateTables(NamedTuple):
     dh: torch.Tensor     # (ph, ph) f32 y-derivative
     cs: torch.Tensor     # (n_angles + 1, 2) f32 cos/sin of the angles
     wts: torch.Tensor    # (30, 7) f32 Keys interpolation weights
-    dw2: torch.Tensor    # (2, pw, pad64(pw)) f32 [hi; lo] of dw (3xTF32)
-    dh2: torch.Tensor    # (2, ph, pad64(ph)) f32 [hi; lo] of dh
+    dw2: torch.Tensor    # (P, pw, pad64(pw)) f32 tf32 pieces of dw: [hi; lo]
+                         # (3xTF32), [hi; mid; lo] ('highest')
+    dh2: torch.Tensor    # (P, ph, pad64(ph)) f32 pieces of dh
 
 
 def _tf32(a: np.ndarray) -> np.ndarray:
@@ -157,27 +160,36 @@ def _tf32(a: np.ndarray) -> np.ndarray:
         np.float32)
 
 
-def _split_tf32(a: np.ndarray) -> np.ndarray:
-    """(2, rows, pad64(cols)) [hi; lo] of an f32 matrix: hi = tf32(a),
-    lo = tf32(a - hi), K zero-padded as the GEMM's table maps read it."""
-    hi = _tf32(a)
-    return np.stack([_k_padded(hi), _k_padded(_tf32(a - hi))])
+def _split_tf32(a: np.ndarray, pieces: int = 2) -> np.ndarray:
+    """(pieces, rows, pad64(cols)) tf32 pieces of an f32 matrix, K
+    zero-padded as the GEMM's table maps read it: [hi; lo] with hi =
+    tf32(a), lo = tf32(a - hi) (3xTF32), or for ``pieces=3`` [hi; mid; lo],
+    each the rounding of what the larger pieces leave (``'highest'``)."""
+    out, r = [], np.asarray(a, np.float32)
+    for _ in range(pieces):
+        p = _tf32(r)
+        out.append(_k_padded(p))
+        r = r - p
+    return np.stack(out)
 
 
 @functools.lru_cache(maxsize=8)
 def estimate_tables(ph: int, pw: int, device: str,
-                    n_angles: int = N_ANGLES) -> EstimateTables:
+                    n_angles: int = N_ANGLES,
+                    pieces: int = 2) -> EstimateTables:
     """The estimate tables for (ph, pw) tiles on ``device`` (built once on
-    the host and cached). The directional angles are the JAX kernel's,
-    ``k pi / n_angles`` in Python floats, their cos / sin rounded to f32
-    (polyblur_tpu/ops/pallas/est_fused.py:33)."""
+    the host and cached), the derivative GEMM's split into ``pieces`` tf32
+    pieces (2 + the f32 dot mode's variant). The directional angles are
+    the JAX kernel's, ``k pi / n_angles`` in Python floats, their cos / sin
+    rounded to f32 (polyblur_tpu/ops/pallas/est_fused.py:33)."""
     if n_angles < 1:
         raise ValueError(f"n_angles must be >= 1, got {n_angles}")
     angles = [k * math.pi / n_angles for k in range(n_angles + 1)]
     cs = np.array([[math.cos(t), math.sin(t)] for t in angles], np.float32)
     dw, dh = _derivative_matrix_np(pw), _derivative_matrix_np(ph)
     return EstimateTables(*(torch.tensor(a, device=device) for a in (
-        dw, dh, cs, _interp_weights_np(), _split_tf32(dw), _split_tf32(dh))))
+        dw, dh, cs, _interp_weights_np(), _split_tf32(dw, pieces),
+        _split_tf32(dh, pieces))))
 
 
 class StageTables(NamedTuple):
@@ -313,28 +325,34 @@ def _pitch4(n: int) -> int:
 
 def estimate_launches(view: TileView, name: str,
                       coeffs: torch.Tensor | None = None,
-                      n_angles: int = N_ANGLES):
+                      n_angles: int = N_ANGLES, mode_free: bool = False):
     """The four launches of ``csrc/estimate.cu`` over the tiles of
     ``view``, not yet run: (maxima (n, n_angles + 1) f32, est (n, 8) f32,
     [stage 1,
     .., stage 4]), each a callable that launches its stage and counts it
-    under ``name``. Stage 1 is the gray min/max pass, 2 the normalization
-    (g and its transpose, split for the tensor cores), 3 the derivative
-    GEMM with the directional maxima, 4 the final model (it writes
-    ``est``; at ``n_angles`` = 6 only). Run in order they are the
-    estimate; one alone reruns its stage on what the last run left."""
+    under ``name`` (``name[highest]`` in the f32 dot mode's ``'highest'``
+    case, which f32 tiles take under that mode unless ``mode_free``).
+    Stage 1 is the gray min/max pass, 2 the normalization (g and its
+    transpose, split for the tensor cores), 3 the derivative GEMM with the
+    directional maxima, 4 the final model (it writes ``est``; at
+    ``n_angles`` = 6 only). Run in order they are the estimate; one alone
+    reruns its stage on what the last run left."""
+    from .sep_poly_fused import dot_variant, launch_name  # imports us
+
     check_cuda(name, view.data)
     if view.n > 65535:
         raise ValueError(f"{name}: {view.n} tiles exceed the launch grid")
+    variant = dot_variant(view.data.dtype, mode_free)
+    pieces = 2 + variant
     ph, pw = view.patch
-    t = estimate_tables(ph, pw, str(view.data.device), n_angles)
+    t = estimate_tables(ph, pw, str(view.data.device), n_angles, pieces)
     dev = view.data.device
     rows = _band_rows(ph, view.n)
     mm = torch.empty((view.n, -(-ph // rows), 2), dtype=torch.float32,
                      device=dev)
-    g2 = torch.empty((view.n, 2, ph, _pitch4(pw)), dtype=torch.float32,
+    g2 = torch.empty((view.n, pieces, ph, _pitch4(pw)), dtype=torch.float32,
                      device=dev)
-    gt2 = torch.empty((view.n, 2, pw, _pitch4(ph)), dtype=torch.float32,
+    gt2 = torch.empty((view.n, pieces, pw, _pitch4(ph)), dtype=torch.float32,
                       device=dev)
     maxima = torch.empty((view.n, n_angles + 1), dtype=torch.float32,
                          device=dev)
@@ -345,13 +363,15 @@ def estimate_launches(view: TileView, name: str,
     check_cuda(name, coeffs)
     lib = library("estimate")
     fn = lib.pb_tile_estimate
-    fn.argtypes = [_I, _I] + _VIEW_ARGTYPES + [_I] * 6 + [_P] * 10 + [_P]
+    fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] * 6 + [_P] * 10
+                   + [_I, _P])
     fn.restype = _I
     args = ([dtype_code(view.data.dtype)] + view.c_args()
             + [view.n, view.channels, ph, pw, rows, n_angles + 1]
             + [p.data_ptr() for p in (t.dw2, t.dh2, t.cs, t.wts, coeffs, mm,
                                       g2, gt2, maxima, est)]
-            + [stream_of(view.data)])
+            + [variant, stream_of(view.data)])
+    counter = launch_name(name, variant)
 
     # the tensors behind the pointers in args, alive while a launch may run
     keep = (t, coeffs, mm, g2, gt2, maxima, est)
@@ -359,7 +379,7 @@ def estimate_launches(view: TileView, name: str,
     def launch(stage):
         def run():
             err = fn(stage, *args)
-            count_launch(name)
+            count_launch(counter)
             check(lib, err, f"{name} stage {stage}")
         run.tensors = keep
         return run
@@ -369,7 +389,7 @@ def estimate_launches(view: TileView, name: str,
 
 def launch_estimate(view: TileView, stages, name: str,
                     coeffs: torch.Tensor | None = None,
-                    n_angles: int = N_ANGLES):
+                    n_angles: int = N_ANGLES, mode_free: bool = False):
     """Launch the given stages (of 1-4; see :func:`estimate_launches`)
     over the tiles of ``view``, each counted under ``name``. Returns
     (maxima (n, n_angles + 1) f32, est (n, 8) f32); ``est`` is written by
@@ -377,7 +397,8 @@ def launch_estimate(view: TileView, stages, name: str,
     if 4 in stages and n_angles != N_ANGLES:
         raise ValueError(f"{name}: the final stage is built for n_angles="
                          f"{N_ANGLES}")
-    maxima, est, runs = estimate_launches(view, name, coeffs, n_angles)
+    maxima, est, runs = estimate_launches(view, name, coeffs, n_angles,
+                                          mode_free)
     for stage in stages:
         runs[stage - 1]()
     return maxima, est
@@ -565,11 +586,16 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
                            taper=None):
     """The four ``pb_spectral_gemm`` launches of one application, not yet
     run: (out, [mode 1, mode 2, mode 3, mode 4]), each a callable that
-    launches its product and counts it under ``name``; see
+    launches its product and counts it under ``name`` (``name[highest]``
+    for an f32 work dtype under the f32 dot mode ``'highest'``); see
     :func:`spectral_poly`. Run in order they are the application; one alone
     is a product on the intermediates the last run left."""
+    from .sep_poly_fused import dot_variant, launch_name  # imports us
+
     check_cuda(name, view.data, qhat2, tables.fwd_t)
     g = _geometry(view, tables, pad, crop, name)
+    variant = dot_variant(g.wd)
+    counter = launch_name(name, variant)
     c = view.channels
     kp = _packed_k(g.wc)
     planes = view.n * c
@@ -603,7 +629,7 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
     fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 3 + [_I]
-                   + [_P] * 2 + [_I] * 9 + [_P] * 2 + [_I, _P])
+                   + [_P] * 2 + [_I] * 9 + [_P] * 2 + [_I, _I, _P])
     fn.restype = _I
     args = [dtype_code(g.wd)] + view.c_args() + [
         int(view.data.dtype == torch.float32)]
@@ -617,8 +643,8 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
             err = fn(mode, *args, tab.data_ptr(),
                      None if mid is None else mid.data_ptr(),
                      dst.data_ptr(), *rest, *tile, g.h, g.wc, kp, half,
-                     int(clip), *weights, g.pad, stream)
-            count_launch(name)
+                     int(clip), *weights, g.pad, variant, stream)
+            count_launch(counter)
             check(lib, err, f"{name} mode {mode}")
         # the tensors behind the pointers in args, rest and weights (qhat2,
         # av and ah may be contiguous copies made here), alive while the

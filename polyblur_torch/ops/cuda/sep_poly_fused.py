@@ -13,7 +13,8 @@ kernel half-support (12, the patch engine's, is its own instantiation; any
 other up to 15, as the TPU kernel's 32-column tap tables allow), and the
 four ``spectral_gemm`` launches take a pad/crop width of the half-support
 or 0 and a clip flag. 1 + 4 launches per application, counted as
-``fused_polynomial``.
+``fused_polynomial`` (the four GEMMs as ``fused_polynomial[highest]``
+under the f32 dot mode ``'highest'``).
 
 Callers: ``ops.sep_poly._apply_param_operator`` with the replicate pad on
 whole images up to a 664 px canvas, and ``ops.sep_poly._blocked_polynomial``
@@ -29,10 +30,28 @@ input, its geometry a constant.
 Bound on the H100: operations — ~115 M MACs per 280 x 240 block of the
 2 MP blocked route (180 planes, 20.6 G MACs per application), on the
 tensor cores: bf16 wgmma, or for f32 three tf32 wgmma products per step
-(3xTF32, the counterpart of the TPU kernel's compensated bf16 split).
+(3xTF32, the counterpart of the TPU kernel's compensated bf16 split), or
+six under the f32 dot mode ``'highest'``.
+
+The f32 dot mode (:func:`set_f32_dot_mode`, :func:`f32_dot_mode`,
+:func:`f32_dot_mode_scope`; the JAX module's, sep_poly_fused.py:150-194)
+selects the f32 instantiations of the tensor-core GEMMs that the JAX
+package's mode selects: ``spectral_gemm`` (every f32 application of the
+tiles, patch and blocked routes, and :func:`fused_polynomial`; JAX's
+``_spectral_poly_block``) and the estimate's and the halo mask's
+derivative GEMM on f32 tiles (JAX's ``_est_dots``,
+polyblur_fused.py:251-252). ``'compensated'`` (the default) runs 3xTF32,
+``'highest'`` a three-piece tf32 split with six products (each 32-deep K
+stage promoted into the running sum by a rounded f32 add), as template
+cases of ``csrc/spectral.cu`` and ``csrc/estimate.cu``: :func:`dot_variant`
+names the instantiation. bf16 work, ``directional_maxima`` (JAX's
+est_fused.py:52-56 does not read the mode), the composed route's exact
+f32 ``torch.matmul`` and every plain version are the same under both.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -42,7 +61,62 @@ from .polyblur_fused import (HALF, TileView, launch_spectral_gemm,
                              launch_spectrum, spectral_poly_plain,
                              spectrum_plain, stage_tables)
 
-__all__ = ["fused_polynomial", "fused_polynomial_plain"]
+__all__ = ["fused_polynomial", "fused_polynomial_plain", "set_f32_dot_mode",
+           "f32_dot_mode", "f32_dot_mode_scope", "dot_variant", "launch_name"]
+
+_F32_DOT_MODES = ("compensated", "highest")
+_f32_dot_mode = "compensated"
+
+
+def set_f32_dot_mode(mode: str) -> None:
+    """Select the f32 dot mode of the kernels: ``'compensated'`` (the
+    default: 3xTF32, ~2^-22 relative per product) or ``'highest'`` (six
+    tf32 products of a three-piece split, f32 grade). The mode is a
+    process-wide setting, not thread-safe; prefer
+    :func:`f32_dot_mode_scope`.
+
+    Unlike the JAX package, whose jitted callables keep the mode they were
+    traced with (polyblur_tpu/ops/pallas/sep_poly_fused.py:168-171), the
+    port reads the mode at each call: every launch after this call uses
+    it."""
+    global _f32_dot_mode
+    if mode not in _F32_DOT_MODES:
+        raise ValueError(f"unknown f32 dot mode {mode!r}; expected "
+                         "'compensated' or 'highest'")
+    _f32_dot_mode = mode
+
+
+def f32_dot_mode() -> str:
+    """The current f32 dot mode."""
+    return _f32_dot_mode
+
+
+@contextlib.contextmanager
+def f32_dot_mode_scope(mode: str):
+    """Set ``mode`` (:func:`set_f32_dot_mode`) for the block and restore
+    the previous mode afterwards, also when the block raises."""
+    prev = _f32_dot_mode
+    set_f32_dot_mode(mode)
+    try:
+        yield
+    finally:
+        set_f32_dot_mode(prev)
+
+
+def dot_variant(dtype: torch.dtype, mode_free: bool = False) -> int:
+    """The instantiation of the mode-reading GEMMs for work dtype ``dtype``
+    under the current f32 dot mode, as the kernels' ``high`` argument: 1
+    for the ``'highest'`` case (f32 only), else 0 — the bf16 GEMMs, and the
+    3xTF32 estimate of bf16 tiles, under either mode; ``mode_free`` kernels
+    (``directional_maxima``) always 0."""
+    return int(dtype == torch.float32 and not mode_free
+               and _f32_dot_mode == "highest")
+
+
+def launch_name(name: str, variant: int) -> str:
+    """The launch counter of kernel ``name`` in instantiation ``variant``:
+    the ``'highest'`` case counts as ``name[highest]``."""
+    return f"{name}[highest]" if variant else name
 
 
 def _view_and_tables(x, replicate_pad: bool, half: int):

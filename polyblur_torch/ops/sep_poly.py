@@ -119,7 +119,8 @@ def _fused_path_eligible(h: int, w: int, prepad: bool,
 
 def _spectral2d(x: torch.Tensor, a, b, c, horner, half: int) -> torch.Tensor:
     """p(K) on an (N, H, W) canvas batch — circular, exact — through
-    ``rfft2`` / ``irfft2`` (the JAX package's CPU route)."""
+    ``rfft2`` / ``irfft2`` (the JAX package's CPU route), in f32 under
+    either f32 dot mode (see ``ops.spectral_matmul``)."""
     require_full_f32(x)
     n, h, w = x.shape
     qhat = _horner_spectrum(kernel_spectrum(a, b, c, h, w, half), horner)

@@ -10,6 +10,15 @@ The matrix is built once per size in float64 NumPy by pushing the identity
 through the reference discretization — including its fftshift/Nyquist
 layout — so it is the exact same linear map (the calibrated (c, b) of the
 affine blur model depend on this discretization).
+
+The f32 dot mode (``ops.cuda.sep_poly_fused.set_f32_dot_mode``) does not
+reach these products, nor the composed route's ``rfft2`` polynomial
+(``ops.sep_poly._spectral2d``): they stay exact f32 (``torch.matmul`` with
+TF32 off, :func:`require_full_f32`) under either mode. Their JAX
+counterparts are the XLA products outside any Pallas kernel, which the
+mode switches between Precision.HIGH and HIGHEST
+(polyblur_tpu/ops/sep_poly.py:145-150); exact f32 is at least as close
+as either.
 """
 
 from __future__ import annotations

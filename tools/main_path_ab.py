@@ -13,6 +13,8 @@ alternating processes. ``paths`` is a comma-separated list of:
 - ``config2``: BASELINE config 2 on the tree's
   ``chip_smoke.make_config2_image`` (1200 x 1600, ``deblur_patches`` at
   448 px and overlap 1/7, bf16 work, taper + dt prefilter + halo);
+- ``config2b``: config 2 in f32 work dtype (the f32 dot mode's default
+  ``'compensated'`` instantiations);
 - ``config2c``: the same photo through ``polyblur_core(method='fft')``
   with config 2's flags;
 - ``prefilter``: ``main`` with ``prefiltering=True`` and the default
@@ -24,12 +26,14 @@ in a synchronize, as ``chip_smoke.py`` times it), its MP/s, the host's
 enqueue time (median of 5 calls from an idle card to the call's return,
 before the synchronize: the Python and launch cost of the call, plus the
 wait of its host-to-device copies), and the device busy time of one call
-traced with ``torch.profiler`` (the union of its kernels' intervals).
-Imports no JAX.
+traced with ``torch.profiler`` (the union of its kernels' intervals);
+once per path, the sha256 of its output's bytes, so that two trees'
+outputs can be compared bit for bit. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import statistics
 import sys
@@ -69,7 +73,8 @@ def main() -> int:
         return 2
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     paths = (sys.argv[2] if len(sys.argv) > 2 else "main").split(",")
-    unknown = set(paths) - {"main", "config2", "config2c", "prefilter"}
+    unknown = set(paths) - {"main", "config2", "config2b", "config2c",
+                            "prefilter"}
     if unknown:
         print(f"main_path_ab: unknown paths {sorted(unknown)}",
               file=sys.stderr)
@@ -88,13 +93,17 @@ def main() -> int:
             method="direct_separable", n_iter=3, c=0.362, b=0.468,
             alpha=6.0, beta=1.0, **kw)
 
+    def config2(img, wd):
+        return pt.deblur_patches(
+            img, patch_size=448, overlap=1.0 / 7.0, work_dtype=wd,
+            out_dtype=torch.float32, device=dev, method="direct_separable",
+            **CFG2_KW)
+
     calls = {
         "main": (img12, patches12),
         "prefilter": (img12, lambda img: patches12(img, prefiltering=True)),
-        "config2": (photo, lambda img: pt.deblur_patches(
-            img, patch_size=448, overlap=1.0 / 7.0,
-            work_dtype=torch.bfloat16, out_dtype=torch.float32, device=dev,
-            method="direct_separable", **CFG2_KW)),
+        "config2": (photo, lambda img: config2(img, torch.bfloat16)),
+        "config2b": (photo, lambda img: config2(img, torch.float32)),
         "config2c": (photo, lambda img: polyblur_core(
             img, device=dev, method="fft", **CFG2_KW)),
     }
@@ -102,7 +111,9 @@ def main() -> int:
         img, fn = calls[path]
         npx = img.shape[-2] * img.shape[-1]
         for _ in range(3):
-            fn(img)
+            out = fn(img)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        print(f"{path}: output sha256 {digest[:16]}")
         for _ in range(reps):
             times = []
             for _ in range(5):
