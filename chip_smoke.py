@@ -164,7 +164,15 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    PNGs and the peacock in bf16 and f32, each PNG against the same CLI
    under ``plain_versions()`` (bf16 >= 40 dB, f32 within one 8-bit step),
    its steady-state MP/s, mean host decode and device ms per image, and
-   ``native_available()`` with its reason;
+   ``native_available()`` with its reason; (r) ``polyblur_torch.parallel``
+   at world size 1 over NCCL (the machine's one card): ``deblur_sharded``
+   on the 12 MP image in bf16 at the main path's grid, its kernels'
+   launches counted, equal to ``extract_patches -> polyblur_core ->
+   overlap_add`` and >= 40 dB from its plain run, its ms beside
+   ``deblur_patches'``; the banded reassembly >= 40 dB from it and from
+   its plain run; ``data_parallel_deblur`` on 4 x 3 x 480 x 640 equal to
+   ``polyblur_core``; ``training_step`` and ``make_sharded_train_step``
+   on 2 x 3 x 256^2 f32 equal to the world-free steps;
 12. prints the training times as one JSON line, the card line, one JSON
    line of kernels, and as its last line ``{"ok": true, "device":
    {...}}``.
@@ -2458,6 +2466,192 @@ def burst_phases(dev, card: str) -> None:
               f"{worst[1]} LSB; launches {hand_counts} on {card}")
 
 
+# ---------------------------------------------------------- parallel
+# (r): polyblur_torch.parallel on the card at world size 1 over NCCL (the
+# card's machine has one card; more ranks run on the CPU over gloo in
+# tests/test_torch_parallel.py)
+PARALLEL_KW = dict(PATH_KW, method="direct_separable")
+PARALLEL_GRID = dict(patch_size=448, overlap=64.0 / 448.0)
+PARALLEL_LR = 10.0      # SGD steps that move each scalar visibly
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def training_pair(dev, img):
+    """A (2, 3, 256, 256) f32 pair: two crops of the 12 MP image squeezed
+    into [0.2, 0.8] as the sharp target (no output pixel clips, so every
+    scalar has a gradient) and their Gaussian blur (sigma 1.5, replicate
+    edges) as the input."""
+    import torch
+    import torch.nn.functional as F
+
+    sharp = 0.2 + 0.6 * torch.cat([img[..., 1000:1256, 1000:1256],
+                                   img[..., 2000:2256, 3000:3256]])
+    r = torch.arange(-4, 5, dtype=torch.float32, device=dev)
+    k = torch.exp(-r ** 2 / (2 * 1.5 ** 2))
+    k = k / k.sum()
+    x = F.pad(sharp.reshape(-1, 1, 256, 256), (4, 4, 4, 4), mode="replicate")
+    x = F.conv2d(F.conv2d(x, k.view(1, 1, 1, 9)), k.view(1, 1, 9, 1))
+    return x.reshape(sharp.shape).contiguous(), sharp.contiguous()
+
+
+def parallel_phases(dev, card: str) -> None:
+    """(r): ``initialize_distributed`` brings up a world of one over NCCL
+    (a second call keeps it); on ``make_mesh()``'s mesh the 12 MP image in
+    bf16 goes through ``deblur_sharded`` (448 px tiles at overlap 64/448,
+    the main path's settings), with every launch counter zeroed just
+    before and read just after: the main path's five kernels launched,
+    the result equal to ``extract_patches -> polyblur_core ->
+    overlap_add`` and >= 40 dB from its plain run, its ms beside
+    ``deblur_patches``'; the banded reassembly >= 40 dB from it and from
+    its own plain run; ``data_parallel_deblur`` on 4 x 3 x 480 x 640
+    equal to ``polyblur_core`` on the batch; ``training_step`` and
+    ``make_sharded_train_step`` on a 2 x 3 x 256 x 256 f32 pair equal to
+    the world-free steps (autograd of the same loss,
+    ``training.make_train_step``); then the group is destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from polyblur_torch import PolyblurLayer, deblur_patches, make_train_step
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.parallel.distributed import initialize_distributed
+    from polyblur_torch.parallel.sharding import (
+        assemble_bands, data_parallel_deblur, deblur_sharded,
+        deblur_sharded_reassembly, make_mesh, make_sharded_train_step,
+        training_step)
+    from polyblur_torch.patches import (extract_patches, overlap_add,
+                                        plan_patch_grid)
+    from polyblur_torch.pipeline import polyblur_core
+
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{free_port()}"
+    for call in ("first", "second"):
+        live = initialize_distributed(coordinator_address=addr,
+                                      num_processes=1, process_id=0)
+        require(live is True, f"(r) initialize_distributed, {call} call: "
+                              f"{live}")
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"(r) backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+    print(f"(r) torch.distributed: backend nccl, world 1, NCCL "
+          f"{torch.cuda.nccl.version()}, init {time.perf_counter() - t0:.2f} s")
+    try:
+        mesh = make_mesh()
+        require(mesh.shape == {"data": 1, "tile": 1}
+                and mesh.device.type == "cuda"
+                and mesh.device_mesh is not None, f"(r) mesh {mesh}")
+        img32 = torch.as_tensor(make_12mp_image(np.random.default_rng(0)),
+                                device=dev)
+        img = img32.to(torch.bfloat16)
+        H, W = img.shape[-2:]
+
+        def sharded():
+            return deblur_sharded(img, mesh, **PARALLEL_GRID, **PARALLEL_KW)
+
+        torch.cuda.synchronize()
+        pcuda.reset_launches()
+        out = sharded()
+        torch.cuda.synchronize()
+        counts = dict(pcuda.launches)
+        for name in NAMES:
+            require(counts.get(name, 0) > 0, f"(r) deblur_sharded: {name} "
+                                             f"never launched ({counts})")
+        grid = plan_patch_grid(H, W, **PARALLEL_GRID)
+        chain = overlap_add(polyblur_core(extract_patches(img, grid),
+                                          device=dev, **PARALLEL_KW), grid, 1)
+        require(torch.equal(out, chain), "(r) deblur_sharded differs from "
+                "extract_patches -> polyblur_core -> overlap_add")
+        with pcuda.plain_versions():
+            plain = sharded()
+        db = psnr(out, plain)
+        require(db >= PSNR_BF16_DB, f"(r) deblur_sharded {db:.2f} dB from "
+                                    f"its plain run")
+        ms = host_ms(sharded, reps=3)
+        ms_patches = host_ms(lambda: deblur_patches(
+            img, device=dev, **PARALLEL_GRID, **PARALLEL_KW), reps=3)
+        print(f"(r) deblur_sharded 12 MP bf16 (448/384 tiles, world 1 over "
+              f"NCCL): equal to the composed chain, {db:.2f} dB from plain, "
+              f"launches {counts}; {ms:.2f} ms (median of 3) = "
+              f"{H * W / 1e6 / ms * 1e3:.2f} MP/s, deblur_patches "
+              f"{ms_patches:.2f} ms on {card}")
+        del plain, chain
+
+        def reassembled():
+            return assemble_bands(*deblur_sharded_reassembly(
+                img, mesh, **PARALLEL_GRID, **PARALLEL_KW))
+
+        asm = reassembled()
+        with pcuda.plain_versions():
+            asm_plain = reassembled()
+        require(asm.shape == out.shape, f"(r) reassembly {asm.shape}")
+        db_g, db_p = psnr(asm, out), psnr(asm, asm_plain)
+        require(min(db_g, db_p) >= PSNR_BF16_DB, f"(r) reassembly {db_g:.2f} "
+                f"dB from deblur_sharded, {db_p:.2f} dB from its plain run")
+        print(f"(r) deblur_sharded_reassembly + assemble_bands 12 MP bf16: "
+              f"{db_g:.2f} dB from deblur_sharded, {db_p:.2f} dB from its "
+              f"plain run")
+        del asm, asm_plain, out, img
+
+        batch = torch.cat([img32[..., 480 * i:480 * (i + 1), :640]
+                           for i in range(4)]).contiguous()
+        pcuda.reset_launches()
+        dp = data_parallel_deblur(batch, mesh, **PARALLEL_KW)
+        torch.cuda.synchronize()
+        dp_counts = dict(pcuda.launches)
+        require(torch.equal(dp, polyblur_core(batch, device=dev,
+                                              **PARALLEL_KW)),
+                "(r) data_parallel_deblur differs from polyblur_core")
+        print(f"(r) data_parallel_deblur 4 x 3 x 480 x 640 f32: equal to "
+              f"polyblur_core on the batch, launches {dp_counts}")
+
+        blurry, sharp = training_pair(dev, img32)
+        del img32
+        params = dict(c=0.362, b=0.468, alpha=6.0, beta=1.0)
+        new, loss = training_step(params, blurry, sharp, mesh,
+                                  lr=PARALLEL_LR, n_iter=2)
+        p = {k: torch.tensor(v, device=dev, requires_grad=True)
+             for k, v in params.items()}
+        o = polyblur_core(blurry, n_iter=2, method="direct_separable",
+                          remat=True, device=dev, **p)
+        want = torch.mean((o - sharp) ** 2)
+        grads = torch.autograd.grad(want, list(p.values()))
+        for (k, v), g in zip(p.items(), grads):
+            require(torch.equal(new[k], v.detach() - PARALLEL_LR * g),
+                    f"(r) training_step {k}: {float(new[k])!r} against "
+                    f"{float(v.detach() - PARALLEL_LR * g)!r}")
+        require(torch.equal(loss, want.detach()), "(r) training_step loss")
+        print(f"(r) training_step 2 x 3 x 256^2 f32, lr {PARALLEL_LR}: "
+              f"equal to autograd of the same loss; loss {float(loss):.6e}, "
+              f"gradients {[f'{float(g):.6e}' for g in grads]}")
+
+        layers = [PolyblurLayer(n_iter=2, learnable=True,
+                                method="direct_separable", device=dev)
+                  for _ in range(2)]
+        opts = [torch.optim.Adam(la.parameters(), lr=1e-2) for la in layers]
+        steps = (make_sharded_train_step(layers[0], opts[0], mesh),
+                 make_train_step(layers[1], opts[1]))
+        losses = []
+        for _ in range(2):
+            pair = [s(blurry, sharp) for s in steps]
+            require(torch.equal(*pair), f"(r) sharded train step loss "
+                                        f"{pair}")
+            losses.append(float(pair[0]))
+        for a, b in zip(*(la.parameters() for la in layers)):
+            require(torch.equal(a, b), f"(r) sharded train step params "
+                                       f"{a} {b}")
+        print(f"(r) make_sharded_train_step, 2 Adam steps: parameters and "
+              f"losses {losses} equal to make_train_step's")
+    finally:
+        dist.destroy_process_group()
+    print(f"(r) {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------ irregular, verbose, tools
 # (m)-(o): an irregular 12 MP tile grid, verbose=True and the user-facing
 # tools (polyblur_torch.cli).
@@ -3851,6 +4045,9 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] burst (q)")
     torch.cuda.empty_cache()
     burst_phases(dev, card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] parallel (r)")
+    torch.cuda.empty_cache()
+    parallel_phases(dev, card)
 
     # ---------------------------------------------------------- training
     print(f"[{time.perf_counter() - t_start:.1f} s] training phases")

@@ -36,7 +36,8 @@ __all__ = ["gaussian_blur_estimation", "find_maximal_blur_direction",
            "compute_gaussian_parameters", "cubic_interpolator",
            "angle_grids", "normalize_range", "normalize_quantiles",
            "quantile_linear", "directional_maxima", "keys_weights",
-           "weighted_sum", "blur_direction", "clamped_variances"]
+           "weighted_sum", "blur_direction", "clamped_variances",
+           "compute_gradient_magnitudes"]
 
 
 def angle_grids(n_angles: int, n_interpolated_angles: int,
@@ -102,6 +103,28 @@ def directional_maxima(gx: torch.Tensor, gy: torch.Tensor,
     at the n angles of the (n, 2) cos/sin table ``cs``."""
     return torch.stack([torch.abs(cs[a, 0] * gx - cs[a, 1] * gy)
                         .amax(dim=(-2, -1)) for a in range(cs.shape[0])], -1)
+
+
+def compute_gradient_magnitudes(grad_x: torch.Tensor, grad_y: torch.Tensor,
+                                n_angles: int = 6) -> torch.Tensor:
+    """Max absolute directional derivative per sampled angle:
+    ``max_xy |cos t gx - sin t gy|`` for t in linspace(0, pi, n_angles + 1)
+    on the channel means of the gradients, with the angles cast to
+    ``grad_x``'s dtype before cos / sin (polyblur_tpu/estimation.py:57-73,
+    blur_estimation.py:122-134).
+
+    :param grad_x, grad_y: (B, C, H, W)
+    :return: (B, n_angles + 1)
+    """
+    # the channel means summed in f32 and scaled by 1 / C, as XLA's
+    # jnp.mean runs on the CPU (it multiplies by the reciprocal)
+    inv_c = 1.0 / grad_x.shape[1]
+    gx = (grad_x.sum(1, dtype=torch.float32) * inv_c).to(grad_x.dtype)
+    gy = (grad_y.sum(1, dtype=torch.float32) * inv_c).to(grad_y.dtype)
+    angles = torch.linspace(0.0, math.pi, n_angles + 1,
+                            device=gx.device).to(gx.dtype)
+    cs = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
+    return directional_maxima(gx, gy, cs)
 
 
 def _mags_xla(img: torch.Tensor, n_angles: int, q: float = 0.0,

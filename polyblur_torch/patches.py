@@ -12,9 +12,9 @@ Tiles are cut from the padded canvas by index (no extracted tile tensor);
 every regular grid and every batch size takes this one route, with the
 feature flags (prefilter, edgetaper, halo removal) as stages of
 ``pipeline.restore_tiles``, wherever the JAX package's mega-kernel routes
-take the configuration (its static predicate ``pipeline._mega_static_ok``
-on the tile size: ``'direct_separable'``, no ``remat``, q = 0, no
-saturation mask or multichannel kernel, ker_size 25, 6 + 1 angles
+take the configuration (their static predicate on the tile size,
+``pipeline.mega_padded_eligible``: ``'direct_separable'``, no ``remat``,
+q = 0, no saturation mask or multichannel kernel, ker_size 25, 6 + 1 angles
 interpolated to 30, the bilateral or domain-transform smoother, tiles
 within ``pipeline.mega_tile_cap``). Every other configuration, and every
 irregular grid (an overlap past 50%, or coordinates off one step), takes
@@ -47,7 +47,7 @@ import torch
 from .ops.cuda.overlap_add import blend_overlap_add
 from .ops.cuda.pad_cast import edge_pad_cast
 from .ops.cuda.polyblur_fused import polyblur_image_fused
-from .pipeline import (_mega_pack, _mega_static_ok, polyblur_core,
+from .pipeline import (_mega_pack, mega_padded_eligible, polyblur_core,
                        prefilter_of, resolve_device)
 from .utils.imaging import build_window_np, clip_as_jax
 from .utils.profiling import record_dispatch
@@ -191,19 +191,39 @@ def _overlap_add_irregular(patches: torch.Tensor, grid: PatchGrid,
     return out[..., pt:pt + h, pl:pl + w]
 
 
-def _staged(ph: int, pw: int, method: str = "fft", remat: bool = False,
-            discard_saturation: bool = False,
-            multichannel_kernel: bool = False, prefiltering: bool = False,
-            smoother: str = "bilateral", q: float = 0.0, ker_size: int = 25,
-            n_angles: int = 6, n_interpolated_angles: int = 30,
-            _disable_mega: bool = False, **_traced) -> bool:
-    """Whether (ph, pw) tiles with these keywords take the staged route:
-    the JAX package's ``mega_padded_eligible`` (polyblur_tpu/pipeline.py:
-    67-92), its static predicate with the card in the TPU's place."""
-    return _mega_static_ok(method, remat, discard_saturation,
-                           multichannel_kernel, prefiltering, smoother, q,
-                           ker_size, n_angles, n_interpolated_angles, ph, pw,
-                           disable=_disable_mega)
+def _join_axis(tiles: torch.Tensor, s: int, p: int,
+               axis: int) -> torch.Tensor:
+    """Overlap-add of a regular tile axis: ``canvas[..., k*s + i, ...] +=
+    tiles[k][..., i, ...]`` for T tiles of length ``p`` at step ``s``
+    (``p - s <= s``), by one reshape per half and one shifted add, no
+    scatter (polyblur_tpu/patches.py:144-175, the same adds in the same
+    order). ``axis`` indexes the per-tile layout ``tiles.shape[1:]``; the
+    joined axis, of length ``(T - 1) s + p``, takes its place. An axis
+    second from last keeps the last axis in place, as in the JAX
+    package."""
+    pad = torch.nn.functional.pad
+    o = p - s
+    T = tiles.shape[0]
+    axis = axis % (tiles.dim() - 1)
+    L = T * s + o
+    if axis + 1 == tiles.dim() - 2:
+        w = tiles.shape[-1]
+        x = torch.movedim(tiles, 0, -3)                 # (..., T, p, W)
+        lead = x.shape[:-3]
+        canvas = pad(x[..., :s, :].reshape(lead + (T * s, w)), (0, 0, 0, o))
+        if o:
+            rights = pad(x[..., s:, :], (0, 0, 0, s - o))
+            rights = rights.reshape(lead + (T * s, w))[..., :L - s, :]
+            canvas = canvas + pad(rights, (0, 0, s, 0))
+        return canvas
+    x = torch.movedim(tiles, axis + 1, -1)              # (T, ..., p)
+    x = torch.movedim(x, 0, -2)                         # (..., T, p)
+    lead = x.shape[:-2]
+    canvas = pad(x[..., :s].reshape(lead + (T * s,)), (0, o))
+    if o:
+        rights = pad(x[..., s:], (0, s - o)).reshape(lead + (T * s,))
+        canvas = canvas + pad(rights[..., :L - s], (s, 0))
+    return torch.movedim(canvas, -1, axis)
 
 
 def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
@@ -213,9 +233,10 @@ def _restoration_params(n_iter: int = 1, c=0.352, b=0.768, alpha=2.0,
                         smoother: str = "bilateral", **_static):
     """(n_iter, (c, b, alpha, beta, sigma_s, sigma_r), the feature-flag
     keywords of ``pipeline.restore_tiles``) of a configuration
-    :func:`_staged` admits (its other keywords are those the predicate
-    read). The prefilter is ``'dt'`` for the domain-transform smoother and
-    ``'bilateral'`` otherwise (polyblur_tpu/patches.py:395-403)."""
+    ``pipeline.mega_padded_eligible`` admits (its other keywords are those
+    the predicate read). The prefilter is ``'dt'`` for the
+    domain-transform smoother and ``'bilateral'`` otherwise
+    (polyblur_tpu/patches.py:395-403)."""
     flags = dict(do_taper=bool(edgetaping), do_halo=bool(remove_halo),
                  prefilter=prefilter_of(prefiltering, smoother))
     return int(n_iter), (c, b, alpha, beta, sigma_s, sigma_r), flags
@@ -249,7 +270,8 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     :param polyblur_kwargs: the pipeline keywords (n_iter, c, b, alpha,
         beta, remove_halo, edgetaping, prefiltering, smoother, ...).
         ``method='direct_separable'`` takes the staged route where the
-        JAX package's mega kernels would (:func:`_staged`); ``'fft'``, the
+        JAX package's mega kernels would
+        (``pipeline.mega_padded_eligible``); ``'fft'``, the
         default as in the JAX package, ``'direct'``, ``remat=True``, the
         estimate's other branches, the ``'nc'`` smoother and tiles past
         ``pipeline.mega_tile_cap`` the composed one. ``c, b, alpha, beta``
@@ -274,7 +296,8 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
     n_tiles = len(grid.coords)
     chunk = (n_tiles if batch_size is None or batch_size <= 0
              else min(batch_size, n_tiles))
-    if reg is None or not _staged(*grid.patch_size, **polyblur_kwargs):
+    gi = None if reg is None else reg + grid.patch_size
+    if gi is None or not mega_padded_eligible(gi, **polyblur_kwargs):
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
         tiles = extract_patches(x.to(wd), grid)
@@ -284,15 +307,12 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
             for t0 in range(0, n_tiles, chunk)])
         return overlap_add(restored, grid, b, window_type, out_dtype)
     n_iter, params, flags = _restoration_params(**polyblur_kwargs)
-    th, tw, sh, sw = reg
-    ph, pw = grid.patch_size
     record_dispatch("deblur_patches", "staged_tiles")
     canvas = edge_pad_cast(x, grid.orig_size, grid.pad, wd)
     coeffs = _mega_pack(*params, device=dev)
     window, inv_wsum = _blend_constants(grid, window_type, dev)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
-    gi = (th, tw, sh, sw, ph, pw)
     state = polyblur_image_fused(canvas, coeffs, n_iter, gi, chunk, **flags)
     return blend_overlap_add(state, window, inv_wsum, gi, b, (pt, pl, h, w),
                              out_dtype)

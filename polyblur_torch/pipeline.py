@@ -63,6 +63,7 @@ from .ops.cuda.bilateral import bilateral
 from .ops.cuda.features import halo_grads, halo_mask, taper_weights
 from .ops.cuda.iir import dt_scan_rows, scan_cols
 from .ops.cuda.polyblur_fused import (HALF, TileView, kernel_spectrum,
+                                      polyblur_image_fused,
                                       polyblur_tiles_fused, spectral_poly,
                                       stage_tables, tile_estimate)
 from .ops.domain_transform import normalized_convolution, recursive_filter
@@ -74,7 +75,7 @@ from .utils.profiling import record_dispatch
 
 __all__ = ["restore_tiles", "_mega_pack", "_ref_pipeline", "polyblur_core",
            "mega_tile_cap", "resolve_device", "edge_aware_filtering",
-           "prefilter_of"]
+           "prefilter_of", "mega_padded_eligible", "mega_restore_padded"]
 
 _N_TAPERS = 3
 
@@ -256,6 +257,76 @@ def _mega_static_ok(method, remat, discard_saturation, multichannel_kernel,
             and q == 0.0 and ker_size == 25 and n_angles == 6
             and n_interpolated_angles == 30
             and max(h, w) <= cap)
+
+
+def mega_padded_eligible(grid_info, ker_size: int = 25, q: float = 0.0,
+                         n_angles: int = 6, n_interpolated_angles: int = 30,
+                         method: str = "fft", smoother: str = "bilateral",
+                         prefiltering: bool = False,
+                         discard_saturation: bool = False,
+                         multichannel_kernel: bool = False,
+                         remat: bool = False, _disable_mega: bool = False,
+                         **_ignored) -> bool:
+    """Whether :func:`mega_restore_padded` (and the patch engine's staged
+    route) takes a grid of ``grid_info = (th, tw, step_h, step_w, ph,
+    pw)`` tiles with these keywords: the JAX package's predicate
+    (polyblur_tpu/pipeline.py:79-102) with the card in the TPU's place,
+    on any device. Other keywords, the JAX package's ``_mega_interpret``
+    among them, are ignored, as there."""
+    ph, pw = grid_info[4:]
+    return _mega_static_ok(method, remat, discard_saturation,
+                           multichannel_kernel, prefiltering, smoother, q,
+                           ker_size, n_angles, n_interpolated_angles, ph, pw,
+                           disable=_disable_mega)
+
+
+def mega_restore_padded(padded: torch.Tensor, grid_info, n_iter: int = 1,
+                        c=0.352, b=0.768, alpha=2.0, beta=3.0, sigma_r=0.8,
+                        sigma_s=2.0, ker_size: int = 25, q: float = 0.0,
+                        n_angles: int = 6, n_interpolated_angles: int = 30,
+                        remove_halo: bool = False, edgetaping: bool = False,
+                        prefiltering: bool = False,
+                        discard_saturation: bool = False,
+                        multichannel_kernel: bool = False,
+                        method: str = "fft", smoother: str = "bilateral",
+                        remat: bool = False, _disable_mega: bool = False,
+                        pad_lanes: bool = False):
+    """The restored tiles of a pre-padded canvas, or None.
+
+    :param padded: the (B, C, H, W) canvas of a regular tile grid (the
+        replicate-padded image, e.g. from ``ops.cuda.pad_cast.
+        edge_pad_cast``), in the work dtype
+    :param grid_info: the static (th, tw, step_h, step_w, ph, pw) plan
+    :param pad_lanes: the JAX package's padding of the tile width to 128
+        TPU lanes for its fused overlap-add; the card's blend reads the
+        tiles as they are, so it changes nothing here
+    :returns: the restored (th tw B, C, ph, pw) tiles, tile-major (the
+        ``extract_patches`` layout), or None where
+        :func:`mega_padded_eligible` refuses the configuration (the caller
+        then extracts the tiles and runs ``polyblur_core``)
+
+    The counterpart of polyblur_tpu/pipeline.py:105-150: each tile is cut
+    from the canvas by index (no extracted tile tensor), through
+    ``ops.cuda.polyblur_fused.polyblur_image_fused`` (its kernels on a
+    CUDA canvas, their plain versions on a CPU one), with the feature
+    flags mapped as the JAX package maps them.
+    """
+    if not mega_padded_eligible(
+            grid_info, method=method, remat=remat,
+            discard_saturation=discard_saturation,
+            multichannel_kernel=multichannel_kernel,
+            prefiltering=prefiltering, smoother=smoother, q=q,
+            ker_size=ker_size, n_angles=n_angles,
+            n_interpolated_angles=n_interpolated_angles,
+            _disable_mega=_disable_mega):
+        return None
+    record_dispatch("deblur_patches", "mega_image_dma")
+    coeffs = _mega_pack(c, b, alpha, beta, sigma_s, sigma_r,
+                        device=padded.device)
+    return polyblur_image_fused(padded, coeffs, n_iter, tuple(grid_info),
+                                do_taper=edgetaping, do_halo=remove_halo,
+                                prefilter=prefilter_of(prefiltering,
+                                                       smoother))
 
 
 def _check_smoother(smoother: str) -> None:

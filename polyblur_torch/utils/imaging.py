@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 __all__ = ["to_tensor", "to_array", "to_float", "to_uint",
-           "build_window_np", "crop",
+           "build_window_np", "build_window", "crop",
            "pad_with_kernel", "crop_with_kernel", "replicate_pad",
            "clip_as_jax"]
 
@@ -138,3 +138,11 @@ def build_window_np(image_size, window_type: str = "kaiser") -> np.ndarray:
     else:
         raise ValueError(f"Window {window_type!r} not implemented")
     return (wi[:, None] * wj[None, :]).astype(np.float32)
+
+
+def build_window(image_size, window_type: str = "kaiser",
+                 device=None) -> torch.Tensor:
+    """:func:`build_window_np` as an f32 tensor on ``device`` (default: the
+    CPU)."""
+    return torch.as_tensor(build_window_np(image_size, window_type),
+                           device=device)
