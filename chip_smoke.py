@@ -153,9 +153,12 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    shapes in f32 and of the halo's at config 2's, each under both modes
    against its plain version (kernel rows ``spectral_gemm[highest]``,
    ``tile_estimate[highest]``, ``halo[highest]``, bounds at six tf32
-   products per MAC); the f32 paths (12 MP patches, config 2b, the 480 x
-   640 tiles route, the 2 MP photo's blocked ``fused_polynomial``, training
-   (d)'s tiles-route step) under both modes against their plain runs:
+   products per MAC), with each mode's split of ``tile_estimate`` over
+   its four launches and of the halo over its two epilogues, and the
+   'highest' GEMM's share of its bound; the f32 paths (12 MP patches,
+   config 2b, the 480 x 640 tiles route, the 2 MP photo's blocked
+   ``fused_polynomial``, training (d)'s tiles-route step) under both
+   modes against their plain runs:
    launches under each mode's counters, dB, largest error, theta
    identical to the plain run's on every estimate with the smallest tie
    margin, 'highest' >= 110 dB and >= 10 dB above 'compensated'; the fft
@@ -2137,6 +2140,15 @@ def highest_kernels(dev, img12, img2, report: dict) -> None:
             out = spectral_poly(view, q2, tabs)
             est_ms = cuda_ms(lambda: tile_estimate(view, coeffs))
             app_ms = cuda_ms(lambda: spectral_poly(view, q2, tabs))
+            # the split of the call over its four launches
+            stages = estimate_stages(view, coeffs, f"(p) tile_estimate[f32 "
+                                     f"{mode}, {n} tiles] launches")
+            if mode == "highest":
+                gb = 12.0 * pair_macs / PEAK_FLOPS["tf32"] * 1e3
+                print(f"  (p) est_gemm[highest]: {stages['gemm']:.4f} ms "
+                      f"against its bound {gb:.4f} ms (operations: six "
+                      f"tf32 products per MAC): {100 * gb / stages['gemm']:.1f}"
+                      f"% of it")
             spectral_modes(view, q2, tabs, f"spectral_gemm[f32 {mode}, "
                            f"{n * c} planes, h {tabs.h}]")
         same = bool(torch.equal(est[:, 0], est_p[:, 0]))
@@ -2205,6 +2217,12 @@ def highest_kernels(dev, img12, img2, report: dict) -> None:
                 return m(o, g(view), sv, nz, torch.empty_like(o))
 
             ms = cuda_ms(halo)
+            # the split over the two epilogues
+            g_ms = cuda_ms(lambda: halo_grads(view))
+            m_ms = cuda_ms(lambda: halo_mask(o, grads, sv, nz,
+                                             torch.empty_like(o)))
+            print(f"  (p) halo[f32 {mode}, {n} tiles] launches: gradients "
+                  f"{g_ms:.4f} ms, mask {m_ms:.4f} ms")
         rel = max(float((grads.gx - grads_p.gx).abs().max()),
                   float((grads.gy - grads_p.gy).abs().max())) / gscale
         err = float((out - ref).abs().max())

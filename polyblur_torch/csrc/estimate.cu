@@ -96,8 +96,21 @@
 // f32 operands to bf16 (polyblur_fused.py:242-244); in interpret mode on
 // the CPU, the port's reference, it is an exact f32 product. The port
 // follows the CPU reference: exact-f32-grade products, not the truncation.
-// A third piece makes a stage 96 KB, so the case runs 2 stages.
 // tests/test_torch_dot_mode.py emulates the six products on the CPU.
+// Design of HI in the TMA-fed estimate (RS): stage 2 writes g and g^T in
+// f32 (a third of the three pieces' bytes), the tables arrive split (3
+// pieces by TMA), and each consumer loads its data operand from the stage
+// into the wgmma register fragment and splits it there with the same
+// rounding (split4<3>); its wgmmas take A from registers and only B from
+// shared memory. gy runs transposed (gy^T = g^T Dh^T) so that both
+// consumers take the data as A; its products are the three-piece order's
+// with the factors swapped (mma_step_hi), so the outputs are bit-equal to
+// it. A stage is 64 KB (3 stages); the producer warpgroups give their
+// registers to the consumers (setmaxnreg). The halo keeps three pieces of
+// every operand in the stage (2 stages of 96 KB, split by its producers):
+// the same consumers there, beside producers that need their registers,
+// spilled and ran 1.3x slower. tests/test_torch_est_highest.py holds the
+// order on the CPU.
 #include <cstdio>
 
 #include "common.cuh"
@@ -212,11 +225,11 @@ gray_minmax_kernel(pb::TileView v, int C, int ph, int pw, int rows,
 __host__ __device__ inline int pitch4(int n) { return (n + 3) / 4 * 4; }
 
 // Stage 2: g = clip((gray - min) / range) of every tile (min and max folded
-// from the band partials), split into P tf32 pieces (hi, lo; or hi, mid,
-// lo for 'highest') and written in both layouts the GEMM's TMA maps read:
-// g (n, P, ph, pitch4(pw)) and its transpose g^T (n, P, pw, pitch4(ph)),
-// hi first. One 32 x 32 block of a tile per thread block; the transpose
-// goes through shared memory.
+// from the band partials), split into P = 2 tf32 pieces (hi, lo), or in
+// f32 (P = 1: 'highest', whose GEMM splits it), and written in both layouts
+// the GEMM's TMA maps read: g (n, P, ph, pitch4(pw)) and its transpose g^T
+// (n, P, pw, pitch4(ph)), hi first. One 32 x 32 block of a tile per thread
+// block; the transpose goes through shared memory.
 template <typename S, int P>
 __global__ void __launch_bounds__(256)
 gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
@@ -274,11 +287,12 @@ gray_norm_kernel(pb::TileView v, int C, int ph, int pw, int bands,
       for (int c = 3; c < C; ++c) g = __fadd_rn(g, pb::to_f32(q[c * v.sC]));
       g = __fmul_rn(g, inv_c);
       g = fminf(fmaxf(__fdiv_rn(__fsub_rn(g, vmin), range), 0.f), 1.f);
-      // each piece the tf32 rounding of what the larger ones leave
+      // each piece the tf32 rounding of what the larger ones leave; one
+      // piece is g itself
       float r = g;
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        pc[k] = pb::tf32_hi(r);
+        pc[k] = P == 1 ? r : pb::tf32_hi(r);
         r = r - pc[k];
         gh[k * pg + (long long)y * ldp + x] = pc[k];
       }
@@ -309,25 +323,38 @@ constexpr int WG = 128;           // threads of a warpgroup
 constexpr int NCONS = 2 * WG;
 constexpr int NT = 4 * WG;
 constexpr int BUF = 64 * 128;     // one 64-row x 32 f32 operand, 8 KB
-constexpr int XCHG = TM * TN * 4;  // gy of a tile, handed to warpgroup 0
+constexpr int XLD = TN + 4;       // row pitch of RS's gy exchange, floats
 // the operands of a stage: the data as gx's A (g rows y0..) and as gy's B
-// (g^T rows x0..), then the tables by TMA; each in P pieces, hi first
+// (g^T rows x0..; RS: gy^T's A), then the tables by TMA; each in its
+// pieces, hi first
 enum { kOpA = 0, kOpB, kOpDw, kOpDh };
 
-// The ring of the 3xTF32 case (P = 2: 3 stages of 64 KB) or of 'highest'
-// (HI, P = 3: 2 stages of 96 KB).
-template <bool HI>
+// The ring. The 3xTF32 case holds every operand in 2 pieces (3 stages of
+// 64 KB). 'highest' (HI), TMA-fed (the estimate): the tables in 3 pieces,
+// the data in f32, which the consumers split in registers (RS; 3 stages of
+// 64 KB). HI with producer-written planes (the halo): every operand in 3
+// pieces (2 stages of 96 KB).
+template <bool HI, bool TMAD>
 struct EstCfg {
-  static constexpr int P = HI ? 3 : 2;
-  static constexpr int kBufs = 4 * P;
+  static constexpr bool RS = HI && TMAD;
+  static constexpr int PD = RS ? 1 : HI ? 3 : 2;  // pieces of the data
+  static constexpr int PT = HI ? 3 : 2;           // pieces of the tables
+  static constexpr int kBufs = 2 * PD + 2 * PT;
   static constexpr int STAGE = kBufs * BUF;
-  static constexpr int STAGES = HI ? 2 : 3;
+  static constexpr int STAGES = HI && !RS ? 2 : 3;
+  // gy of a tile, handed to warpgroup 0: in the accumulator layout, or for
+  // RS (gy^T in the accumulators) in rows y of XLD floats
+  static constexpr int XCHG = RS ? TM * XLD * 4 : TM * TN * 4;
   static constexpr int SMEM = STAGES * STAGE + XCHG + 1024;
   // buffer of piece k of operand op
   __host__ __device__ static constexpr int buf(int op, int k) {
-    return P * op + k;
+    return op < kOpDw ? PD * op + k : 2 * PD + PT * (op - kOpDw) + k;
   }
 };
+// RS's registers per thread after setmaxnreg: the consumers take what the
+// producers give back (2 x 128 x (216 + 40) = the SM's 65,536); the
+// producers issue TMA loads from one thread.
+constexpr int kRegsCons = 216, kRegsProd = 40;
 // named barriers: 1 both consumer warpgroups, 2 warpgroup 0
 constexpr int kBarCons = 1, kBarWg0 = 2;
 
@@ -454,21 +481,22 @@ __device__ __forceinline__ void split4(const float (&a)[4],
 
 // One K step of one product on the stage at sa into the fresh accumulator
 // t, the small terms first; one MMA group. 3xTF32 over 32 of K, or
-// 'highest' (HI): the five small products of the step's four 8-deep
-// slices, then their four hi hi products.
+// 'highest' with every operand in 3 pieces in the stage (the halo): the
+// five small products of the step's four 8-deep slices, then their four
+// hi hi products.
 //   warpgroup 0: t = A_g Dw^T    (A = g rows, B = Dw rows)
 //   warpgroup 1: t = Dh B_g^T    (A = Dh rows, B = g^T rows)
-template <bool HI>
+template <class Cf>
 __device__ __forceinline__ void mma_step(uint32_t sa, int wg, float (&t)[32]) {
-  using Cf = EstCfg<HI>;
+  static_assert(!Cf::RS && Cf::PD == Cf::PT, "pieces of every operand");
   const int oa = wg ? kOpDh : kOpA, ob = wg ? kOpB : kOpDw;
   const uint32_t ah = sa + Cf::buf(oa, 0) * BUF;
-  const uint32_t al = sa + Cf::buf(oa, Cf::P - 1) * BUF;
+  const uint32_t al = sa + Cf::buf(oa, Cf::PT - 1) * BUF;
   const uint32_t bh = sa + Cf::buf(ob, 0) * BUF;
-  const uint32_t bl = sa + Cf::buf(ob, Cf::P - 1) * BUF;
+  const uint32_t bl = sa + Cf::buf(ob, Cf::PT - 1) * BUF;
   pb::fence_regs(t);
   pb::wgmma_fence();
-  if constexpr (!HI) {
+  if constexpr (Cf::PT == 2) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dah = pb::sw128_desc(ah) + 2 * kk;
@@ -501,6 +529,64 @@ __device__ __forceinline__ void mma_step(uint32_t sa, int wg, float (&t)[32]) {
       pb::wgmma_tf32_n64(t, pb::sw128_desc(ah) + 2 * kk,
                          pb::sw128_desc(bh) + 2 * kk);
   }
+  pb::wgmma_commit();
+}
+
+// One 'highest' K step of warpgroup W into the fresh accumulator t; one
+// MMA group. W = 0 runs gx = g Dw^T, W = 1 gy^T = g^T Dh^T, so that both
+// take the data as A and a table as B. A, this warpgroup's f32 data operand
+// at da (64 rows x 32 of K, 128-byte swizzle), is read into the register
+// fragment and split there into hi, mid, lo (split4<3>, the split the
+// three-piece design's stage 2 made); B is the table's
+// three pieces from sb, BUF apart. Per 8-deep slice the five small products
+// as (A piece, B piece), 0 hi, 1 mid, 2 lo:
+//   gx:   (2,0) (0,2) (1,1) (1,0) (0,1)  lo hi, hi lo, mid mid, mid hi,
+//                                        hi mid of (g, Dw)
+//   gy^T: (0,2) (2,0) (1,1) (0,1) (1,0)  the same of (Dh, g^T), factors
+//                                        swapped
+// then the step's four hi hi: each output element sums the products of the
+// three-piece design in its order.
+template <int W>
+__device__ __forceinline__ void mma_step_hi(uint32_t sb, const uint8_t* da,
+                                            int warp, int lane,
+                                            float (&t)[32]) {
+  float a[4][3][4];  // [slice][piece][fragment register]
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * warp + (lane >> 2) + 8 * (j & 1);
+      const int chunk = 2 * kk + (j >> 1);
+      v[j] = *reinterpret_cast<const float*>(
+          da + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * (lane & 3));
+    }
+    split4<3>(v, a[kk]);
+  }
+  const uint64_t bh = pb::sw128_desc(sb), bm = pb::sw128_desc(sb + BUF),
+                 bl = pb::sw128_desc(sb + 2 * BUF);
+  pb::fence_regs(t);
+  pb::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t h = bh + 2 * kk, m = bm + 2 * kk, l = bl + 2 * kk;
+    if constexpr (W == 0) {
+      pb::wgmma_tf32_n64_rs(t, a[kk][2], h, kk);  // kk == 0 starts from zero
+      pb::wgmma_tf32_n64_rs(t, a[kk][0], l);
+      pb::wgmma_tf32_n64_rs(t, a[kk][1], m);
+      pb::wgmma_tf32_n64_rs(t, a[kk][1], h);
+      pb::wgmma_tf32_n64_rs(t, a[kk][0], m);
+    } else {
+      pb::wgmma_tf32_n64_rs(t, a[kk][0], l, kk);
+      pb::wgmma_tf32_n64_rs(t, a[kk][2], h);
+      pb::wgmma_tf32_n64_rs(t, a[kk][1], m);
+      pb::wgmma_tf32_n64_rs(t, a[kk][0], m);
+      pb::wgmma_tf32_n64_rs(t, a[kk][1], h);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    pb::wgmma_tf32_n64_rs(t, a[kk][0], bh + 2 * kk);
   pb::wgmma_commit();
 }
 
@@ -540,19 +626,21 @@ __device__ __forceinline__ OperandBlock<S> step_block(const EstGemm& p,
   return b;
 }
 
-// tdw, tdh: the split tables; tg, tgt (kMaxima): the split normalized
-// gray planes g and g^T, (P n) planes, P pieces per tile.
+// tdw, tdh: the split tables; tg, tgt (kMaxima): the normalized gray
+// planes g and g^T of stage 2, (PD n) planes, PD pieces per tile.
 template <int EPI, typename S, bool VEC, bool HI>
 __global__ void __launch_bounds__(NT, 1)
 est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
                 const __grid_constant__ CUtensorMap tdh,
                 const __grid_constant__ CUtensorMap tg,
                 const __grid_constant__ CUtensorMap tgt, const EstGemm p) {
-  using Cf = EstCfg<HI>;
-  constexpr int P = Cf::P, STAGES = Cf::STAGES, STAGE = Cf::STAGE;
   // kMaxima: the whole stage arrives by TMA; the halo's planes are
   // written by the producer warpgroups
   constexpr bool TMAD = EPI == kMaxima || EPI == kMaximaAny;
+  using Cf = EstCfg<HI, TMAD>;
+  constexpr bool RS = Cf::RS;
+  constexpr int PD = Cf::PD, PT = Cf::PT, STAGES = Cf::STAGES;
+  constexpr int STAGE = Cf::STAGE;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   __shared__ float red[4][kGroup];
@@ -577,6 +665,7 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
 
   if (wg >= 2) {
     // ------------------------------------------------------- producers
+    if constexpr (RS) pb::setmaxnreg_dec<kRegsProd>();
     if (TMAD) {
       // one thread: the tables and the gray planes, 8 boxes a step
       if (tid != 2 * WG) return;
@@ -589,14 +678,14 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
         const uint32_t fb = pb::smem_u32(&full[s]);
         pb::mbar_arrive_tx(fb, Cf::kBufs * BUF);
 #pragma unroll
-        for (int k = 0; k < P; ++k) {
+        for (int k = 0; k < PD; ++k) {
           pb::tma_load_3d(sa + Cf::buf(kOpA, k) * BUF, &tg, k0, at.y0,
-                          P * at.pl + k, fb);
+                          PD * at.pl + k, fb);
           pb::tma_load_3d(sa + Cf::buf(kOpB, k) * BUF, &tgt, k0, at.x0,
-                          P * at.pl + k, fb);
+                          PD * at.pl + k, fb);
         }
 #pragma unroll
-        for (int k = 0; k < P; ++k) {
+        for (int k = 0; k < PT; ++k) {
           pb::tma_load_3d(sa + Cf::buf(kOpDw, k) * BUF, &tdw, k0, at.x0, k,
                           fb);
           pb::tma_load_3d(sa + Cf::buf(kOpDh, k) * BUF, &tdh, k0, at.y0, k,
@@ -632,9 +721,9 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
       const uint32_t sa = base + s * STAGE;
       const uint32_t fb = pb::smem_u32(&full[s]);
       if (t == 0) {
-        pb::mbar_arrive_tx(fb, 2 * P * BUF);
+        pb::mbar_arrive_tx(fb, 2 * PT * BUF);
 #pragma unroll
-        for (int k = 0; k < P; ++k) {
+        for (int k = 0; k < PT; ++k) {
           pb::tma_load_3d(sa + Cf::buf(kOpDw, k) * BUF, &tdw, k0, cur.x0, k,
                           fb);
           pb::tma_load_3d(sa + Cf::buf(kOpDh, k) * BUF, &tdh, k0, cur.y0, k,
@@ -642,7 +731,7 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
         }
       }
       uint8_t* st = sbase + s * STAGE;
-      float pc[P][4];
+      float pc[PD][4];
       if (t < 64) {
         // odd row groups store their second half first, so that a
         // quarter-warp's 8 stores meet 8 different 16-byte columns
@@ -658,9 +747,9 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               a[e] = swap ? v[i][4 * (1 - step) + e] : v[i][4 * step + e];
-            split4<P>(a, pc);
+            split4<PD>(a, pc);
 #pragma unroll
-            for (int k = 0; k < P; ++k)
+            for (int k = 0; k < PD; ++k)
               store16(st + Cf::buf(kOpA, k) * BUF + off, pc[k]);
           }
         }
@@ -670,9 +759,9 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
           const int jr = 8 * cg + e;
           const int off = jr * 128 + ((rg ^ (jr & 7)) << 4);
           const float a[4] = {v[0][e], v[1][e], v[2][e], v[3][e]};
-          split4<P>(a, pc);
+          split4<PD>(a, pc);
 #pragma unroll
-          for (int k = 0; k < P; ++k)
+          for (int k = 0; k < PD; ++k)
             store16(st + Cf::buf(kOpB, k) * BUF + off, pc[k]);
         }
       }
@@ -686,14 +775,18 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
   }
 
   // --------------------------------------------------------- consumers
-  // Warpgroup 0 runs gx, 1 runs gy, over the same 64 x 64 output tile.
-  // Each K step's products go to a fresh accumulator, which is then added
-  // to the running sum with a rounded f32 add: the tensor cores' f32
-  // accumulation truncates, and over a whole 448-deep K its bias reached
-  // 2e-4 of the estimate's values; within a step of 32 it stays far below
-  // the split's own error. The step's group is waited for before its
+  // Warpgroup 0 runs gx, 1 runs gy (RS: gy^T), over the same 64 x 64
+  // output tile. Each K step's products go to a fresh accumulator, which
+  // is then added to the running sum with a rounded f32 add: the tensor
+  // cores' f32 accumulation truncates, and over a whole 448-deep K its bias
+  // reached 2e-4 of the estimate's values; within a step of 32 it stays far
+  // below the split's own error. The step's group is waited for before its
   // accumulator is read, so that no wgmma is serialized; the other
   // warpgroup's MMAs keep the tensor cores busy meanwhile.
+  if constexpr (RS) pb::setmaxnreg_inc<kRegsCons>();
+  // accumulator r of this thread: row i0 + 8 ((r / 2) % 2), column
+  // j0 + 8 (r / 4) + r % 2
+  const int i0 = 16 * warp + (lane >> 2), j0 = 2 * (lane & 3);
   int it = 0;
   for (int j = 0; j < mine; ++j) {
     const TileAt at = tile_at(p, blockIdx.x + j * gridDim.x);
@@ -703,30 +796,48 @@ est_gemm_kernel(const __grid_constant__ CUtensorMap tdw,
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % STAGES;
       pb::mbar_wait(pb::smem_u32(&full[s]), (it / STAGES) & 1);
-      mma_step<HI>(base + s * STAGE, wg, tmp);
+      if constexpr (RS) {
+        const uint32_t sb = base + s * STAGE + Cf::buf(wg ? kOpDh : kOpDw,
+                                                       0) * BUF;
+        const uint8_t* da = sbase + s * STAGE +
+                            Cf::buf(wg ? kOpB : kOpA, 0) * BUF;
+        if (wg == 0)
+          mma_step_hi<0>(sb, da, warp, lane, tmp);
+        else
+          mma_step_hi<1>(sb, da, warp, lane, tmp);
+      } else {
+        mma_step<Cf>(base + s * STAGE, wg, tmp);
+      }
       pb::wgmma_wait<0>();
       pb::fence_regs(tmp);
       pb::mbar_arrive(pb::smem_u32(&empty[s]));
 #pragma unroll
       for (int r = 0; r < 32; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
     }
-    // gy to warpgroup 0, in the accumulator layout (thread t, register r
-    // at xchg[r * 128 + t]), once warpgroup 0 has read the last tile's
+    // gy to warpgroup 0, once warpgroup 0 has read the last tile's: in the
+    // accumulator layout (thread t, register r at xchg[r * 128 + t]), or
+    // for RS at (y, x) = (column, row) of gy^T, xchg[y XLD + x]
     pb::named_barrier(kBarCons, NCONS);
     if (wg == 1) {
 #pragma unroll
-      for (int r = 0; r < 32; ++r) xchg[r * WG + t] = acc[r];
+      for (int r = 0; r < 32; ++r) {
+        if constexpr (RS)
+          xchg[(j0 + 8 * (r >> 2) + (r & 1)) * XLD + i0 + 8 * ((r >> 1) & 1)] =
+              acc[r];
+        else
+          xchg[r * WG + t] = acc[r];
+      }
     }
     pb::named_barrier(kBarCons, NCONS);
     if (wg == 1) continue;
     const float(&ax)[32] = acc;
     float ay[32];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) ay[r] = xchg[r * WG + t];
+    for (int r = 0; r < 32; ++r)
+      ay[r] = RS ? xchg[(i0 + 8 * ((r >> 1) & 1)) * XLD + j0 + 8 * (r >> 2) +
+                        (r & 1)]
+                 : xchg[r * WG + t];
 
-    // accumulator r of this thread: row i0 + 8 ((r / 2) % 2), column
-    // j0 + 8 (r / 4) + r % 2
-    const int i0 = 16 * warp + (lane >> 2), j0 = 2 * (lane & 3);
     const int pl = at.pl;
     const long long plane = (long long)pl * p.ph * p.pw;
     if (EPI == kMaxima) {
@@ -948,7 +1059,8 @@ int num_sms() {
 template <int EPI, typename S, bool VEC, bool HI>
 int launch_gemm_io(const EstGemm& p, const CUtensorMap (&m)[4],
                    cudaStream_t s) {
-  constexpr int kSmem = EstCfg<HI>::SMEM;
+  constexpr int kSmem =
+      EstCfg<HI, EPI == kMaxima || EPI == kMaximaAny>::SMEM;
   auto kern = est_gemm_kernel<EPI, S, VEC, HI>;
   static bool sized = false;
   if (!sized) {
@@ -969,20 +1081,21 @@ int launch_gemm_io(const EstGemm& p, const CUtensorMap (&m)[4],
 template <int EPI, typename S, bool HI>
 int launch_gemm(const EstGemm& p, const void* dw2, const void* dh2,
                 const float* g2, const float* gt2, cudaStream_t s) {
-  // the tables: (P, n, pad64(n)) f32, hi first, read as K = n columns
-  constexpr long long P = EstCfg<HI>::P;
+  // the tables: (PT, n, pad64(n)) f32, hi first, read as K = n columns
+  // the gray planes (kMaxima): PD pieces per tile
+  constexpr long long PT = EstCfg<HI, true>::PT, PD = EstCfg<HI, true>::PD;
   const long long lw = (p.pw + 63) / 64 * 64, lh = (p.ph + 63) / 64 * 64;
   const long long ldp = pitch4(p.pw), ldq = pitch4(p.ph);
   CUtensorMap m[4];
-  bool ok = pb::tma_map_3d(&m[0], dw2, true, p.pw, p.pw, P, lw, lw * p.pw,
+  bool ok = pb::tma_map_3d(&m[0], dw2, true, p.pw, p.pw, PT, lw, lw * p.pw,
                            TN) &&
-            pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, P, lh, lh * p.ph,
+            pb::tma_map_3d(&m[1], dh2, true, p.ph, p.ph, PT, lh, lh * p.ph,
                            TM);
   if (EPI == kMaxima || EPI == kMaximaAny)
     ok = ok &&
-         pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, P * p.planes, ldp,
+         pb::tma_map_3d(&m[2], g2, true, p.pw, p.ph, PD * p.planes, ldp,
                         ldp * p.ph, TM) &&
-         pb::tma_map_3d(&m[3], gt2, true, p.ph, p.pw, P * p.planes, ldq,
+         pb::tma_map_3d(&m[3], gt2, true, p.ph, p.pw, PD * p.planes, ldq,
                         ldq * p.pw, TN);
   else
     m[2] = m[3] = m[0];  // not read
@@ -1015,11 +1128,12 @@ int launch_minmax(const pb::TileView& v, int C, int ph, int pw, int rows,
 }  // namespace
 
 // view: the n tiles (canvas or tile batch, dtype `dtype`); high: the
-// 'highest' instantiation (P = 3 pieces; f32 tiles only) or the 3xTF32
-// one (0: P = 2; ops/cuda/sep_poly_fused.py dot_variant); dw2, dh2: the split derivative
-// tables (P, pw, pad64(pw)) and (P, ph, pad64(ph)) f32 (hi first); mm:
-// (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2, gt2: (n, P, ph,
-// pitch4(pw)) and (n, P, pw, pitch4(ph)) f32 scratch;
+// 'highest' instantiation (tables in PT = 3 pieces, g in PD = 1: f32;
+// f32 tiles only) or the 3xTF32 one (0: PT = PD = 2;
+// ops/cuda/sep_poly_fused.py dot_variant); dw2, dh2: the split derivative
+// tables (PT, pw, pad64(pw)) and (PT, ph, pad64(ph)) f32 (hi first); mm:
+// (n, bands, 2) f32 scratch, bands = ceil(ph / rows); g2, gt2: (n, PD, ph,
+// pitch4(pw)) and (n, PD, pw, pitch4(ph)) f32 scratch;
 // na1: the angle count (n_angles + 1), cs: its (na1, 2) f32 cos / sin;
 // maxima: (n, na1) f32 scratch; est: (n, 8) f32 output. stage selects the
 // launch (1 min/max, 2 normalize, 3 GEMM, 4 final) so the wrapper can
@@ -1055,7 +1169,7 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
       gray_norm_kernel<pb::bf16, 2><<<grid, dim3(32, 8), 0, s>>>(
           v, C, ph, pw, bands, mm, g2, gt2);
     else if (high)
-      gray_norm_kernel<float, 3><<<grid, dim3(32, 8), 0, s>>>(
+      gray_norm_kernel<float, 1><<<grid, dim3(32, 8), 0, s>>>(
           v, C, ph, pw, bands, mm, g2, gt2);
     else
       gray_norm_kernel<float, 2><<<grid, dim3(32, 8), 0, s>>>(
@@ -1096,7 +1210,7 @@ extern "C" int pb_tile_estimate(int stage, int dtype, const void* ptr,
 // TileView in `ucmp_dtype`) and the optional noise ((n C, ph, pw) f32),
 // and writes the masked, clipped planes to `out` ((n C, ph, pw) in
 // `out_dtype`; it may be the tensor u reads). high: as pb_tile_estimate's
-// (the tables dw2, dh2 hold its P pieces).
+// (the tables dw2, dh2 hold its PT pieces).
 extern "C" int pb_halo_gemm(int epi, int dtype, const void* ptr, long long sB,
                             long long sC, long long sR, int batch, int tile0,
                             int tiles_w, int step_h, int step_w, int n, int C,

@@ -197,6 +197,47 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// The same product with A from registers: a[j] is fragment register j of
+// thread t (warp w, lane l), A(row 16 w + l / 4 + 8 (j % 2), column l % 4 +
+// 4 (j / 2)); the register must hold its value until the group is waited
+// for.
+__device__ __forceinline__ void wgmma_tf32_n64_rs(float (&d)[32],
+                                                  const float (&a)[4],
+                                                  uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])), "l"(db),
+        "r"(acc));
+}
+
+// Moves registers between warpgroups (sm_90a): every thread of a
+// warpgroup executes it; dec returns registers to the SM's pool, inc waits
+// until the pool holds them.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
 // x rounded to the nearest tf32 (low 13 mantissa bits zero, ties away
 // from zero): the hi part of a 3xTF32 split, hi + tf32_hi(x - hi) = x to
 // ~2^-22 relative.

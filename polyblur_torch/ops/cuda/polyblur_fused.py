@@ -333,7 +333,8 @@ def estimate_launches(view: TileView, name: str,
     under ``name`` (``name[highest]`` in the f32 dot mode's ``'highest'``
     case, which f32 tiles take under that mode unless ``mode_free``).
     Stage 1 is the gray min/max pass, 2 the normalization (g and its
-    transpose, split for the tensor cores), 3 the derivative GEMM with the
+    transpose, split for the tensor cores; in f32 for ``'highest'``, whose
+    GEMM splits them), 3 the derivative GEMM with the
     directional maxima, 4 the final model (it writes ``est``; at
     ``n_angles`` = 6 only). Run in order they are the estimate; one alone
     reruns its stage on what the last run left."""
@@ -343,13 +344,14 @@ def estimate_launches(view: TileView, name: str,
     if view.n > 65535:
         raise ValueError(f"{name}: {view.n} tiles exceed the launch grid")
     variant = dot_variant(view.data.dtype, mode_free)
-    pieces = 2 + variant
     ph, pw = view.patch
-    t = estimate_tables(ph, pw, str(view.data.device), n_angles, pieces)
+    t = estimate_tables(ph, pw, str(view.data.device), n_angles, 2 + variant)
     dev = view.data.device
     rows = _band_rows(ph, view.n)
     mm = torch.empty((view.n, -(-ph // rows), 2), dtype=torch.float32,
                      device=dev)
+    # g and g^T: hi and lo, or in f32 for 'highest' (its GEMM splits them)
+    pieces = 1 if variant else 2
     g2 = torch.empty((view.n, pieces, ph, _pitch4(pw)), dtype=torch.float32,
                      device=dev)
     gt2 = torch.empty((view.n, pieces, pw, _pitch4(ph)), dtype=torch.float32,

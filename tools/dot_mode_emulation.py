@@ -16,12 +16,17 @@ against plain f32 ``torch.matmul`` in dB and largest error:
 - ``6_trunc``: the three-piece split's six products in that accumulator;
 - ``6_order``: the ``'highest'`` case as built: per 32-deep K stage a
   fresh truncating accumulator, the five small products of its four
-  8-deep steps first, then the four hi hi, and the stage added to the
-  running sum with a rounded f32 add.
+  8-deep steps first (``SMALL_FIRST``, or the ``small`` order given to
+  :func:`_mm`), then the four hi hi, and the stage added to the running
+  sum with a rounded f32 add.
 
 The truncation model is an assumption (the hardware's adder is not
-documented); it reproduced the order of the card's 3xTF32 error. At 448
-px it runs for a few minutes. Imports no JAX.
+documented); it reproduced the order of the card's 3xTF32 error. An
+8-deep MMA is modelled as its products summed in float64 in K order,
+added to the accumulator and rounded toward zero, one output element at a
+time, so a product of the transposed operands gives the transposed bits
+(tests/test_torch_est_highest.py relies on that). At 448 px it runs for a
+few minutes. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from polyblur_torch.ops.cuda.polyblur_fused import (  # noqa: E402
 from polyblur_torch.ops.sep_poly import gaussian_quadratic_coeffs  # noqa: E402
 from polyblur_torch.utils.imaging import replicate_pad  # noqa: E402
 
+# the five small products of an 8-deep step as (A piece, B piece), 0 hi,
+# 1 mid, 2 lo: lo hi, hi lo, mid mid, mid hi, hi mid
 SMALL_FIRST = [(2, 0), (0, 2), (1, 1), (1, 0), (0, 1)]
 
 
@@ -60,7 +67,8 @@ def _pieces(a: np.ndarray, n: int):
     return out
 
 
-def _mm(a: np.ndarray, b: np.ndarray, scheme: str) -> np.ndarray:
+def _mm(a: np.ndarray, b: np.ndarray, scheme: str,
+        small=SMALL_FIRST) -> np.ndarray:
     a = np.ascontiguousarray(a, np.float32)
     b = np.ascontiguousarray(b, np.float32)
     if scheme == "exact":
@@ -73,11 +81,13 @@ def _mm(a: np.ndarray, b: np.ndarray, scheme: str) -> np.ndarray:
         terms = [(0, 1), (1, 0), (0, 0)]
     else:
         ap, bp = _pieces(a, 3), _pieces(b, 3)
-        terms = SMALL_FIRST + [(0, 0)]
+        terms = list(small) + [(0, 0)]
 
     def step(acc, k0, i, j):
-        return _rz(acc.astype(np.float64)
-                   + ap[i][:, k0:k0 + 8] @ bp[j][k0:k0 + 8])
+        s = 0.0
+        for kk in range(k0, min(k, k0 + 8)):
+            s = s + ap[i][:, kk:kk + 1] * bp[j][kk:kk + 1]
+        return _rz(acc.astype(np.float64) + s)
 
     acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
     if scheme in ("3x_trunc", "6_trunc"):
@@ -90,7 +100,7 @@ def _mm(a: np.ndarray, b: np.ndarray, scheme: str) -> np.ndarray:
         acc = np.zeros_like(run)
         ks = range(s0, min(k, s0 + 32), 8)
         for k0 in ks:
-            for i, j in SMALL_FIRST:
+            for i, j in small:
                 acc = step(acc, k0, i, j)
         for k0 in ks:
             acc = step(acc, k0, 0, 0)
