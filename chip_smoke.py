@@ -461,11 +461,14 @@ def bound_ms(nbytes: float, flops: float, kind: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def spectral_modes(view, q2, tabs, label: str, clip: bool = True) -> float:
+def spectral_modes(view, q2, tabs, label: str, clip: bool = True,
+                   high: bool = False) -> float:
     """Print each ``spectral_gemm`` product's CUDA-event time and achieved
     TFLOP/s of its dense-GEMM formulation (2 x MACs / time), then the whole
-    application's; returns the application's ms. The launches are counted
-    under a name of their own, which no path check reads."""
+    application's, with ``high`` each one's share of its ``'highest'``
+    bound (six tf32 products per MAC); returns the application's ms. The
+    launches are counted under a name of their own, which no path check
+    reads."""
     from polyblur_torch.ops.cuda.polyblur_fused import spectral_gemm_launches
 
     _, runs = spectral_gemm_launches(view, q2, tabs, None, clip,
@@ -477,11 +480,19 @@ def spectral_modes(view, q2, tabs, label: str, clip: bool = True) -> float:
     planes = view.n * view.channels
     macs = (2 * kp * h * wc, kp * 2 * h * 2 * h, 2 * h * kp * 2 * h,
             oh * ow * 2 * kp)
+
+    def share(ms, m):
+        if not high:
+            return ""
+        bound = 12.0 * m * planes / PEAK_FLOPS["tf32"] * 1e3
+        return (f"; 'highest' bound {bound:.4f} ms, {100 * bound / ms:.1f}% "
+                f"of it")
+
     for mode, (run, m) in enumerate(zip(runs, macs), 1):
         ms = cuda_ms(run)
         print(f"  {label} mode {mode}: {ms:.4f} ms, "
               f"{2e-9 * m * planes / ms:.1f} TFLOP/s ({m * planes / 1e9:.2f} "
-              f"G MACs)")
+              f"G MACs){share(ms, m)}")
 
     def application():
         for run in runs:
@@ -489,7 +500,8 @@ def spectral_modes(view, q2, tabs, label: str, clip: bool = True) -> float:
 
     ms = cuda_ms(application)
     print(f"  {label} application: {ms:.4f} ms, "
-          f"{2e-9 * sum(macs) * planes / ms:.1f} TFLOP/s")
+          f"{2e-9 * sum(macs) * planes / ms:.1f} TFLOP/s"
+          f"{share(ms, sum(macs))}")
     return ms
 
 
@@ -2150,7 +2162,8 @@ def highest_kernels(dev, img12, img2, report: dict) -> None:
                       f"tf32 products per MAC): {100 * gb / stages['gemm']:.1f}"
                       f"% of it")
             spectral_modes(view, q2, tabs, f"spectral_gemm[f32 {mode}, "
-                           f"{n * c} planes, h {tabs.h}]")
+                           f"{n * c} planes, h {tabs.h}]",
+                           high=mode == "highest")
         same = bool(torch.equal(est[:, 0], est_p[:, 0]))
         rel = float(((est[:, 1:] - est_p[:, 1:]).abs()
                      / est_p[:, 1:].abs().clamp(min=1e-30)).max())
@@ -2250,6 +2263,7 @@ def highest_kernels(dev, img12, img2, report: dict) -> None:
     # whole_image_kernels): spectral_gemm's 'highest' case at pad 0
     from polyblur_torch.estimation import gaussian_blur_estimation
     from polyblur_torch.ops import sep_poly
+    from polyblur_torch.ops.cuda.polyblur_fused import spectrum_plain
     from polyblur_torch.ops.cuda.sep_poly_fused import (
         fused_polynomial, fused_polynomial_plain)
 
@@ -2263,10 +2277,15 @@ def highest_kernels(dev, img12, img2, report: dict) -> None:
     ref = fused_polynomial_plain(view, params, coeffs)
     bh, bw = view.patch
     tabs_b = stage_tables(bh, bw, f32, str(dev), 0)
+    q2b = spectrum_plain(params[:, 0], params[:, 1], params[:, 2], coeffs,
+                         tabs_b)
     for mode in MODES:
         with f32_dot_mode_scope(mode):
             out = fused_polynomial(view, params, coeffs)
             ms = cuda_ms(lambda: fused_polynomial(view, params, coeffs))
+            spectral_modes(view, q2b, tabs_b, f"(p) spectral_gemm[f32 {mode},"
+                           f" {view.n} blocks {bh}x{bw}, pad 0]", clip=False,
+                           high=mode == "highest")
         err = float((out - ref).abs().max())
         bms, by = bound_ms(2 * out.numel() * 4 + params.numel() * 4,
                            12.0 * view.n * dense_macs(tabs_b), "tf32")
@@ -3935,13 +3954,32 @@ def main() -> int:
                 return blend_overlap_add(out, win, inv_wsum, gi, b, crop4,
                                          torch.float32)
 
+            # the library's overlap-add: F.fold of the window-multiplied
+            # tiles (columns in grid order), the product made beforehand
+            cols = (out.float().reshape(th * tw, b, c, ph, pw) * win).permute(
+                1, 2, 3, 4, 0).reshape(b, c * ph * pw, th * tw).contiguous()
+            hc, wcv = inv_wsum.shape
+            pt, pl, oh, ow = crop4
+
+            def fold():
+                return F.fold(cols, (hc, wcv), (ph, pw), stride=(sh, sw))
+
+            ferr = float(((fold()[:, :, pt:pt + oh, pl:pl + ow]
+                           * inv_wsum[pt:pt + oh, pl:pl + ow]).clamp(0, 1)
+                          - o_p).abs().max())
+            print(f"  F.fold yardstick (then the weight, crop and clip) vs "
+                  f"plain: max_abs_err {ferr:.3e}")
             report["blend_overlap_add"] = dict(
                 max_abs_err=err, ms=cuda_ms(blend), device_ms=device_ms(blend),
                 plain_ms=cuda_ms(lambda: blend_overlap_add_plain(
                     out, win, inv_wsum, gi, b, crop4, torch.float32),
                     reps=3),
-                library_ms=None,
+                library_ms=cuda_ms(fold),
+                library_what="overlap-add only: torch.nn.functional.fold of "
+                "the window-multiplied f32 tiles onto the canvas (not the "
+                "window product, the weight, the crop, the clip)",
                 bound=bound_ms(nb, 0.0, tag))
+            del cols
         del canvas, ref, view, est, est_p, q2, q2_p, out, out_p, o, o_p, vals
         torch.cuda.empty_cache()
 

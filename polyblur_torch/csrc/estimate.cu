@@ -463,21 +463,7 @@ __device__ __forceinline__ void store16(uint8_t* d, const float (&f)[4]) {
   *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
-// the P tf32 pieces of 4 values (hi, lo; or hi, mid, lo), each the
-// rounding of what the larger ones leave
-template <int P>
-__device__ __forceinline__ void split4(const float (&a)[4],
-                                       float (&pc)[P][4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float r = a[e];
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      pc[k][e] = pb::tf32_hi(r);
-      r = r - pc[k][e];
-    }
-  }
-}
+using pb::split4;
 
 // One K step of one product on the stage at sa into the fresh accumulator
 // t, the small terms first; one MMA group. 3xTF32 over 32 of K, or

@@ -70,18 +70,28 @@
 //
 // The f32 dot mode 'highest' (ops/cuda/sep_poly_fused.py set_f32_dot_mode,
 // the TPU kernel's Precision.HIGHEST, sep_poly_fused.py:255-258) is a
-// template case of its own (HI): a = hi + mid + lo, each rounded to tf32,
-// and six products (lo hi, hi lo, mid mid, mid hi, hi mid, then hi hi), a
-// split that leaves ~2^-33 of each operand. Adding lo lo to the two-piece
-// split would buy nothing: its lo already leaves ~2^-22. The tensor cores'
-// f32 accumulation truncates, which over the whole of K costs more than
-// the two-piece split itself (a CPU emulation: ~95 dB from plain f32 for
-// one 448 px application), so each 32-deep K stage runs into a fresh
-// accumulator, its five small products first, and is added to the
+// kernel of its own (gemm_hi_kernel): a = hi + mid + lo, each rounded to
+// tf32, and six products (lo hi, hi lo, mid mid, mid hi, hi mid, then hi
+// hi), a split that leaves ~2^-33 of each operand. Adding lo lo to the
+// two-piece split would buy nothing: its lo already leaves ~2^-22. The
+// tensor cores' f32 accumulation truncates, which over the whole of K
+// costs more than the two-piece split itself (a CPU emulation: ~95 dB from
+// plain f32 for one 448 px application), so each 32-deep K stage runs into
+// a fresh accumulator, its five small products first, and is added to the
 // running sum with a rounded f32 add (~120 dB from plain f32, which is
-// itself ~122 dB from exact). The third piece makes a stage of 128 x 128
-// tiles 96 KB and the second accumulator would not fit the registers, so
-// the case runs 128 x 64 output tiles (m64n64k8) in 3 stages of 72 KB.
+// itself ~122 dB from exact). Every product has one constant table as an
+// operand; the host splits the tables into their three pieces once
+// (ops/cuda/polyblur_fused.py table_pieces) and TMA brings them, while
+// the data arrives in f32 and each consumer splits its own rows in
+// registers, as wgmma's A operand (A from registers): a stage of modes
+// 2-4 is 40 KB against the three-piece design's 72 KB, and no barrier
+// holds the two consumer warpgroups together. Modes 1 and 3 hold the data
+// as B, so they run transposed (C^T = data table^T) with the factors of
+// each product swapped, and every output element sums the same products
+// in the same order as the design that split both operands in shared
+// memory: the outputs are bit-equal to it. On the CPU
+// tests/test_torch_spectral_highest.py holds the order, on the card
+// tools/spectral_highest_ab.py the bits.
 #include <cstdio>
 #include <type_traits>
 
@@ -306,8 +316,7 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
 //
 // Every product is C = A B^T with A (M x K) and B (N x K) both K-major
 // (row-major with K contiguous), the one layout wgmma takes for tf32 and
-// its fastest for bf16. Block tile BM x BN = 128 x 128 (128 x 64 in the
-// 'highest' case); K in steps of 128
+// its fastest for bf16. Block tile BM x BN = 128 x 128; K in steps of 128
 // bytes (64 bf16 / 32 f32) through a ring of shared-memory stages. Warps
 // 0-7 are two consumer warpgroups (64 rows each) running wgmma; after
 // them comes the producer: one thread starts the TMA loads, and in mode 1
@@ -321,16 +330,14 @@ constexpr int NCONS = 256;            // two consumer warpgroups
 // one producer warp, 96 registers a thread), so that one block's
 // prologue and epilogue overlap the other's MMAs; mode 1 (whose producer
 // is two warpgroups writing B) and the f32 split (twice the stage bytes)
-// run one block per SM with a deeper ring. HI: the 'highest' case of an
-// f32 work dtype (three pieces, six products, 128 x 64 tiles).
-template <int MODE, typename T, bool HI = false>
+// run one block per SM with a deeper ring.
+template <int MODE, typename T>
 struct Cfg {
   static constexpr int BK = 128 / sizeof(T);       // K per stage
   static constexpr bool kSplit = sizeof(T) == 4;   // 3xTF32
-  static constexpr bool kHigh = kSplit && HI;      // three pieces
-  static constexpr int PIECES = kHigh ? 3 : kSplit ? 2 : 1;
+  static constexpr int PIECES = kSplit ? 2 : 1;
   static constexpr bool kPair = !kSplit && MODE != 1;
-  static constexpr int BN = kHigh ? 64 : 128;      // tile columns
+  static constexpr int BN = 128;                   // tile columns
   static constexpr int ACC = BN / 2;               // accumulator floats
   // producer threads: mode 1 writes B with two warpgroups
   static constexpr int NPROD = MODE == 1 ? 256 : kPair ? 32 : 128;
@@ -541,33 +548,6 @@ __device__ __forceinline__ void split_tf32(uint8_t* raw, uint8_t* lo,
   }
 }
 
-// 'highest': x = hi + mid + lo, each the tf32 rounding of what the larger
-// pieces leave (every difference exact in f32).
-__device__ __forceinline__ void split3(float x, float& h, float& m,
-                                       float& l) {
-  h = tf32_hi(x);
-  const float r = x - h;
-  m = tf32_hi(r);
-  l = tf32_hi(r - m);
-}
-
-// The three-piece split of the raw f32 tile at `raw`: hi in place, mid and
-// lo to `mid` and `lo`; 128 threads, 16 B each step.
-__device__ __forceinline__ void split_tf32x3(uint8_t* raw, uint8_t* mid,
-                                             uint8_t* lo, int bytes, int t) {
-  for (int o = t * 16; o < bytes; o += 128 * 16) {
-    const float4 v = *reinterpret_cast<float4*>(raw + o);
-    float4 h, m, l;
-    split3(v.x, h.x, m.x, l.x);
-    split3(v.y, h.y, m.y, l.y);
-    split3(v.z, h.z, m.z, l.z);
-    split3(v.w, h.w, m.w, l.w);
-    *reinterpret_cast<float4*>(raw + o) = h;
-    *reinterpret_cast<float4*>(mid + o) = m;
-    *reinterpret_cast<float4*>(lo + o) = l;
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void store2(T* d, float a, float b, bool pair) {
   if (pair) {
@@ -735,45 +715,57 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int pl, int i,
   if (two && !pair) d[o + 1] = pb::from_f32<T>(b);
 }
 
-// One K stage of the 'highest' case into the fresh accumulator t: per
-// 8-deep step the five small products, then the four hi hi products, so
-// that the small terms are summed while t is small; one MMA group. a, b:
-// the consumer's A rows and the B tile of the stage's hi pieces, the mid
-// and lo pieces `pair` and 2 `pair` bytes after them.
-__device__ __forceinline__ void mma_stage_x6(uint32_t a, uint32_t b,
-                                             uint32_t pair, float (&t)[32]) {
-  pb::fence_regs(t);
-  pb::wgmma_fence();
+// The epilogue of a block's 128 x BN tile of C. Accumulator r of consumer
+// thread tid (warpgroup wg, warp, lane) holds C[i, j], i = m0 + 64 wg + 16
+// warp + lane / 4 + 8 ((r / 2) % 2), j = n0 + 8 (r / 4) + 2 (lane % 4) +
+// r % 2. Mode 4 with the taper stages the tile in the ring, once both
+// consumer warpgroups are done reading it, and blends it (taper_tile);
+// every other product finishes and stores its accumulator pairs.
+template <int MODE, typename T, int IO, int BN, int RING>
+__device__ __forceinline__ void epilogue(const GemmParams& p, int pl, int m0,
+                                         int n0, float (&acc)[BN / 2],
+                                         uint8_t* sbase, int tid) {
+  constexpr int ACC = BN / 2;
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  if constexpr (MODE == 4 && (IO & kTaper)) {
+    constexpr int kTP = BN + 8;  // taper_tile's pitch
+    static_assert(BM * kTP * 4 <= RING, "the staged tile must fit the ring");
+    pb::named_barrier(1, NCONS);
+    float* tile = reinterpret_cast<float*>(sbase);
+    const int ti = wg * 64 + warp * 16 + (lane >> 2), tj = 2 * (lane & 3);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t ah = pb::sw128_desc(a) + 2 * kk;
-    const uint64_t am = pb::sw128_desc(a + pair) + 2 * kk;
-    const uint64_t al = pb::sw128_desc(a + 2 * pair) + 2 * kk;
-    const uint64_t bh = pb::sw128_desc(b) + 2 * kk;
-    const uint64_t bm = pb::sw128_desc(b + pair) + 2 * kk;
-    const uint64_t bl = pb::sw128_desc(b + 2 * pair) + 2 * kk;
-    pb::wgmma_tf32_n64(t, al, bh, kk);  // kk == 0 starts from zero
-    pb::wgmma_tf32_n64(t, ah, bl);
-    pb::wgmma_tf32_n64(t, am, bm);
-    pb::wgmma_tf32_n64(t, am, bh);
-    pb::wgmma_tf32_n64(t, ah, bm);
+    for (int r = 0; r < ACC; r += 2)
+      *reinterpret_cast<float2*>(tile + (ti + 8 * ((r >> 1) & 1)) * kTP + tj +
+                                 8 * (r >> 2)) = make_float2(acc[r],
+                                                             acc[r + 1]);
+    pb::named_barrier(1, NCONS);
+    if (p.tu_f32)
+      taper_tile<float, BN>(p, pl, m0, n0, tile, tid);
+    else
+      taper_tile<T, BN>(p, pl, m0, n0, tile, tid);
+    return;
   }
+  const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int j0 = n0 + 2 * (lane & 3);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    pb::wgmma_tf32_n64(t, pb::sw128_desc(a) + 2 * kk,
-                       pb::sw128_desc(b) + 2 * kk);
-  pb::wgmma_commit();
+  for (int r = 0; r < ACC; r += 2)
+    finish_pair<MODE, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
+                          acc[r], acc[r + 1]);
+#pragma unroll
+  for (int r = 0; r < ACC; r += 2)
+    store_pair<MODE, T, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
+                            acc[r], acc[r + 1]);
 }
 
 // One (BM x BN) tile of one plane's product. tma_a / tma_b: the A and B
 // operands as (planes, rows, K) maps (mode 1 has no B map: the producer
 // warpgroup writes B).
-template <int MODE, typename T, int IO, bool HI>
-__global__ void __launch_bounds__(Cfg<MODE, T, HI>::NT,
-                                  Cfg<MODE, T, HI>::BLOCKS)
+template <int MODE, typename T, int IO>
+__global__ void __launch_bounds__(Cfg<MODE, T>::NT, Cfg<MODE, T>::BLOCKS)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
             const __grid_constant__ CUtensorMap tma_b, const GemmParams p) {
-  using Cf = Cfg<MODE, T, HI>;
+  using Cf = Cfg<MODE, T>;
   constexpr int BN = Cf::BN, ACC = Cf::ACC;
   constexpr bool kPadB = MODE == 1;
   extern __shared__ uint8_t smem_raw[];
@@ -838,31 +830,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   float acc[ACC];
 #pragma unroll
   for (int r = 0; r < ACC; ++r) acc[r] = 0.f;
-  if constexpr (Cf::kHigh) {
-  for (int kt = 0; kt < nk; ++kt) {
-    // 'highest': split each stage in three, run it into a fresh
-    // accumulator, wait for it and add it to the running sum, rounded
-    const int s = kt % Cf::STAGES;
-    pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
-    uint8_t* st = sbase + s * Cf::STAGE;
-    split_tf32x3(st + wg * (64 * 128), st + Cf::PAIR + wg * (64 * 128),
-                 st + 2 * Cf::PAIR + wg * (64 * 128), 64 * 128, t);
-    split_tf32x3(st + Cf::A_BYTES + wg * (BN / 2 * 128),
-                 st + Cf::PAIR + Cf::A_BYTES + wg * (BN / 2 * 128),
-                 st + 2 * Cf::PAIR + Cf::A_BYTES + wg * (BN / 2 * 128),
-                 BN / 2 * 128, t);
-    pb::fence_proxy_async();
-    pb::named_barrier(1, NCONS);
-    float tmp[32];
-    mma_stage_x6(base + s * Cf::STAGE + wg * (64 * 128),
-                 base + s * Cf::STAGE + Cf::A_BYTES, Cf::PAIR, tmp);
-    pb::wgmma_wait<0>();
-    pb::fence_regs(tmp);
-    pb::mbar_arrive(pb::smem_u32(&empty[s]));
-#pragma unroll
-    for (int r = 0; r < ACC; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
-  }
-  } else {
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % Cf::STAGES;
     pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
@@ -902,45 +869,15 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
   pb::wgmma_wait<0>();
   pb::fence_regs(acc);
-  }
-  const int warp = t >> 5, lane = t & 31;
-  if constexpr (MODE == 4 && (IO & kTaper)) {
-    constexpr int kTP = BN + 8;  // taper_tile's pitch
-    static_assert(BM * kTP * 4 <= Cf::STAGES * Cf::STAGE,
-                  "the staged tile must fit the ring");
-    // both warpgroups' MMAs are done reading the ring: stage the tile
-    pb::named_barrier(1, NCONS);
-    float* tile = reinterpret_cast<float*>(sbase);
-    const int ti = wg * 64 + warp * 16 + (lane >> 2), tj = 2 * (lane & 3);
-#pragma unroll
-    for (int r = 0; r < ACC; r += 2)
-      *reinterpret_cast<float2*>(tile + (ti + 8 * ((r >> 1) & 1)) * kTP + tj +
-                                 8 * (r >> 2)) = make_float2(acc[r],
-                                                             acc[r + 1]);
-    pb::named_barrier(1, NCONS);
-    if (p.tu_f32)
-      taper_tile<float, BN>(p, pl, m0, n0, tile, tid);
-    else
-      taper_tile<T, BN>(p, pl, m0, n0, tile, tid);
-    return;
-  }
-  const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
-  const int j0 = n0 + 2 * (lane & 3);
-#pragma unroll
-  for (int r = 0; r < ACC; r += 2)
-    finish_pair<MODE, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
-                          acc[r], acc[r + 1]);
-#pragma unroll
-  for (int r = 0; r < ACC; r += 2)
-    store_pair<MODE, T, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
-                            acc[r], acc[r + 1]);
+  epilogue<MODE, T, IO, BN, Cf::STAGES * Cf::STAGE>(p, pl, m0, n0, acc, sbase,
+                                                    tid);
 }
 
-template <int MODE, typename T, int IO, bool HI>
+template <int MODE, typename T, int IO>
 int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
               int planes, cudaStream_t s) {
-  using Cf = Cfg<MODE, T, HI>;
-  auto kern = gemm_kernel<MODE, T, IO, HI>;
+  using Cf = Cfg<MODE, T>;
+  auto kern = gemm_kernel<MODE, T, IO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -952,34 +889,280 @@ int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
 // f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it;
 // taper: mode 4 blends (f32 out). An f32 work dtype reads and writes f32
 // anyway, so its f32io cases are not instantiated.
-template <int MODE, typename T, bool HI>
+template <int MODE, typename T>
 int launch_gemm(bool f32io, bool noise, bool taper, const CUtensorMap& a,
                 const CUtensorMap& b, const GemmParams& p, int planes,
                 cudaStream_t s) {
   if constexpr (MODE == 4) {
     constexpr int kOut = sizeof(T) == 4 ? 0 : kF32IO;
-    if (taper)
-      return launch_io<4, T, kOut | kTaper, HI>(a, b, p, planes, s);
+    if (taper) return launch_io<4, T, kOut | kTaper>(a, b, p, planes, s);
   }
   if constexpr (sizeof(T) == 2) {
     if (f32io && noise)
-      return launch_io<MODE, T, kF32IO | kNoise, HI>(a, b, p, planes, s);
-    if (f32io) return launch_io<MODE, T, kF32IO, HI>(a, b, p, planes, s);
+      return launch_io<MODE, T, kF32IO | kNoise>(a, b, p, planes, s);
+    if (f32io) return launch_io<MODE, T, kF32IO>(a, b, p, planes, s);
   }
-  if (noise) return launch_io<MODE, T, kNoise, HI>(a, b, p, planes, s);
-  return launch_io<MODE, T, 0, HI>(a, b, p, planes, s);
+  if (noise) return launch_io<MODE, T, kNoise>(a, b, p, planes, s);
+  return launch_io<MODE, T, 0>(a, b, p, planes, s);
+}
+
+// ------------------------------------------------------------- 'highest'
+//
+// A block's tile is DM data rows x TN table rows, K in stages of 32: the
+// f32 data (by TMA, or in mode 1 written by the producers as above) and
+// the table's three tf32 pieces (by TMA; split on the host). Each consumer
+// warpgroup takes 64 data rows as wgmma's A: it reads them into the A
+// fragment, splits them there and runs the stage's 24 m64nWNk8 products
+// against WN table rows into a fresh accumulator, waits for them and
+// promotes the stage into its running sum; no barrier joins the two
+// warpgroups, so one's split, wait and promotion hide under the other's
+// MMAs. The producers give their registers to the consumers (setmaxnreg).
+// Modes 2-4: 128 data rows (64 a warpgroup) x 64 table rows, 3 stages of
+// 40 KB (4 and 5 stages, or 128 table rows, measured no faster). Mode 1,
+// whose producers write the data and bound it: 64 data rows (both
+// warpgroups read them) x 256 table rows (128 each, m64n128k8), 2 stages
+// of 104 KB, so that the producers fill each canvas row half as often as
+// the three-piece design did (PERF.md: 128 data x 64 table rows ran
+// 1.15x slower than that design, 64 x 128 0.78x, 64 x 256 0.62x; with one
+// producer warpgroup, or fewer than 64 registers for the producers,
+// slower). In modes 2 and 4 the data is A as built (C = data table^T);
+// modes 1 and 3 run C^T = data table^T and store C^T's elements where C's
+// go, 8 consecutive elements of a destination row per warp and register
+// (whole 32-byte sectors).
+template <int MODE>
+struct HiCfg {
+  static constexpr bool kFill = MODE == 1;             // producers write
+  static constexpr int BK = 32;                        // K per stage
+  static constexpr int WN = kFill ? 128 : 64;  // a warpgroup's table rows
+  static constexpr int ACC = WN / 2;           // accumulator floats
+  static constexpr int DM = kFill ? 64 : 128;          // data rows
+  static constexpr int TN = kFill ? 2 * WN : WN;       // table rows
+  static constexpr int A_BYTES = DM * 128;             // the data, f32
+  static constexpr int B_BYTES = TN * 128;             // a table piece
+  static constexpr int STAGE = A_BYTES + 3 * B_BYTES;  // 104 KB, 40 KB
+  static constexpr int STAGES = kFill ? 2 : 3;
+  static constexpr int SMEM = STAGES * STAGE + 1024;
+  // producer threads (mode 1: two warpgroups writing the data; else one
+  // issuing TMA from one thread) and the registers per thread after
+  // setmaxnreg: the consumers take what the producers give back
+  static constexpr int NPROD = kFill ? 256 : 128;
+  static constexpr int NT = NCONS + NPROD;
+  static constexpr int PROD = kFill ? 64 : 40;
+  static constexpr int CONS = kFill ? 192 : 232;
+  static_assert(NCONS * CONS + NPROD * PROD <= 65536, "registers");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+// One K stage into the fresh accumulator t; one MMA group. The
+// warpgroup's 64 data rows at da (f32, 32 of K, 128-byte swizzle) are read
+// into the A fragment (register j of lane l in warp w: row 16 w + l / 4 +
+// 8 (j % 2), column l % 4 + 4 (j / 2) of each 8-deep slice) and split there
+// (split4<3>, the rounding the host gives the tables); B is the table's
+// pieces hi, mid, lo from sb, PIECE bytes apart. Per 8-deep slice the five
+// small products as (A piece, B piece), 0 hi, 1 mid, 2 lo:
+//   C = data table^T   (modes 2, 4): (2,0) (0,2) (1,1) (1,0) (0,1)
+//   C^T = data table^T (modes 1, 3): (0,2) (2,0) (1,1) (0,1) (1,0)
+// i.e. lo hi, hi lo, mid mid, mid hi, hi mid of (A, B) as the three-piece
+// design ran them (modes 1 and 3: of (table, data), the factors swapped);
+// then the stage's four hi hi.
+template <int WN>
+__device__ __forceinline__ void wgmma_rs(float (&t)[WN / 2],
+                                         const float (&a)[4], uint64_t db,
+                                         int acc = 1) {
+  if constexpr (WN == 64)
+    pb::wgmma_tf32_n64_rs(t, a, db, acc);
+  else
+    pb::wgmma_tf32_n128_rs(t, a, db, acc);
+}
+
+template <bool SWAP, int PIECE, int WN>
+__device__ __forceinline__ void mma_stage_hi(uint32_t sb, const uint8_t* da,
+                                             int warp, int lane,
+                                             float (&t)[WN / 2]) {
+  float a[4][3][4];  // [slice][piece][fragment register]
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = 16 * warp + (lane >> 2) + 8 * (j & 1);
+      const int chunk = 2 * kk + (j >> 1);
+      v[j] = *reinterpret_cast<const float*>(
+          da + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * (lane & 3));
+    }
+    pb::split4<3>(v, a[kk]);
+  }
+  const uint64_t bh = pb::sw128_desc(sb);
+  const uint64_t bm = pb::sw128_desc(sb + PIECE);
+  const uint64_t bl = pb::sw128_desc(sb + 2 * PIECE);
+  pb::fence_regs(t);
+  pb::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t h = bh + 2 * kk, m = bm + 2 * kk, l = bl + 2 * kk;
+    if constexpr (!SWAP) {
+      wgmma_rs<WN>(t, a[kk][2], h, kk);  // kk == 0 starts from zero
+      wgmma_rs<WN>(t, a[kk][0], l);
+      wgmma_rs<WN>(t, a[kk][1], m);
+      wgmma_rs<WN>(t, a[kk][1], h);
+      wgmma_rs<WN>(t, a[kk][0], m);
+    } else {
+      wgmma_rs<WN>(t, a[kk][0], l, kk);
+      wgmma_rs<WN>(t, a[kk][2], h);
+      wgmma_rs<WN>(t, a[kk][1], m);
+      wgmma_rs<WN>(t, a[kk][0], m);
+      wgmma_rs<WN>(t, a[kk][1], h);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<WN>(t, a[kk][0], bh + 2 * kk);
+  pb::wgmma_commit();
+}
+
+// C's element (i, j) of mode 1 (RS[i % kp][(i >= kp) h + j]) or 3
+// (ZZ[i mod h][(i >= h) kp + j]), stored from C^T's accumulators.
+template <int MODE>
+__device__ __forceinline__ void store_t(const GemmParams& p, int pl, int i,
+                                        int j, float v) {
+  if (i >= p.M || j >= p.N) return;
+  const int half = MODE == 1 ? p.kp : p.h;   // the stacked halves' rows
+  const int col = MODE == 1 ? p.h : p.kp;    // the second half's column
+  const bool im = i >= half;
+  float* d = static_cast<float*>(p.dst) + pl * p.dplane;
+  d[static_cast<long long>(im ? i - half : i) * p.ldd + (im ? col : 0) + j] =
+      v;
+}
+
+// One DM x TN tile of one plane's 'highest' product. tma_d: the data
+// (planes, rows, K) in f32, DM-row boxes (mode 1: none, the producers
+// write the tiles); tma_t: the table's pieces (3, rows, K), TN-row boxes.
+template <int MODE, int IO>
+__global__ void __launch_bounds__(HiCfg<MODE>::NT, 1)
+gemm_hi_kernel(const __grid_constant__ CUtensorMap tma_d,
+               const __grid_constant__ CUtensorMap tma_t, const GemmParams p) {
+  using Cf = HiCfg<MODE>;
+  constexpr bool kSwap = MODE == 1 || MODE == 3;
+  constexpr bool kFill = Cf::kFill;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[Cf::STAGES], empty[Cf::STAGES];
+  const uint32_t raw_u32 = pb::smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - raw_u32);
+  const int tid = threadIdx.x;
+  const int pl = blockIdx.z;
+  const int d0 = blockIdx.y * Cf::DM, t0 = blockIdx.x * Cf::TN;
+  const int nk = (p.K + Cf::BK - 1) / Cf::BK;
+  if (tid == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      pb::mbar_init(pb::smem_u32(&full[s]), kFill ? 1 + Cf::NPROD : 1);
+      pb::mbar_init(pb::smem_u32(&empty[s]), NCONS);
+    }
+    pb::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NCONS) {
+    // ------------------------------------------------------- producer
+    pb::setmaxnreg_dec<Cf::PROD>();
+    const int t = tid - NCONS;
+    if (!kFill && t != 0) return;
+    // mode 4 reads the rows and columns of the canvas the crop keeps
+    const int ra = MODE == 4 ? p.half : 0;
+    const int n = pl / p.C, c = pl - n * p.C;
+    const float* src =
+        static_cast<const float*>(p.src.ptr) + p.src.offset(n, c, 0, 0);
+    int shift = -1;
+    if constexpr (kFill) shift = fill_shift<float>(p, src);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % Cf::STAGES;
+      const uint32_t par = ((kt / Cf::STAGES) & 1) ^ 1;
+      pb::mbar_wait(pb::smem_u32(&empty[s]), par);
+      const uint32_t sa = base + s * Cf::STAGE;
+      const uint32_t fb = pb::smem_u32(&full[s]);
+      if (t == 0) {
+        pb::mbar_arrive_tx(fb, (kFill ? 0 : Cf::A_BYTES) + 3 * Cf::B_BYTES);
+        if (!kFill)
+          pb::tma_load_3d(sa, &tma_d, kt * Cf::BK, d0 + ra, pl, fb);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          pb::tma_load_3d(sa + Cf::A_BYTES + k * Cf::B_BYTES, &tma_t,
+                          kt * Cf::BK, t0 + ra, k, fb);
+      }
+      if constexpr (kFill) {
+        fill_stage<float, float, Cf::NPROD, Cf::DM>(p, src, shift, d0,
+                                                    kt * Cf::BK,
+                                                    sbase + s * Cf::STAGE, t);
+        pb::fence_proxy_async();
+        pb::mbar_arrive(fb);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  pb::setmaxnreg_inc<Cf::CONS>();
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  // this warpgroup's 64 data rows and WN table rows within the tile
+  const int dw = kFill ? 0 : 64 * wg, tw = kFill ? Cf::WN * wg : 0;
+  float acc[Cf::ACC];
+#pragma unroll
+  for (int r = 0; r < Cf::ACC; ++r) acc[r] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % Cf::STAGES;
+    pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
+    float tmp[Cf::ACC];
+    mma_stage_hi<kSwap, Cf::B_BYTES, Cf::WN>(
+        base + s * Cf::STAGE + Cf::A_BYTES + tw * 128,
+        sbase + s * Cf::STAGE + dw * 128, warp, lane, tmp);
+    pb::wgmma_wait<0>();
+    pb::fence_regs(tmp);
+    pb::mbar_arrive(pb::smem_u32(&empty[s]));
+#pragma unroll
+    for (int r = 0; r < Cf::ACC; ++r) acc[r] = __fadd_rn(acc[r], tmp[r]);
+  }
+  if constexpr (kSwap) {
+    // accumulator r: C^T's row d0 + dw + 16 warp + lane / 4 + 8 ((r / 2)
+    // % 2), column t0 + tw + 8 (r / 4) + 2 (lane % 4) + r % 2
+    const int j0 = d0 + dw + warp * 16 + (lane >> 2);
+    const int i0 = t0 + tw + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < Cf::ACC; ++r)
+      store_t<MODE>(p, pl, i0 + 8 * (r >> 2) + (r & 1),
+                    j0 + 8 * ((r >> 1) & 1), acc[r]);
+  } else {
+    epilogue<MODE, float, IO, Cf::TN, Cf::STAGES * Cf::STAGE>(
+        p, pl, d0, t0, acc, sbase, tid);
+  }
+}
+
+template <int MODE, int IO>
+int launch_hi(const CUtensorMap& d, const CUtensorMap& t, const GemmParams& p,
+              int planes, cudaStream_t s) {
+  using Cf = HiCfg<MODE>;
+  auto kern = gemm_hi_kernel<MODE, IO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // x: the table's rows (C's columns, C^T's rows in modes 1 and 3)
+  constexpr bool kSwap = MODE == 1 || MODE == 3;
+  const int rows_t = kSwap ? p.M : p.N, rows_d = kSwap ? p.N : p.M;
+  dim3 grid((rows_t + Cf::TN - 1) / Cf::TN, (rows_d + Cf::DM - 1) / Cf::DM,
+            planes);
+  kern<<<grid, Cf::NT, Cf::SMEM, s>>>(d, t, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Padded row lengths, shared with ops/cuda/polyblur_fused.py: K widths of
 // the tables and of RS / PS round up to a whole number of 64-element rows.
 inline int pad64(int n) { return (n + 63) / 64 * 64; }
 
-template <typename T, bool HI>
+template <typename T>
 int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                   const void* mid, GemmParams& p, int planes,
                   cudaStream_t s) {
   const bool f32 = sizeof(T) == 4;
-  constexpr int BN = Cfg<1, T, HI>::BN;  // B's box rows, every mode
+  constexpr int BN = Cfg<1, T>::BN;  // B's box rows, every mode
   const int h = p.h, kp = p.kp, l2 = pad64(2 * h);
   const long long rs = static_cast<long long>(kp) * l2;  // RS / PS plane
   const long long zz = static_cast<long long>(h) * 2 * kp;
@@ -992,21 +1175,21 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                           2LL * kp * pad64(p.wc), BM);
       b = a;
       if (!ok) break;
-      return launch_gemm<1, T, HI>(src_f32, false, false, a, b, p, planes, s);
+      return launch_gemm<1, T>(src_f32, false, false, a, b, p, planes, s);
     case 2:  // A = RS (kp x 2h), B = T2 (2h x 2h)
       p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
       ok = pb::tma_map_3d(&a, mid, f32, 2 * h, kp, planes, l2, rs, BM) &&
            pb::tma_map_3d(&b, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BN);
       if (!ok) break;
-      return launch_gemm<2, T, HI>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<2, T>(false, false, false, a, b, p, planes, s);
     case 3:  // A = T3 (2h x 2h), B = PS (kp x 2h)
       p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
       ok = pb::tma_map_3d(&a, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BM) &&
            pb::tma_map_3d(&b, mid, f32, 2 * h, kp, planes, l2, rs, BN);
       if (!ok) break;
-      return launch_gemm<3, T, HI>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<3, T>(false, false, false, a, b, p, planes, s);
     case 4:  // A = ZZ (h x 2kp) from row `half`, B = G^T (wc x 2kp)
       p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
       p.dplane = static_cast<long long>(p.ph) * p.pw;
@@ -1014,8 +1197,61 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
            pb::tma_map_3d(&b, tab, f32, 2 * kp, p.wc, 1, 2 * kp,
                           2LL * kp * p.wc, BN);
       if (!ok) break;
-      return launch_gemm<4, T, HI>(dst_f32, p.noise != nullptr, p.av != nullptr,
+      return launch_gemm<4, T>(dst_f32, p.noise != nullptr, p.av != nullptr,
                                a, b, p, planes, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fprintf(stderr, "spectral_gemm mode %d: cuTensorMapEncodeTiled refused a "
+                  "map (pointer alignment or stride)\n", mode);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 'highest' products, f32: tab holds the mode's table in its three
+// tf32 pieces, (3, rows, ld) with the ld of the table itself; the data map
+// reads DM-row boxes of the plane, the table map TN-row boxes of a piece.
+int spectral_gemm_hi(int mode, const void* tab, const void* mid,
+                     GemmParams& p, int planes, cudaStream_t s) {
+  const int h = p.h, kp = p.kp, l2 = pad64(2 * h), lw = pad64(p.wc);
+  const long long rs = static_cast<long long>(kp) * l2;  // RS / PS plane
+  const long long zz = static_cast<long long>(h) * 2 * kp;
+  CUtensorMap d, t;
+  bool ok = true;
+  switch (mode) {
+    case 1:  // the tiles (by the producers) x F^T (2kp x wc): C^T
+      p.M = 2 * kp; p.N = h; p.K = p.wc; p.ldd = l2; p.dplane = rs;
+      ok = pb::tma_map_3d(&t, tab, true, p.wc, 2 * kp, 3, lw, 2LL * kp * lw,
+                          HiCfg<1>::TN);
+      d = t;
+      if (!ok) break;
+      return launch_hi<1, 0>(d, t, p, planes, s);
+    case 2:  // RS (kp x 2h) x T2 (2h x 2h)
+      p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
+      ok = pb::tma_map_3d(&d, mid, true, 2 * h, kp, planes, l2, rs,
+                          HiCfg<2>::DM) &&
+           pb::tma_map_3d(&t, tab, true, 2 * h, 2 * h, 3, l2, 2LL * h * l2,
+                          HiCfg<2>::TN);
+      if (!ok) break;
+      return launch_hi<2, 0>(d, t, p, planes, s);
+    case 3:  // PS (kp x 2h) x T3 (2h x 2h): C^T
+      p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
+      ok = pb::tma_map_3d(&d, mid, true, 2 * h, kp, planes, l2, rs,
+                          HiCfg<3>::DM) &&
+           pb::tma_map_3d(&t, tab, true, 2 * h, 2 * h, 3, l2, 2LL * h * l2,
+                          HiCfg<3>::TN);
+      if (!ok) break;
+      return launch_hi<3, 0>(d, t, p, planes, s);
+    case 4:  // ZZ (h x 2kp) from row `half` x G^T (wc x 2kp)
+      p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
+      p.dplane = static_cast<long long>(p.ph) * p.pw;
+      ok = pb::tma_map_3d(&d, mid, true, 2 * kp, h, planes, 2 * kp, zz,
+                          HiCfg<4>::DM) &&
+           pb::tma_map_3d(&t, tab, true, 2 * kp, p.wc, 3, 2 * kp,
+                          2LL * kp * p.wc, HiCfg<4>::TN);
+      if (!ok) break;
+      if (p.av != nullptr) return launch_hi<4, kTaper>(d, t, p, planes, s);
+      if (p.noise != nullptr) return launch_hi<4, kNoise>(d, t, p, planes, s);
+      return launch_hi<4, 0>(d, t, p, planes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1079,8 +1315,9 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
 // again. av, ah (mode 4, the taper's (n, h) and (n, wc) f32 weights, or
 // null): the output is the whole canvas (half 0) in f32, unclipped, blended
 // with the tiles of the TileView padded by tpad, x' = a pad(x) + (1 - a) x'.
-// high (f32 only): the 'highest' instantiation (three pieces, six
-// products); 0 the 3xTF32 one (ops/cuda/sep_poly_fused.py dot_variant).
+// high (f32 only): the 'highest' kernel (three pieces, six products; tab
+// is then the table's (3, rows, ld) tf32 pieces, ops/cuda/polyblur_fused.py
+// table_pieces); 0 the 3xTF32 one (ops/cuda/sep_poly_fused.py dot_variant).
 extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 long long sB, long long sC, long long sR,
                                 int batch, int tile0, int tiles_w, int step_h,
@@ -1118,13 +1355,12 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.tpad = tpad;
   p.tu_f32 = src_f32 != 0 || dtype == pb::kF32;
   if (dtype == pb::kBF16)
-    return spectral_gemm<bf16, false>(mode, src_f32 != 0, dst_f32 != 0, tab,
-                                      mid, p, planes, s);
+    return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, tab, mid, p,
+                               planes, s);
   if (dtype == pb::kF32 && high)
-    return spectral_gemm<float, true>(mode, false, dst_f32 != 0, tab, mid, p,
-                                      planes, s);
+    return spectral_gemm_hi(mode, tab, mid, p, planes, s);
   if (dtype == pb::kF32)
-    return spectral_gemm<float, false>(mode, false, dst_f32 != 0, tab, mid,
-                                       p, planes, s);
+    return spectral_gemm<float>(mode, false, dst_f32 != 0, tab, mid, p,
+                                planes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

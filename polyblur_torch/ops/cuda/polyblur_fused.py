@@ -69,10 +69,10 @@ from ._build import (check, check_cuda, count_launch, dtype_code, library,
 from .autograd import records_graph, replay
 
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
-           "stage_tables", "tile_estimate", "tile_estimate_plain",
-           "kernel_spectrum", "kernel_spectrum_plain", "spectrum_plain",
-           "spectral_poly", "spectral_poly_plain", "taper_blend_plain",
-           "polyblur_tiles_fused", "polyblur_image_fused",
+           "stage_tables", "TablePieces", "table_pieces", "tile_estimate",
+           "tile_estimate_plain", "kernel_spectrum", "kernel_spectrum_plain",
+           "spectrum_plain", "spectral_poly", "spectral_poly_plain",
+           "taper_blend_plain", "polyblur_tiles_fused", "polyblur_image_fused",
            "estimate_rows", "estimate_launches", "launch_estimate",
            "launch_spectrum", "launch_spectral_gemm",
            "spectral_gemm_launches", "HALF", "MAX_HALF", "pad64"]
@@ -264,6 +264,31 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
     return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt),
                        wd(_k_padded(fwd.T)), wd(inv.T), wd(_k_padded(t2)),
                        wd(_k_padded(t3)), half)
+
+
+class TablePieces(NamedTuple):
+    """The product tables of the (h, wc) canvas's f32 :class:`StageTables`
+    in their three tf32 pieces, ``(3, rows, ld)`` f32 each ([hi; mid; lo],
+    :func:`_split_tf32`), for ``spectral_gemm``'s ``'highest'`` kernel: it
+    takes each table's pieces by TMA instead of splitting the table in
+    every block."""
+    fwd_t: torch.Tensor     # (3, 2 kp, pad64(wc))
+    inv_t: torch.Tensor     # (3, wc, 2 kp)
+    ydft: torch.Tensor      # (3, 2 h, pad64(2 h))
+    ydft_inv: torch.Tensor  # (3, 2 h, pad64(2 h))
+
+
+@functools.lru_cache(maxsize=16)
+def table_pieces(h: int, wc: int, device: str) -> TablePieces:
+    """The three-piece split of :func:`stage_tables`' product tables for an
+    (h, wc) canvas (they depend on the canvas alone), built once on the
+    host from the same f32 values and cached."""
+    fwd, inv = _dft_operands_packed(wc)
+    cy, sy = _ydft_mats_np(h)
+    mats = (fwd.T, inv.T, np.block([[cy, sy], [-sy, cy]]),
+            np.block([[cy, -sy], [sy, cy]]))
+    return TablePieces(*(torch.tensor(_split_tf32(m, 3), device=device)
+                         for m in mats))
 
 
 # ------------------------------------------------------------- estimation
@@ -621,6 +646,9 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
         check_cuda(name, *taper)
         av, ah = _check_taper(name, g, clip, noise, odt, taper)
     qhat2 = qhat2.contiguous()
+    # the 'highest' kernel takes each table in its three tf32 pieces
+    tabs = table_pieces(g.h, g.wc, str(view.data.device)) if variant \
+        else tables
     # RS / PS: (planes, kp, pad64(2h)); ZZ: (planes, h, 2kp), in mid_a
     # after RS has been read
     l2 = pad64(2 * g.h)
@@ -657,10 +685,10 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
     # (mode, table, operand read, destination, tile size, pad or crop):
     # RS -> mid_a, PS -> mid_b, ZZ -> mid_a, x' -> out
     return out, [
-        launch(1, tables.fwd_t, None, mid_a, view.patch, g.pad),
-        launch(2, tables.ydft, mid_a, mid_b, view.patch, g.pad),
-        launch(3, tables.ydft_inv, mid_b, mid_a, view.patch, g.pad),
-        launch(4, tables.inv_t, mid_a, out, g.out[2:], g.crop)]
+        launch(1, tabs.fwd_t, None, mid_a, view.patch, g.pad),
+        launch(2, tabs.ydft, mid_a, mid_b, view.patch, g.pad),
+        launch(3, tabs.ydft_inv, mid_b, mid_a, view.patch, g.pad),
+        launch(4, tabs.inv_t, mid_a, out, g.out[2:], g.crop)]
 
 
 def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,

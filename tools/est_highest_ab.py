@@ -244,11 +244,16 @@ def run(cmd, cwd) -> str:
     return res.stdout
 
 
-def ab(parent: str, rounds: int, mains: int) -> int:
+def ab_trees(tool: str, outdir: str, parent: str, rounds: int,
+             mains: int) -> int:
+    """Run ``tool OUT`` in the parent tree and in ``.`` as parent, change,
+    change, parent, ``rounds`` times, with the OUT files under ``outdir``;
+    print each timed line's median per tree and the sha256 comparison of
+    every output; then ``mains`` rounds of ``tools/main_path_ab.py 1
+    main``. 0 when every output is sha256-equal to the parent's."""
     import torch
 
-    tool = os.path.abspath(__file__)
-    outdir = os.path.abspath("build/est_ab")
+    outdir = os.path.abspath(outdir)
     os.makedirs(outdir, exist_ok=True)
     trees = {"parent": os.path.abspath(parent), "change": os.getcwd()}
     times = {"parent": {}, "change": {}}
@@ -306,7 +311,8 @@ def main() -> int:
     if len(args) >= 2 and args[0] == "--ab":
         rounds = int(args[2]) if len(args) > 2 else 2
         mains = int(args[3]) if len(args) > 3 else 5
-        return ab(args[1], rounds, mains)
+        return ab_trees(os.path.abspath(__file__), "build/est_ab", args[1],
+                        rounds, mains)
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 2
