@@ -1,0 +1,52 @@
+"""Each cell end to end at a small size on the CPU, through the port's
+plain path: the result line has the shape a run prints, in both modes."""
+
+import json
+import math
+import time
+
+import pytest
+
+from benchmark import harness
+from benchmark.tests.conftest import small
+
+WORKLOADS = ("photo12mp_bf16.single", "photo2mp_flags_bf16.single",
+             "photo2mp_flags_bf16.batch8")
+
+
+def _line(result) -> dict:
+    """The result as its printed line reads back."""
+    return json.loads(json.dumps(result))
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_cell_runs_and_reports(workload, trace):
+    result, info = harness.run_cell(workload, 2 ** 31 + 7, 0.3, bool(trace),
+                                    time.perf_counter(), device="cpu",
+                                    shrink=small)
+    line = _line(result)
+    assert list(line)[:4] == ["correct", "attempted", "failed", "metrics"]
+    assert list(line)[-1] == "checks"
+    assert line["correct"] is True and line["failed"] == 0
+    assert line["attempted"] >= 1
+    assert set(line["device"]) >= {"platform", "kind", "count",
+                                   "memory_peak_bytes"}
+    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    units = {m["name"]: m["unit"]
+             for m in bench["end_to_end"] + bench["per_layer"]}
+    for name, m in line["metrics"].items():
+        assert m["unit"] == units[name]
+        assert math.isfinite(m["value"]) and m["value"] > 0
+    if trace:
+        # on the CPU no device operation runs: only the host's metric
+        assert set(line["metrics"]) == {"host_ms_per_call"}
+        assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert line["device"]["window_s"] > 0
+    else:
+        assert {"mp_per_s", "setup_s"} <= set(line["metrics"])
+    for name, c in line["checks"].items():
+        assert c["value"] <= c["limit"], name
+    # every call of the window took the staged route of the kernels
+    assert info["route"] == {"deblur_patches:staged_tiles":
+                             line["attempted"]}
