@@ -1790,8 +1790,10 @@ def traced_kernels(fn) -> list:
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the program's spans (``pb.*``) have device-side copies: no kernels
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_device_ms(kernels, key: str = "") -> float:

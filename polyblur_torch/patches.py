@@ -50,7 +50,7 @@ from .ops.cuda.polyblur_fused import polyblur_image_fused
 from .pipeline import (_mega_pack, mega_padded_eligible, polyblur_core,
                        prefilter_of, resolve_device)
 from .utils.imaging import build_window_np, clip_as_jax
-from .utils.profiling import record_dispatch
+from .utils.profiling import annotate, record_dispatch, span
 
 __all__ = ["PatchGrid", "plan_patch_grid", "extract_patches", "overlap_add",
            "deblur_patches"]
@@ -246,6 +246,7 @@ _CORE_KEYWORDS = frozenset(inspect.signature(polyblur_core).parameters
                            ) - {"img", "device"}
 
 
+@annotate("pb.deblur_patches")
 def deblur_patches(images, patch_size=400, overlap=0.25,
                    window_type: str = "kaiser",
                    batch_size: Optional[int] = None, out_dtype=None,
@@ -289,15 +290,18 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
         # both routes refuse what polyblur_core would: the staged route
         # reads only some of the keywords
         raise TypeError(f"deblur_patches: unexpected keyword(s) {unknown}")
-    b = x.shape[0]
-    grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
-    reg = _grid_steps(grid)
-    wd = work_dtype or x.dtype
-    n_tiles = len(grid.coords)
-    chunk = (n_tiles if batch_size is None or batch_size <= 0
-             else min(batch_size, n_tiles))
-    gi = None if reg is None else reg + grid.patch_size
-    if gi is None or not mega_padded_eligible(gi, **polyblur_kwargs):
+    with span("pb.plan"):
+        b = x.shape[0]
+        grid = plan_patch_grid(x.shape[-2], x.shape[-1], patch_size, overlap)
+        reg = _grid_steps(grid)
+        wd = work_dtype or x.dtype
+        n_tiles = len(grid.coords)
+        chunk = (n_tiles if batch_size is None or batch_size <= 0
+                 else min(batch_size, n_tiles))
+        gi = None if reg is None else reg + grid.patch_size
+        staged = gi is not None and mega_padded_eligible(gi,
+                                                         **polyblur_kwargs)
+    if not staged:
         # as the JAX package: its mega-kernel routes refuse these
         record_dispatch("deblur_patches", "composed")
         tiles = extract_patches(x.to(wd), grid)
@@ -306,13 +310,18 @@ def deblur_patches(images, patch_size=400, overlap=0.25,
                           **polyblur_kwargs)
             for t0 in range(0, n_tiles, chunk)])
         return overlap_add(restored, grid, b, window_type, out_dtype)
-    n_iter, params, flags = _restoration_params(**polyblur_kwargs)
     record_dispatch("deblur_patches", "staged_tiles")
-    canvas = edge_pad_cast(x, grid.orig_size, grid.pad, wd)
-    coeffs = _mega_pack(*params, device=dev)
-    window, inv_wsum = _blend_constants(grid, window_type, dev)
+    with span("pb.pad"):
+        canvas = edge_pad_cast(x, grid.orig_size, grid.pad, wd)
+    # the plan's second part, after the pad's launch: the coefficients'
+    # copy from pageable host memory synchronizes the stream
+    with span("pb.plan"):
+        n_iter, params, flags = _restoration_params(**polyblur_kwargs)
+        coeffs = _mega_pack(*params, device=dev)
+        window, inv_wsum = _blend_constants(grid, window_type, dev)
     pt, _, pl, _ = grid.pad
     h, w = grid.orig_size
     state = polyblur_image_fused(canvas, coeffs, n_iter, gi, chunk, **flags)
-    return blend_overlap_add(state, window, inv_wsum, gi, b, (pt, pl, h, w),
-                             out_dtype)
+    with span("pb.blend"):
+        return blend_overlap_add(state, window, inv_wsum, gi, b,
+                                 (pt, pl, h, w), out_dtype)

@@ -71,7 +71,7 @@ from .ops.fourier import spectral_gradients
 from .ops.sep_poly import f32_vector
 from .restoration import inverse_filtering_rank3, polynomial_coefficients
 from .utils.imaging import clip_as_jax
-from .utils.profiling import record_dispatch
+from .utils.profiling import annotate, record_dispatch, span
 
 __all__ = ["restore_tiles", "_mega_pack", "_ref_pipeline", "polyblur_core",
            "mega_tile_cap", "resolve_device", "edge_aware_filtering",
@@ -118,36 +118,46 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
     f32 = torch.float32
     noise = None
     base = src
-    if prefilter == "bilateral":
-        # the mega kernel's prefilter ignores sigma_s / sigma_r: (5, 5, 0.1)
-        smooth, noise = bilateral(src, out_dtype=f32, with_noise=True)
-        base = TileView.of_tiles(smooth)
-    elif prefilter == "dt":
-        rows, v_v = dt_scan_rows(src, coeffs)
-        smooth, noise = scan_cols(rows, v_v, src=src)
+    if prefilter is not None:
+        with span("pb.prefilter"):
+            if prefilter == "bilateral":
+                # the mega kernel's prefilter ignores sigma_s / sigma_r:
+                # (5, 5, 0.1)
+                smooth, noise = bilateral(src, out_dtype=f32,
+                                          with_noise=True)
+            else:
+                rows, v_v = dt_scan_rows(src, coeffs)
+                smooth, noise = scan_cols(rows, v_v, src=src)
         base = TileView.of_tiles(smooth)
     poly_src, pad, ucmp = base, HALF, base
     if do_taper:
-        n, c = src.n, src.channels
-        h, wc = tables.h, tables.wc
-        khat2 = kernel_spectrum(est, _unit_horner(str(est.device)), tables)
-        av, ah = taper_weights(est, h, wc)
-        xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)
-        u, pad = base, HALF
-        for _ in range(_N_TAPERS):
-            # xc = a u + (1 - a) K u, blended in the product's epilogue
-            spectral_poly(u, khat2, tables, xc, pad=pad, crop=0, clip=False,
-                          out_dtype=f32, taper=(av, ah))
-            u, pad = TileView.of_tiles(xc), 0
-        poly_src = u
-        ucmp = TileView.of_tiles(xc[:, :, HALF:h - HALF, HALF:wc - HALF])
+        with span("pb.taper"):
+            n, c = src.n, src.channels
+            h, wc = tables.h, tables.wc
+            khat2 = kernel_spectrum(est, _unit_horner(str(est.device)),
+                                    tables)
+            av, ah = taper_weights(est, h, wc)
+            xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)
+            u, pad = base, HALF
+            for _ in range(_N_TAPERS):
+                # xc = a u + (1 - a) K u, blended in the product's epilogue
+                spectral_poly(u, khat2, tables, xc, pad=pad, crop=0,
+                              clip=False, out_dtype=f32, taper=(av, ah))
+                u, pad = TileView.of_tiles(xc), 0
+            poly_src = u
+            ucmp = TileView.of_tiles(xc[:, :, HALF:h - HALF, HALF:wc - HALF])
     if grads is not None:
-        o = spectral_poly(poly_src, qhat2, tables, pad=pad, clip=False,
-                          out_dtype=f32)
-        return halo_mask(o, grads, ucmp, noise, out)
-    return spectral_poly(poly_src, qhat2, tables, out, pad=pad, noise=noise)
+        with span("pb.polynomial"):
+            o = spectral_poly(poly_src, qhat2, tables, pad=pad, clip=False,
+                              out_dtype=f32)
+        with span("pb.halo"):
+            return halo_mask(o, grads, ucmp, noise, out)
+    with span("pb.polynomial"):
+        return spectral_poly(poly_src, qhat2, tables, out, pad=pad,
+                             noise=noise)
 
 
+@annotate("pb.restore_tiles")
 def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
                   out: torch.Tensor | None = None, do_taper: bool = False,
                   do_halo: bool = False, prefilter=None) -> torch.Tensor:
@@ -184,11 +194,16 @@ def restore_tiles(tiles, coeffs: torch.Tensor, n_iter: int,
         out = torch.empty((view.n, view.channels, ph, pw), dtype=data.dtype,
                           device=data.device)
     tables = stage_tables(ph, pw, data.dtype, str(data.device))
-    grads = halo_grads(view) if do_halo else None
+    grads = None
+    if do_halo:
+        with span("pb.halo"):
+            grads = halo_grads(view)
     src = view
     for _ in range(n_iter):
-        est = tile_estimate(src, coeffs)
-        qhat2 = kernel_spectrum(est, coeffs, tables)
+        with span("pb.estimate"):
+            est = tile_estimate(src, coeffs)
+        with span("pb.spectrum"):
+            qhat2 = kernel_spectrum(est, coeffs, tables)
         res = _restore_iteration(src, est, qhat2, coeffs, tables, out,
                                  do_taper, grads, prefilter)
         src = TileView.of_tiles(res)

@@ -10,8 +10,15 @@ flag (deblurring.py:59-90) plus a warm-up-then-measure protocol
   outputs before the context exits);
 * :func:`trace` — a ``torch.profiler`` trace of the host and, on CUDA,
   the device, exported as a Chrome trace;
-* :func:`annotate` — a decorator naming a function's span in that trace
-  (``torch.profiler.record_function``);
+* :func:`span` / :func:`annotate` — a span of that trace around a block
+  or every call of a function (``torch.profiler.record_function``),
+  recorded only while a torch profiler runs: without one, a span costs
+  one check of the profiler's state and enters nothing. The program's
+  spans (``pb.*``) mark its layer boundaries: the patch layer's
+  ``pb.deblur_patches`` around ``pb.plan``, ``pb.pad``, ``pb.blend`` and
+  the stage loop's ``pb.restore_tiles``, which holds ``pb.estimate``,
+  ``pb.spectrum``, ``pb.prefilter``, ``pb.taper``, ``pb.polynomial`` and
+  ``pb.halo``;
 * :func:`record_dispatch` / :func:`dispatch_log` — which route each
   dispatch site chose, so route tests can pin the path a call took
   without a profiler. Unlike the JAX package (which records once per
@@ -29,7 +36,7 @@ import time
 
 import torch
 
-__all__ = ["stage_timer", "trace", "annotate", "force_execution",
+__all__ = ["stage_timer", "trace", "span", "annotate", "force_execution",
            "record_dispatch", "dispatch_log", "reset_dispatch_log"]
 
 _DISPATCH_LOG: collections.Counter = collections.Counter()
@@ -111,13 +118,32 @@ def trace(logdir: str = "results/polyblur_trace"):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+#: what :func:`span` returns while no profiler runs: one shared context
+#: that does nothing, so an untraced span allocates nothing
+_NO_SPAN = contextlib.nullcontext()
+#: whether a torch profiler records on this thread (``torch.autograd.
+#: _profiler_enabled``: the profiler's own state, one C call)
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """Context manager naming the enclosed block as the span ``name`` in a
+    running ``torch.profiler`` trace (``torch.profiler.record_function``);
+    while none runs, a context that does nothing. The spans are kept by
+    the profiler and exported by whoever runs it."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 def annotate(name: str):
     """Decorator naming every call of a function as the span ``name`` in
-    a :func:`trace` (``torch.profiler.record_function``)."""
+    a :func:`trace` (:func:`span`: nothing is entered while no profiler
+    runs)."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*args, **kwargs)
 
         return wrapped

@@ -105,8 +105,10 @@ def profile(name, fn, top: int = 10, share_of: str | None = None) -> None:
                                             ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the program's spans (``pb.*``) have device-side copies: no kernels
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = _busy_ms(kernels)
     by_name: dict = {}
     for e in kernels:
