@@ -63,6 +63,20 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// 4D TMA load of one box; coordinates may be negative or past the tensor's
+// extent, where the box reads zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // Generic-proxy shared-memory writes -> visible to TMA and wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -350,6 +364,36 @@ inline bool tma_map_3d(CUtensorMap* map, const void* ptr, bool f32,
             f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             3, const_cast<void*>(ptr), dims, strides, box, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (d3, d2, rows, cols) tensor of 2- or 4-byte elements, rows `ld`, d2
+// `s2` and d3 `s3` elements apart, read as tma_map_3d reads its planes:
+// boxes of 128 bytes x box_rows x 1 x 1, zeros outside the extents. The
+// base and every stride must be whole 16-byte blocks.
+inline bool tma_map_4d(CUtensorMap* map, const void* ptr, bool f32,
+                       long long cols, long long rows, long long d2,
+                       long long d3, long long ld, long long s2,
+                       long long s3, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const long long esz = f32 ? 4 : 2;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(d2),
+                        static_cast<cuuint64_t>(d3)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ld * esz),
+                           static_cast<cuuint64_t>(s2 * esz),
+                           static_cast<cuuint64_t>(s3 * esz)};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esz),
+                       static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -53,20 +53,31 @@
 // Design: A and B are K-major everywhere; TMA brings 128-byte-swizzled
 // tiles through an mbarrier ring from one producer thread, and two
 // consumer warpgroups run wgmma m64n128 on them with f32 accumulators in
-// registers, one MMA group in flight; bf16 products other than mode 1 run
-// two blocks per SM so that one block's epilogue overlaps the other's
-// MMAs. The epilogues (layout change, the spectrum multiply, crop / clip /
-// noise / cast) load what they need first, then store straight from the
-// registers, two elements per store; the taper's blend stages the tile in
-// the idle ring and walks it in row-contiguous float4s (see taper_tile).
-// Mode 1's B operand (the tiles, any
-// stride, replicate-padded, f32 or work dtype) is written into the stages
-// by the producer warpgroups. bf16 operands run on bf16 wgmma; f32
-// operands run 3xTF32 (a = hi + lo, hi = a rounded to tf32; a b ~ hi hi +
-// hi lo + lo hi on tf32 wgmma, ~2^-22 relative per product), the
-// counterpart of the TPU kernel's error-compensated bf16 split
-// (sep_poly_fused.py::_split_bf16); the split is made in shared memory by
-// the consumers.
+// registers, one MMA group in flight; bf16 products run two blocks per SM
+// so that one block's epilogue overlaps the other's MMAs. The epilogues
+// (layout change, the spectrum multiply, crop / clip / noise / cast) load
+// what they need first, then store straight from the registers, two
+// elements per store; the taper's blend stages the tile in the idle ring
+// and walks it in row-contiguous float4s (see taper_tile). Mode 1's B
+// operand (the tiles, replicate-padded, f32 or work dtype) comes by TMA
+// from the source, the tile's origin in the box coordinates, where the
+// work dtype is bf16 and the source's base and strides are whole 16-byte
+// blocks (the TMA feed); otherwise (any stride) the producer warpgroups
+// write all of it into the stages (the gather). On the TMA feed the
+// producer warp rewrites only the column margins of the tile's rows, and
+// the margin rows, which repeat the first and last row, are left as TMA
+// brought them: their columns of C are the copies the epilogue writes of
+// the first and last interior column. A box must start on a 16-byte block
+// of the source (elsewhere it raises an illegal instruction), so a tile
+// whose padded origin lies d columns past one is read from d columns left
+// of it against a copy of F^T moved d columns right: the same products d
+// places later in K, which the tensor cores group into other 16-deep
+// sums, so that RS may differ from the gather's in a last bit (d = 0: the
+// gather's bits). bf16 operands run on bf16 wgmma; f32 operands run
+// 3xTF32 (a = hi + lo, hi = a rounded to tf32; a b ~ hi hi + hi lo + lo hi
+// on tf32 wgmma, ~2^-22 relative per product), the counterpart of the TPU
+// kernel's error-compensated bf16 split (sep_poly_fused.py::_split_bf16);
+// the split is made in shared memory by the consumers.
 //
 // The f32 dot mode 'highest' (ops/cuda/sep_poly_fused.py set_f32_dot_mode,
 // the TPU kernel's Precision.HIGHEST, sep_poly_fused.py:255-258) is a
@@ -319,36 +330,62 @@ kernel_spectrum_kernel(const float* __restrict__ q, int stride, int off,
 // its fastest for bf16. Block tile BM x BN = 128 x 128; K in steps of 128
 // bytes (64 bf16 / 32 f32) through a ring of shared-memory stages. Warps
 // 0-7 are two consumer warpgroups (64 rows each) running wgmma; after
-// them comes the producer: one thread starts the TMA loads, and in mode 1
-// two warpgroups write B (the replicate-padded tiles, any stride or dtype)
-// into the swizzled stage themselves.
+// them comes the producer: one thread starts the TMA loads. Mode 1's B,
+// the replicate-padded tiles, comes one of two ways (the feed, chosen on
+// the host from what the source is: ops/cuda/polyblur_fused.py
+// mode1_feed). With a bf16 work dtype and a source in bf16 or f32 whose
+// base and strides are whole 16-byte blocks, TMA brings the tile's rows as
+// they lie in the source, the tile's origin in the box coordinates, and
+// the producer warp rewrites only the margins (tma_margins); otherwise two
+// producer warpgroups write all of B into the swizzled stage themselves
+// (fill_stage: any stride or dtype).
 
 constexpr int BM = 128;
 constexpr int NCONS = 256;            // two consumer warpgroups
 
-// Per (product, dtype): bf16 modes 2-4 run two blocks per SM (3 stages,
-// one producer warp, 96 registers a thread), so that one block's
-// prologue and epilogue overlap the other's MMAs; mode 1 (whose producer
-// is two warpgroups writing B) and the f32 split (twice the stage bytes)
-// run one block per SM with a deeper ring.
-template <int MODE, typename T>
+// IO flags, template parameters so that each instantiation keeps only its
+// own loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them to
+// the work dtype, mode 4 writes f32 instead of the work dtype; kNoise —
+// mode 4 adds the noise plane after the clip and clips again; kTaper —
+// mode 4 (f32 out, no clip) blends its product with the application's
+// input tiles by the taper weights; kTmaFeed — mode 1 (bf16) takes the
+// tiles by TMA.
+constexpr int kF32IO = 1, kNoise = 2, kTaper = 4, kTmaFeed = 8;
+
+// Per (product, dtype, feed): bf16 modes 2-4 and mode 1 on the TMA feed
+// run two blocks per SM (one producer warp, 96 registers a thread), so
+// that one block's prologue and epilogue overlap the other's MMAs; mode 1
+// on the gather (whose producer is two warpgroups writing B) and the f32
+// split (twice the stage bytes) run one block per SM with a deeper ring.
+// The TMA feed of f32 tiles brings each stage's 64 columns as two f32
+// boxes, which the consumers round to bf16 in place into the first: its
+// 48 KB stages fit two blocks per SM at two stages. (Rounding them into
+// wgmma's A fragments instead, C^T = data table^T, ran 1.5x slower: the
+// registers allow one MMA group at a time.)
+template <int MODE, typename T, int IO = 0>
 struct Cfg {
   static constexpr int BK = 128 / sizeof(T);       // K per stage
   static constexpr bool kSplit = sizeof(T) == 4;   // 3xTF32
   static constexpr int PIECES = kSplit ? 2 : 1;
-  static constexpr bool kPair = !kSplit && MODE != 1;
+  static constexpr bool kFeed =
+      MODE == 1 && !kSplit && (IO & kTmaFeed) != 0;
+  static constexpr bool kF32In = kFeed && (IO & kF32IO) != 0;
+  static constexpr bool kPair = !kSplit && (MODE != 1 || kFeed);
   static constexpr int BN = 128;                   // tile columns
   static constexpr int ACC = BN / 2;               // accumulator floats
-  // producer threads: mode 1 writes B with two warpgroups
-  static constexpr int NPROD = MODE == 1 ? 256 : kPair ? 32 : 128;
+  // producer threads: the gather writes B with two warpgroups
+  static constexpr int NPROD = MODE == 1 && !kFeed ? 256 : kPair ? 32 : 128;
   static constexpr int NT = NCONS + NPROD;
   static constexpr int BLOCKS = kPair ? 2 : 1;     // per SM
-  static constexpr int STAGES = kSplit || kPair ? 3 : 4;
+  static constexpr int STAGES = kF32In ? 2 : kSplit || kPair ? 3 : 4;
   static constexpr int A_BYTES = BM * 128;
   static constexpr int B_BYTES = BN * 128;
+  // the fed B as TMA brings it: one box of the source's 128-byte rows, or
+  // two of f32
+  static constexpr int B_RAW = kF32In ? 2 * B_BYTES : B_BYTES;
   // per stage: A, B, and for the split their smaller pieces after them
   static constexpr int PAIR = A_BYTES + B_BYTES;
-  static constexpr int STAGE = PAIR * PIECES;
+  static constexpr int STAGE = kF32In ? A_BYTES + B_RAW : PAIR * PIECES;
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
@@ -364,15 +401,10 @@ struct GemmParams {
   const float* av;      // mode 4 with the taper: (n, h) row weights
   const float* ah;      //   and (n, wc) column weights
   int tpad, tu_f32;     //   src padded by tpad onto the canvas; f32 or T
+  int src_w;            // mode 1's TMA feed: the source's columns
+  void* rnd;            // mode 4 with the taper: the output in bf16 too, or
+                        //   null
 };
-
-// IO flags, template parameters so that each instantiation keeps only its
-// own loads and stores: kF32IO — mode 1 reads f32 tiles and rounds them to
-// the work dtype, mode 4 writes f32 instead of the work dtype; kNoise —
-// mode 4 adds the noise plane after the clip and clips again; kTaper —
-// mode 4 (f32 out, no clip) blends its product with the application's
-// input tiles by the taper weights.
-constexpr int kF32IO = 1, kNoise = 2, kTaper = 4;
 
 __device__ __forceinline__ uint32_t pack2(bf16 a, bf16 b) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
@@ -530,6 +562,145 @@ __device__ __forceinline__ void fill_stage(const GemmParams& p,
   }
 }
 
+// pad(x)'s element at column x of a row whose first and last elements have
+// the bits el and er, where TMA brought `keep` (interior columns lo .. hi -
+// 1 of wc): 0 left of column 0 and from wc on.
+__device__ __forceinline__ uint32_t margin_bits(int x, uint32_t keep,
+                                                uint32_t el, uint32_t er,
+                                                int lo, int hi, int wc) {
+  return x < 0 || x >= wc ? 0u : x < lo ? el : x >= hi ? er : keep;
+}
+
+// Mode 1's TMA feed: lane t's rows of pad(x) in a block of BN rows from
+// n0 are n0 + t + 32 i; el[i], er[i] get the bits of the first and last
+// element of the tile's row there where it is one (load once a block).
+template <typename TS, int BN>
+__device__ __forceinline__ void row_ends(const GemmParams& p, const TS* src,
+                                         int n0, int t,
+                                         uint32_t (&el)[BN / 32],
+                                         uint32_t (&er)[BN / 32]) {
+  using U = typename std::conditional<sizeof(TS) == 4, uint32_t,
+                                      unsigned short>::type;
+  const U* s = reinterpret_cast<const U*>(src);
+#pragma unroll
+  for (int i = 0; i < BN / 32; ++i) {
+    const int y = n0 + t + 32 * i - p.half;    // the tile's row
+    el[i] = er[i] = 0u;
+    if (y >= 0 && y < p.ph) {
+      const U* row = s + static_cast<long long>(y) * p.src.sR;
+      el[i] = __ldg(row);
+      er[i] = __ldg(row + p.pw - 1);
+    }
+  }
+}
+
+// Mode 1's TMA feed, the producer warp's part of a stage that reaches the
+// column margins: `raw` holds NBOX boxes of the source's 128-byte rows in
+// the stage's swizzle for rows n0 .. n0 + BN - 1 of pad(x), as TMA brought
+// them from around the tile (done on `landed`, phase par); stage column k
+// holds pad(x)'s column k0 + k - d, d the feed's shift (see gemm_kernel).
+// In every interior row the chunks that reach left of `half` or past half
+// + pw - 1 are rewritten: the row's first element (el) left of `half`, its
+// last (er) from half + pw on, 0 left of column 0 and from wc on, TMA's
+// elements between; a lane's four rows at once, a chunk of one kind of
+// column stored whole without a load. The margin rows are left as TMA
+// brought them: each reaches only its own column of C, which the epilogue
+// writes from the interior row it repeats (feed_store_pair).
+template <typename TS, int NBOX, int BN>
+__device__ __forceinline__ void tma_margins(
+    const GemmParams& p, int n0, int k0, int d, uint8_t* raw,
+    uint32_t landed, uint32_t par, int t, const uint32_t (&el)[BN / 32],
+    const uint32_t (&er)[BN / 32]) {
+  constexpr int E = 16 / sizeof(TS);   // elements per 16-byte chunk
+  constexpr int CH = NBOX * 8;         // chunks per stage row
+  constexpr int RPL = BN / 32;         // rows per lane
+  const int lo = p.half, hi = p.half + p.pw;   // pad(x)'s interior columns
+  const int x_k0 = k0 - d;                     // stage column 0's
+  // chunks 0 .. jl - 1 reach left of lo, jr .. CH - 1 past hi - 1
+  const int jl = min(CH, max(0, (lo - x_k0 + E - 1) / E));
+  const int jr = max(jl, min(CH, max(0, (hi - x_k0) / E)));
+  pb::mbar_wait(landed, par);
+#pragma unroll 1
+  for (int j = jl > 0 ? 0 : jr; j < CH; j = j + 1 == jl ? jr : j + 1) {
+    const int x0 = x_k0 + j * E, x1 = x0 + E;
+    uint4* q[RPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const int r = t + 32 * i;
+      q[i] = reinterpret_cast<uint4*>(raw + (j / 8) * (BN * 128) + r * 128 +
+                                      (((j & 7) ^ (r & 7)) << 4));
+    }
+    // a chunk of one kind of column takes one value, without a load
+    const int kind = x1 <= 0 || x0 >= p.wc       ? 0
+                     : x0 >= 0 && x1 <= lo        ? 1
+                     : x0 >= hi && x1 <= p.wc     ? 2
+                                                  : 3;
+    if (kind < 3) {
+#pragma unroll
+      for (int i = 0; i < RPL; ++i) {
+        const int y = n0 + t + 32 * i - p.half;
+        if (y < 0 || y >= p.ph) continue;      // a margin row
+        uint32_t w = kind == 0 ? 0u : kind == 1 ? el[i] : er[i];
+        if constexpr (E == 8) w |= w << 16;
+        *q[i] = make_uint4(w, w, w, w);
+      }
+      continue;
+    }
+    uint4 v[RPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) v[i] = *q[i];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const int y = n0 + t + 32 * i - p.half;
+      if (y < 0 || y >= p.ph) continue;        // a margin row
+      uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (E == 4) {
+          w[k] = margin_bits(x0 + k, w[k], el[i], er[i], lo, hi, p.wc);
+        } else {
+          const uint32_t a = margin_bits(x0 + 2 * k, w[k] & 0xffffu, el[i],
+                                         er[i], lo, hi, p.wc);
+          const uint32_t b = margin_bits(x0 + 2 * k + 1, w[k] >> 16, el[i],
+                                         er[i], lo, hi, p.wc);
+          w[k] = a | (b << 16);
+        }
+      }
+      *q[i] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The TMA feed of f32 tiles, on the consumers: the stage's two f32 boxes
+// (columns k0 .. k0 + 31 and k0 + 32 .. k0 + 63 of 128 rows) rounded to
+// bf16 in place into the first, which then is B, as the gather rounds
+// them. Thread tid takes half tid % 2 of row tid / 2: it reads its box's
+// row, and writes its four chunks of the first box's row once its warp,
+// which holds the row's other half, has read.
+__device__ __forceinline__ void round_f32_stage(uint8_t* raw, int tid) {
+  constexpr int kBox = 128 * 128;
+  const int r = tid >> 1, hf = tid & 1, sw = r & 7;
+  const uint8_t* row = raw + hf * kBox + r * 128;
+  uint4 w[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 a =
+        *reinterpret_cast<const float4*>(row + (((2 * m) ^ sw) << 4));
+    const float4 b =
+        *reinterpret_cast<const float4*>(row + (((2 * m + 1) ^ sw) << 4));
+    w[m] = make_uint4(
+        pack2(__float2bfloat16_rn(a.x), __float2bfloat16_rn(a.y)),
+        pack2(__float2bfloat16_rn(a.z), __float2bfloat16_rn(a.w)),
+        pack2(__float2bfloat16_rn(b.x), __float2bfloat16_rn(b.y)),
+        pack2(__float2bfloat16_rn(b.z), __float2bfloat16_rn(b.w)));
+  }
+  __syncwarp();
+  uint8_t* out = raw + r * 128;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    *reinterpret_cast<uint4*>(out + (((4 * hf + m) ^ sw) << 4)) = w[m];
+}
+
 using pb::tf32_hi;
 
 // 3xTF32: the raw f32 tile at `raw` becomes its tf32 part in place, its
@@ -576,7 +747,8 @@ __device__ __forceinline__ float taper_blend(float a, float u, float ku) {
 // is the application's input (mode 1's TileView, f32 or T) replicate-padded
 // by tpad, or with tpad = 0 the destination itself: mode 1 has read it
 // before mode 4 runs, and each element is loaded and stored by the same
-// thread, loads first.
+// thread, loads first. With p.rnd each xc is also stored rounded to bf16
+// there.
 template <typename TU, int BN>
 __device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
                                            int m0, int n0, const float* tile,
@@ -592,6 +764,8 @@ __device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
   const int uh = p.h - 2 * p.tpad, uw = p.wc - 2 * p.tpad;
   const float* avn = p.av + static_cast<long long>(n) * p.h;
   float* dst = static_cast<float*>(p.dst) + pl * p.dplane;
+  bf16* rnd = p.rnd == nullptr ? nullptr
+                               : static_cast<bf16*>(p.rnd) + pl * p.dplane;
   // a thread's chunks share one float4 column j .. j + 3 of the tile
   const int c4 = t % kC4, r0 = t / kC4, j = n0 + 4 * c4;
   const bool whole = j + 3 < p.N;
@@ -633,7 +807,8 @@ __device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
       for (int e = 0; e < 4; ++e)
         x[b][e] = taper_blend(__fmul_rn(ai[b], w[e]), x[b][e], ku[e]);
       if (i >= p.M) continue;
-      float* d = dst + static_cast<long long>(i) * p.ldd + j;
+      const long long o = static_cast<long long>(i) * p.ldd + j;
+      float* d = dst + o;
       if (whole && (reinterpret_cast<uintptr_t>(d) & 15) == 0) {
         *reinterpret_cast<float4*>(d) =
             make_float4(x[b][0], x[b][1], x[b][2], x[b][3]);
@@ -641,6 +816,20 @@ __device__ __forceinline__ void taper_tile(const GemmParams& p, int pl,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (j + e < p.N) d[e] = x[b][e];
+      }
+      if (rnd != nullptr) {  // the canvas rounded to bf16 besides
+        bf16* r = rnd + o;
+        if (whole && (reinterpret_cast<uintptr_t>(r) & 7) == 0) {
+          *reinterpret_cast<uint2*>(r) = make_uint2(
+              pack2(__float2bfloat16_rn(x[b][0]),
+                    __float2bfloat16_rn(x[b][1])),
+              pack2(__float2bfloat16_rn(x[b][2]),
+                    __float2bfloat16_rn(x[b][3])));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j + e < p.N) r[e] = __float2bfloat16_rn(x[b][e]);
+        }
       }
     }
   }
@@ -715,6 +904,40 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int pl, int i,
   if (two && !pair) d[o + 1] = pb::from_f32<T>(b);
 }
 
+// Mode 1 on the TMA feed: B's margin rows were left as TMA brought them,
+// so C's columns left of `half` and from half + ph on (rows of pad(x) that
+// repeat the tile's first and last) are copies of its first and last
+// interior columns, the same products: the block that holds such a column
+// writes its copies, and no block writes a margin column from its own
+// accumulators.
+template <typename T>
+__device__ __forceinline__ void feed_store(const GemmParams& p, int pl, int i,
+                                           int j, float v) {
+  const int lo = p.half, hi = p.half + p.ph;  // interior columns
+  if (i >= p.M || j < lo || j >= hi) return;
+  const bool im = i >= p.kp;
+  T* row = static_cast<T*>(p.dst) + pl * p.dplane +
+           static_cast<long long>(im ? i - p.kp : i) * p.ldd + (im ? p.h : 0);
+  const T b = pb::from_f32<T>(v);
+  row[j] = b;
+  if (j == lo)
+    for (int k = 0; k < lo; ++k) row[k] = b;
+  if (j == hi - 1)
+    for (int k = hi; k < p.N; ++k) row[k] = b;
+}
+
+template <typename T, int IO>
+__device__ __forceinline__ void feed_store_pair(const GemmParams& p, int pl,
+                                                int i, int j, float a,
+                                                float b) {
+  if (i < p.M && j > p.half && j + 2 < p.half + p.ph) {
+    store_pair<1, T, IO>(p, pl, i, j, a, b);  // neither an interior end
+    return;
+  }
+  feed_store<T>(p, pl, i, j, a);
+  feed_store<T>(p, pl, i, j + 1, b);
+}
+
 // The epilogue of a block's 128 x BN tile of C. Accumulator r of consumer
 // thread tid (warpgroup wg, warp, lane) holds C[i, j], i = m0 + 64 wg + 16
 // warp + lane / 4 + 8 ((r / 2) % 2), j = n0 + 8 (r / 4) + 2 (lane % 4) +
@@ -748,6 +971,13 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, int pl, int m0,
   }
   const int i0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
   const int j0 = n0 + 2 * (lane & 3);
+  if constexpr (MODE == 1 && (IO & kTmaFeed) != 0) {
+#pragma unroll
+    for (int r = 0; r < ACC; r += 2)
+      feed_store_pair<T, IO>(p, pl, i0 + 8 * ((r >> 1) & 1),
+                             j0 + 8 * (r >> 2), acc[r], acc[r + 1]);
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < ACC; r += 2)
     finish_pair<MODE, IO>(p, pl, i0 + 8 * ((r >> 1) & 1), j0 + 8 * (r >> 2),
@@ -759,28 +989,56 @@ __device__ __forceinline__ void epilogue(const GemmParams& p, int pl, int m0,
 }
 
 // One (BM x BN) tile of one plane's product. tma_a / tma_b: the A and B
-// operands as (planes, rows, K) maps (mode 1 has no B map: the producer
-// warpgroup writes B).
+// operands as (planes, rows, K) maps; mode 1's B map is the source as
+// (images, channels, rows, columns) on the TMA feed, and none on the
+// gather, whose producer warpgroups write B.
 template <int MODE, typename T, int IO>
-__global__ void __launch_bounds__(Cfg<MODE, T>::NT, Cfg<MODE, T>::BLOCKS)
+__global__ void __launch_bounds__(Cfg<MODE, T, IO>::NT,
+                                  Cfg<MODE, T, IO>::BLOCKS)
 gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
             const __grid_constant__ CUtensorMap tma_b, const GemmParams p) {
-  using Cf = Cfg<MODE, T>;
+  using Cf = Cfg<MODE, T, IO>;
   constexpr int BN = Cf::BN, ACC = Cf::ACC;
-  constexpr bool kPadB = MODE == 1;
+  constexpr bool kPadB = MODE == 1 && !Cf::kFeed;  // the gather
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[Cf::STAGES], empty[Cf::STAGES];
+  __shared__ __align__(8) uint64_t full[Cf::STAGES], empty[Cf::STAGES],
+      landed[Cf::STAGES];
   const uint32_t raw_u32 = pb::smem_u32(smem_raw);
   const uint32_t base = (raw_u32 + 1023u) & ~1023u;
   uint8_t* sbase = smem_raw + (base - raw_u32);
   const int tid = threadIdx.x;
   const int pl = blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (p.K + Cf::BK - 1) / Cf::BK;
+  int nk = (p.K + Cf::BK - 1) / Cf::BK;
+  // The TMA feed: plane pl's tile (TileView) as image img, channel fc of
+  // the source, pad(x)'s origin at (fy, fx + fd). A box's first column
+  // must lie on a 16-byte block, so the boxes start fd columns left of
+  // pad(x)'s and A is F^T moved fd columns right (plane fd of the shifted
+  // tables): the same products, fd columns later in K (fd 0: the gather's
+  // bits exactly).
+  int fc = 0, fimg = 0, fy = 0, fx = 0, fd = 0;
+  if constexpr (Cf::kFeed) {
+    constexpr int E = (IO & kF32IO) != 0 ? 4 : 16 / sizeof(T);
+    const int n = pl / p.C;
+    const int q = n / p.src.batch, tile = p.src.tile0 + q;
+    const int ti = tile / p.src.tiles_w;
+    const int ox = (tile - ti * p.src.tiles_w) * p.src.step_w - p.half;
+    fc = pl - n * p.C;
+    fimg = n - q * p.src.batch;
+    fy = ti * p.src.step_h - p.half;
+    fd = ((ox % E) + E) % E;
+    fx = ox - fd;
+    nk = (p.K + fd + Cf::BK - 1) / Cf::BK;
+  }
   if (tid == 0) {
     for (int s = 0; s < Cf::STAGES; ++s) {
-      pb::mbar_init(pb::smem_u32(&full[s]), kPadB ? 1 + Cf::NPROD : 1);
+      // the TMA feed: the producer warp's 32 arrivals, one of them with
+      // the stage's bytes, or its bytes on `landed` and the 32 after the
+      // margins
+      pb::mbar_init(pb::smem_u32(&full[s]),
+                    kPadB ? 1 + Cf::NPROD : Cf::kFeed ? 32 : 1);
       pb::mbar_init(pb::smem_u32(&empty[s]), NCONS);
+      pb::mbar_init(pb::smem_u32(&landed[s]), 1);
     }
     pb::mbar_fence_init();
   }
@@ -789,6 +1047,55 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   if (tid >= NCONS) {
     // ------------------------------------------------------- producer
     const int t = tid - NCONS;
+    if constexpr (Cf::kFeed) {
+      using TS = typename std::conditional<(IO & kF32IO) != 0, float,
+                                           T>::type;
+      constexpr int NBOX = Cf::B_RAW / Cf::B_BYTES;
+      constexpr int W = 128 / sizeof(TS);  // a box's columns
+      const TS* src = static_cast<const TS*>(p.src.ptr) +
+                      p.src.offset(pl / p.C, fc, 0, 0);
+      uint32_t el[BN / 32], er[BN / 32];
+      row_ends<TS, BN>(p, src, n0, t, el, er);
+      // the zeros left of pad(x) and from its column wc on lie in the
+      // source (outside it TMA brings zeros itself)
+      const int ox = fx + fd;  // pad(x)'s column 0 in the source
+      const bool zl = ox > 0, zr = ox + p.wc < p.src_w;
+      uint32_t lph = 0;  // landed's phase, a bit per stage
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % Cf::STAGES;
+        pb::mbar_wait(pb::smem_u32(&empty[s]),
+                      ((kt / Cf::STAGES) & 1) ^ 1);
+        // whether the stage reaches the column margins: the columns that
+        // repeat the row's ends, or zeros inside the source
+        const int k0 = kt * Cf::BK, x0 = k0 - fd, x1 = x0 + Cf::BK;
+        const bool fix = (x0 < p.half && x1 > 0) ||
+                         (x1 > p.half + p.pw && x0 < p.wc) ||
+                         (x0 < 0 && zl) || (x1 > p.wc && zr);
+        const uint32_t sa = base + s * Cf::STAGE;
+        const uint32_t fb = pb::smem_u32(&full[s]);
+        const uint32_t lb = pb::smem_u32(&landed[s]);
+        if (t == 0) {
+          const uint32_t bar = fix ? lb : fb;
+          pb::mbar_arrive_tx(bar, Cf::A_BYTES + Cf::B_RAW);
+          pb::tma_load_3d(sa, &tma_a, k0, m0, fd, bar);
+#pragma unroll
+          for (int i = 0; i < NBOX; ++i)
+            pb::tma_load_4d(sa + Cf::A_BYTES + i * Cf::B_BYTES, &tma_b,
+                            fx + k0 + i * W, fy + n0, fc, fimg, bar);
+        }
+        if (!fix) {
+          if (t != 0) pb::mbar_arrive(fb);
+          continue;
+        }
+        tma_margins<TS, NBOX, BN>(p, n0, k0, fd,
+                                  sbase + s * Cf::STAGE + Cf::A_BYTES, lb,
+                                  (lph >> s) & 1, t, el, er);
+        lph ^= 1u << s;
+        pb::fence_proxy_async();
+        pb::mbar_arrive(fb);
+      }
+      return;
+    }
     if (!kPadB && t != 0) return;
     // mode 4 reads the rows of the canvas the crop keeps
     const int ra = MODE == 4 ? p.half : 0;
@@ -835,6 +1142,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
     pb::mbar_wait(pb::smem_u32(&full[s]), (kt / Cf::STAGES) & 1);
     const uint32_t sa = base + s * Cf::STAGE + wg * (64 * 128);
     const uint32_t sb = base + s * Cf::STAGE + Cf::A_BYTES;
+    if constexpr (Cf::kF32In) {
+      round_f32_stage(sbase + s * Cf::STAGE + Cf::A_BYTES, tid);
+      pb::fence_proxy_async();
+      pb::named_barrier(1, NCONS);
+    }
     if (Cf::kSplit) {
       uint8_t* st = sbase + s * Cf::STAGE;
       uint8_t* lo = st + Cf::A_BYTES + Cf::B_BYTES;
@@ -876,7 +1188,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
 template <int MODE, typename T, int IO>
 int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
               int planes, cudaStream_t s) {
-  using Cf = Cfg<MODE, T>;
+  using Cf = Cfg<MODE, T, IO>;
   auto kern = gemm_kernel<MODE, T, IO>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
@@ -887,12 +1199,18 @@ int launch_io(const CUtensorMap& a, const CUtensorMap& b, const GemmParams& p,
 }
 
 // f32io: mode 1's tiles / mode 4's output are f32; noise: mode 4 adds it;
-// taper: mode 4 blends (f32 out). An f32 work dtype reads and writes f32
-// anyway, so its f32io cases are not instantiated.
+// taper: mode 4 blends (f32 out); feed: mode 1 (bf16) takes the tiles by
+// TMA, b their map. An f32 work dtype reads and writes f32 anyway, so its
+// f32io cases are not instantiated.
 template <int MODE, typename T>
-int launch_gemm(bool f32io, bool noise, bool taper, const CUtensorMap& a,
-                const CUtensorMap& b, const GemmParams& p, int planes,
-                cudaStream_t s) {
+int launch_gemm(bool f32io, bool noise, bool taper, bool feed,
+                const CUtensorMap& a, const CUtensorMap& b,
+                const GemmParams& p, int planes, cudaStream_t s) {
+  if constexpr (MODE == 1 && sizeof(T) == 2) {
+    if (feed && f32io)
+      return launch_io<1, T, kTmaFeed | kF32IO>(a, b, p, planes, s);
+    if (feed) return launch_io<1, T, kTmaFeed>(a, b, p, planes, s);
+  }
   if constexpr (MODE == 4) {
     constexpr int kOut = sizeof(T) == 4 ? 0 : kF32IO;
     if (taper) return launch_io<4, T, kOut | kTaper>(a, b, p, planes, s);
@@ -1157,8 +1475,16 @@ int launch_hi(const CUtensorMap& d, const CUtensorMap& t, const GemmParams& p,
 // the tables and of RS / PS round up to a whole number of 64-element rows.
 inline int pad64(int n) { return (n + 63) / 64 * 64; }
 
+// The TMA feed's shifted copies of F^T, one per column a bf16 box may
+// start left of pad(x)'s (ops/cuda/polyblur_fused.py fwd_shifts).
+constexpr int kShifts = 8;
+
+// feed (mode 1, bf16): the tiles by TMA from their source, a (src_b,
+// C, src_h, src_w) tensor with the TileView's strides; tab is then F^T's
+// kShifts shifted copies.
 template <typename T>
-int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
+int spectral_gemm(int mode, bool src_f32, bool dst_f32, bool feed,
+                  int src_b, int src_h, int src_w, const void* tab,
                   const void* mid, GemmParams& p, int planes,
                   cudaStream_t s) {
   const bool f32 = sizeof(T) == 4;
@@ -1169,27 +1495,40 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
   CUtensorMap a, b;
   bool ok = true;
   switch (mode) {
-    case 1:  // A = F^T (2kp x wc); B from the tiles
+    case 1: {  // A = F^T (2kp x wc); B from the tiles
       p.M = 2 * kp; p.N = h; p.K = p.wc; p.ldd = l2; p.dplane = rs;
-      ok = pb::tma_map_3d(&a, tab, f32, p.wc, 2 * kp, 1, pad64(p.wc),
-                          2LL * kp * pad64(p.wc), BM);
+      // the TMA feed's A: F^T moved 0 .. 7 columns right, (8, 2kp, lt)
+      feed = feed && sizeof(T) == 2;
+      const long long lt = pad64(p.wc + (feed ? kShifts - 1 : 0));
+      ok = pb::tma_map_3d(&a, tab, f32, feed ? lt : p.wc, 2 * kp,
+                          feed ? kShifts : 1, lt, 2LL * kp * lt, BM);
       b = a;
+      if (ok && feed) {
+        // a single image's or channel's stride is never stepped: any
+        // whole-block one does
+        const long long sc = p.C > 1 ? p.src.sC : p.src.sR * src_h;
+        const long long sb = src_b > 1 ? p.src.sB : sc * p.C;
+        ok = pb::tma_map_4d(&b, p.src.ptr, src_f32, src_w, src_h, p.C, src_b,
+                            p.src.sR, sc, sb, BN);
+      }
       if (!ok) break;
-      return launch_gemm<1, T>(src_f32, false, false, a, b, p, planes, s);
+      return launch_gemm<1, T>(src_f32, false, false, feed, a, b, p, planes,
+                               s);
+    }
     case 2:  // A = RS (kp x 2h), B = T2 (2h x 2h)
       p.M = kp; p.N = 2 * h; p.K = 2 * h; p.ldd = l2; p.dplane = rs;
       ok = pb::tma_map_3d(&a, mid, f32, 2 * h, kp, planes, l2, rs, BM) &&
            pb::tma_map_3d(&b, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BN);
       if (!ok) break;
-      return launch_gemm<2, T>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<2, T>(false, false, false, false, a, b, p, planes, s);
     case 3:  // A = T3 (2h x 2h), B = PS (kp x 2h)
       p.M = 2 * h; p.N = kp; p.K = 2 * h; p.ldd = 2 * kp; p.dplane = zz;
       ok = pb::tma_map_3d(&a, tab, f32, 2 * h, 2 * h, 1, l2, 2LL * h * l2,
                           BM) &&
            pb::tma_map_3d(&b, mid, f32, 2 * h, kp, planes, l2, rs, BN);
       if (!ok) break;
-      return launch_gemm<3, T>(false, false, false, a, b, p, planes, s);
+      return launch_gemm<3, T>(false, false, false, false, a, b, p, planes, s);
     case 4:  // A = ZZ (h x 2kp) from row `half`, B = G^T (wc x 2kp)
       p.M = p.ph; p.N = p.pw; p.K = 2 * kp; p.ldd = p.pw;
       p.dplane = static_cast<long long>(p.ph) * p.pw;
@@ -1198,7 +1537,7 @@ int spectral_gemm(int mode, bool src_f32, bool dst_f32, const void* tab,
                           2LL * kp * p.wc, BN);
       if (!ok) break;
       return launch_gemm<4, T>(dst_f32, p.noise != nullptr, p.av != nullptr,
-                               a, b, p, planes, s);
+                               false, a, b, p, planes, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1314,7 +1653,13 @@ extern "C" int pb_kernel_spectrum(const float* q, int stride, int off,
 // (mode 4, f32 (planes, ph, pw) or null) is then added and the sum clipped
 // again. av, ah (mode 4, the taper's (n, h) and (n, wc) f32 weights, or
 // null): the output is the whole canvas (half 0) in f32, unclipped, blended
-// with the tiles of the TileView padded by tpad, x' = a pad(x) + (1 - a) x'.
+// with the tiles of the TileView padded by tpad, x' = a pad(x) + (1 - a) x';
+// rnd (with the taper in bf16, or null): a bf16 canvas of the output's
+// shape that also gets x', rounded (the next application's mode-1 source).
+// feed (mode 1, bf16 work dtype): the tiles by TMA, their source a (src_b,
+// C, src_h, src_w) tensor whose base and strides are whole 16-byte blocks
+// (ops/cuda/polyblur_fused.py mode1_feed), tab F^T's 8 shifted copies
+// (8, 2kp, pad64(wc + 7)) (fwd_shifts); 0: the producers' gather.
 // high (f32 only): the 'highest' kernel (three pieces, six products; tab
 // is then the table's (3, rows, ld) tf32 pieces, ops/cuda/polyblur_fused.py
 // table_pieces); 0 the 3xTF32 one (ops/cuda/sep_poly_fused.py dot_variant).
@@ -1327,7 +1672,8 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
                                 int planes, int C, int ph, int pw, int h,
                                 int wc, int kp, int half, int clip,
                                 const float* av, const float* ah, int tpad,
-                                int high, void* stream) {
+                                void* rnd, int feed, int src_b, int src_h,
+                                int src_w, int high, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool taper = mode == 4 && av != nullptr;
   if (high != 0 && (high != 1 || dtype != pb::kF32))
@@ -1354,13 +1700,15 @@ extern "C" int pb_spectral_gemm(int mode, int dtype, const void* ptr,
   p.ah = taper ? ah : nullptr;
   p.tpad = tpad;
   p.tu_f32 = src_f32 != 0 || dtype == pb::kF32;
+  p.src_w = src_w;
+  p.rnd = taper && dtype == pb::kBF16 ? rnd : nullptr;
   if (dtype == pb::kBF16)
-    return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, tab, mid, p,
-                               planes, s);
+    return spectral_gemm<bf16>(mode, src_f32 != 0, dst_f32 != 0, feed != 0,
+                               src_b, src_h, src_w, tab, mid, p, planes, s);
   if (dtype == pb::kF32 && high)
     return spectral_gemm_hi(mode, tab, mid, p, planes, s);
   if (dtype == pb::kF32)
-    return spectral_gemm<float>(mode, false, dst_f32 != 0, tab, mid, p,
-                                planes, s);
+    return spectral_gemm<float>(mode, false, dst_f32 != 0, false, src_b,
+                                src_h, src_w, tab, mid, p, planes, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

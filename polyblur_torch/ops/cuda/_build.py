@@ -34,8 +34,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build", "library", "check", "check_cuda", "stream_of",
-           "dtype_code", "count_launch", "launches", "reset_launches",
-           "runs_plain", "plain_versions", "plain_mode"]
+           "dtype_code", "count_launch", "launches", "count_feed", "feeds",
+           "reset_launches", "runs_plain", "plain_versions", "plain_mode"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -47,6 +47,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 launches: collections.Counter = collections.Counter()
+
+#: ``spectral_gemm``'s mode-1 launches since the last
+#: :func:`reset_launches`, by the way their tiles reach the stages:
+#: ``"tma"`` or ``"gather"`` (``polyblur_fused.mode1_feed``). Each is one of
+#: :data:`launches` too.
+feeds: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -63,8 +69,13 @@ def count_launch(name: str) -> None:
     launches[name] += 1
 
 
+def count_feed(feed: str) -> None:
+    feeds[feed] += 1
+
+
 def reset_launches() -> None:
     launches.clear()
+    feeds.clear()
 
 
 def plain_mode() -> bool:

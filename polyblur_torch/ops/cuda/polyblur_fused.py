@@ -64,8 +64,8 @@ from ..spectral_matmul import _derivative_matrix_np, require_full_f32
 from ..tables import (N_ANGLES, N_INTERP, _dft_operands_packed,
                       _interp_weights_np, _packed_k, _tap_tables_np,
                       _ydft_mats_np)
-from ._build import (check, check_cuda, count_launch, dtype_code, library,
-                     runs_plain, stream_of)
+from ._build import (check, check_cuda, count_feed, count_launch,
+                     dtype_code, library, runs_plain, stream_of)
 from .autograd import records_graph, replay
 
 __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
@@ -75,7 +75,8 @@ __all__ = ["TileView", "EstimateTables", "estimate_tables", "StageTables",
            "taper_blend_plain", "polyblur_tiles_fused", "polyblur_image_fused",
            "estimate_rows", "estimate_launches", "launch_estimate",
            "launch_spectrum", "launch_spectral_gemm",
-           "spectral_gemm_launches", "HALF", "MAX_HALF", "pad64"]
+           "spectral_gemm_launches", "mode1_feed", "fwd_shifts", "HALF",
+           "MAX_HALF", "pad64"]
 
 HALF = 12            # kernel half-support (ker_size 25)
 MAX_HALF = 15        # 31 taps: the tap tables' 32 columns
@@ -264,6 +265,28 @@ def stage_tables(ph: int, pw: int, dtype: torch.dtype, device: str,
     return StageTables(pad, f32(er), f32(ei), f32(cyt), f32(syt),
                        wd(_k_padded(fwd.T)), wd(inv.T), wd(_k_padded(t2)),
                        wd(_k_padded(t3)), half)
+
+
+#: F^T's shifted copies of :func:`fwd_shifts`: one per column a 16-byte
+#: block holds of bf16
+SHIFTS = 8
+
+
+@functools.lru_cache(maxsize=16)
+def fwd_shifts(wc: int, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """``(SHIFTS, 2 kp, pad64(wc + SHIFTS - 1))``: copy d of the work-dtype
+    x-rDFT table F^T (:class:`StageTables` ``fwd_t``, the same values)
+    moved d columns right, zeros elsewhere. ``spectral_gemm``'s first
+    product on the TMA feed (:func:`mode1_feed`) reads its tiles from d
+    columns left of their padded origin, the nearest 16-byte block, and
+    copy d of the table beside them; copy 0 is ``fwd_t`` itself."""
+    fwd, _ = _dft_operands_packed(wc)
+    ft = torch.tensor(np.ascontiguousarray(fwd.T), device=device).to(dtype)
+    out = torch.zeros((SHIFTS, ft.shape[0], pad64(wc + SHIFTS - 1)),
+                      dtype=dtype, device=device)
+    for d in range(SHIFTS):
+        out[d, :, d:d + wc] = ft
+    return out
 
 
 class TablePieces(NamedTuple):
@@ -604,17 +627,41 @@ def _check_taper(name: str, g: _Geometry, clip: bool, noise, odt, taper):
     return av.float().contiguous(), ah.float().contiguous()
 
 
+def mode1_feed(src_dtype: torch.dtype, work_dtype: torch.dtype, base: int,
+               strides, sizes) -> str:
+    """How ``spectral_gemm``'s first product takes its tiles from their
+    (B, C, H, W) source, of element ``strides`` and ``sizes`` at address
+    ``base``: ``"tma"`` where the work dtype is bf16, the source bf16 or
+    f32, and the base and the row pitch, and the channel and image strides
+    where there is more than one, whole 16-byte blocks, as a TMA map needs
+    them (the tiles themselves may start anywhere: the map spans the whole
+    source); otherwise ``"gather"``, the producer warpgroups' loads, which
+    take any stride."""
+    if work_dtype != torch.bfloat16 \
+            or src_dtype not in (torch.bfloat16, torch.float32):
+        return "gather"
+    esz = 2 if src_dtype == torch.bfloat16 else 4
+    s_b, s_c, s_r = strides[:3]
+    n_b, n_c = sizes[:2]
+    if base % 16 or (s_r * esz) % 16 or (n_c > 1 and (s_c * esz) % 16) \
+            or (n_b > 1 and (s_b * esz) % 16):
+        return "gather"
+    return "tma"
+
+
 def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
                            tables: StageTables, out: torch.Tensor | None,
                            clip: bool, name: str, pad: int | None = None,
                            crop: int | None = None,
                            noise: torch.Tensor | None = None,
                            out_dtype: torch.dtype | None = None,
-                           taper=None):
+                           taper=None, rounded: torch.Tensor | None = None,
+                           view1: TileView | None = None):
     """The four ``pb_spectral_gemm`` launches of one application, not yet
     run: (out, [mode 1, mode 2, mode 3, mode 4]), each a callable that
     launches its product and counts it under ``name`` (``name[highest]``
-    for an f32 work dtype under the f32 dot mode ``'highest'``); see
+    for an f32 work dtype under the f32 dot mode ``'highest'``), mode 1
+    also its feed (:func:`mode1_feed`) in ``_build.feeds``; see
     :func:`spectral_poly`. Run in order they are the application; one alone
     is a product on the intermediates the last run left."""
     from .sep_poly_fused import dot_variant, launch_name  # imports us
@@ -645,6 +692,16 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
     if taper is not None:
         check_cuda(name, *taper)
         av, ah = _check_taper(name, g, clip, noise, odt, taper)
+    if rounded is not None and (
+            taper is None or g.wd != torch.bfloat16
+            or rounded.shape != g.out or rounded.dtype != g.wd
+            or not rounded.is_contiguous()):
+        raise ValueError(f"{name}: bad rounded tensor")
+    view1 = view if view1 is None else view1
+    if view1.patch != view.patch or view1.n != view.n \
+            or view1.channels != c \
+            or view1.data.dtype not in (g.wd, torch.float32):
+        raise ValueError(f"{name}: mode 1's tiles do not match the tiles")
     qhat2 = qhat2.contiguous()
     # the 'highest' kernel takes each table in its three tf32 pieces
     tabs = table_pieces(g.h, g.wc, str(view.data.device)) if variant \
@@ -659,33 +716,54 @@ def spectral_gemm_launches(view: TileView, qhat2: torch.Tensor,
     lib = library("spectral")
     fn = lib.pb_spectral_gemm
     fn.argtypes = ([_I, _I] + _VIEW_ARGTYPES + [_I] + [_P] * 3 + [_I]
-                   + [_P] * 2 + [_I] * 9 + [_P] * 2 + [_I, _I, _P])
+                   + [_P] * 2 + [_I] * 9 + [_P] * 2 + [_I, _P] + [_I] * 5
+                   + [_P])
     fn.restype = _I
-    args = [dtype_code(g.wd)] + view.c_args() + [
-        int(view.data.dtype == torch.float32)]
+
+    def source(v):
+        """The C arguments of the tiles ``v``: the view, whether f32, and
+        mode 1's feed with the source's (B, H, W), which its TMA map
+        spans."""
+        d = v.data
+        f = mode1_feed(d.dtype, g.wd, d.data_ptr(), d.stride(), d.shape)
+        return ([dtype_code(g.wd)] + v.c_args()
+                + [int(d.dtype == torch.float32)],
+                [int(f == "tma"), d.shape[0], d.shape[2], d.shape[3]], f)
+
+    args, src4, _ = source(view)
+    args1, src1, feed = source(view1)
+    # the TMA feed's table is F^T's shifted copies
+    fwd = fwd_shifts(g.wc, g.wd, str(view.data.device)) if feed == "tma" \
+        else tabs.fwd_t
     rest = [int(odt == torch.float32), qhat2.data_ptr(),
             None if noise is None else noise.data_ptr(), planes, c]
     weights = [None, None] if av is None else [av.data_ptr(), ah.data_ptr()]
+    rnd = None if rounded is None else rounded.data_ptr()
     stream = stream_of(out)
 
     def launch(mode, tab, mid, dst, tile, half):
+        a, src = (args1, src1) if mode == 1 else (args, src4)
+
         def run():
-            err = fn(mode, *args, tab.data_ptr(),
+            err = fn(mode, *a, tab.data_ptr(),
                      None if mid is None else mid.data_ptr(),
                      dst.data_ptr(), *rest, *tile, g.h, g.wc, kp, half,
-                     int(clip), *weights, g.pad, variant, stream)
+                     int(clip), *weights, g.pad, rnd, *src, variant,
+                     stream)
             count_launch(counter)
+            if mode == 1:
+                count_feed(feed)
             check(lib, err, f"{name} mode {mode}")
         # the tensors behind the pointers in args, rest and weights (qhat2,
         # av and ah may be contiguous copies made here), alive while the
         # launch may run
-        run.tensors = (view.data, qhat2, noise, av, ah)
+        run.tensors = (view.data, view1.data, qhat2, noise, av, ah, rounded)
         return run
 
     # (mode, table, operand read, destination, tile size, pad or crop):
     # RS -> mid_a, PS -> mid_b, ZZ -> mid_a, x' -> out
     return out, [
-        launch(1, tabs.fwd_t, None, mid_a, view.patch, g.pad),
+        launch(1, fwd, None, mid_a, view.patch, g.pad),
         launch(2, tabs.ydft, mid_a, mid_b, view.patch, g.pad),
         launch(3, tabs.ydft_inv, mid_b, mid_a, view.patch, g.pad),
         launch(4, tabs.inv_t, mid_a, out, g.out[2:], g.crop)]
@@ -697,12 +775,13 @@ def launch_spectral_gemm(view: TileView, qhat2: torch.Tensor,
                          crop: int | None = None,
                          noise: torch.Tensor | None = None,
                          out_dtype: torch.dtype | None = None,
-                         taper=None) -> torch.Tensor:
+                         taper=None, rounded: torch.Tensor | None = None,
+                         view1: TileView | None = None) -> torch.Tensor:
     """One application: the four launches of
     :func:`spectral_gemm_launches` in order."""
     out, launches = spectral_gemm_launches(view, qhat2, tables, out, clip,
                                            name, pad, crop, noise, out_dtype,
-                                           taper)
+                                           taper, rounded, view1)
     for run in launches:
         run()
     return out
@@ -713,7 +792,8 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
                   pad: int | None = None, crop: int | None = None,
                   noise: torch.Tensor | None = None,
                   out_dtype: torch.dtype | None = None,
-                  taper=None) -> torch.Tensor:
+                  taper=None, rounded: torch.Tensor | None = None,
+                  view1: TileView | None = None) -> torch.Tensor:
     """One application of the spectral polynomial ``qhat2`` to every tile
     and channel: ``crop(p(K) pad(x))`` on the (h, wc) canvas of ``tables``,
     clipped to [0, 1] when ``clip``, with ``noise`` added and clipped again
@@ -735,6 +815,12 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
         becomes ``a pad(x) + (1 - a) p(K) pad(x)`` with ``a = av[i]
         ah[j]``, blended in the last product's epilogue (see
         :func:`taper_blend_plain`); ``out`` may be the canvas ``x`` reads
+    :param rounded: with the taper in a bf16 work dtype, a canvas of the
+        output's shape in bf16 that gets the output rounded to it besides
+        (in the last product's epilogue): the next application's ``view1``
+    :param view1: the tiles ``x`` rounded to the work dtype, which the
+        first product reads in place of ``view`` (it rounds them so); may
+        be ``rounded`` itself
     """
     if runs_plain(view.data):
         if taper is None:
@@ -747,10 +833,13 @@ def spectral_poly(view: TileView, qhat2: torch.Tensor, tables: StageTables,
                                  noise, out_dtype)
         if out is None:
             out = torch.empty_like(ku)
-        return taper_blend_plain(view, g.pad, *taper, ku, out)
+        taper_blend_plain(view, g.pad, *taper, ku, out)
+        if rounded is not None:
+            rounded.copy_(out)
+        return out
     return launch_spectral_gemm(view, qhat2, tables, out, clip,
                                 "spectral_gemm", pad, crop, noise, out_dtype,
-                                taper)
+                                taper, rounded, view1)
 
 
 # ------------------------------------------------------------- tiles mode

@@ -129,7 +129,7 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
                 rows, v_v = dt_scan_rows(src, coeffs)
                 smooth, noise = scan_cols(rows, v_v, src=src)
         base = TileView.of_tiles(smooth)
-    poly_src, pad, ucmp = base, HALF, base
+    poly_src, poly_src1, pad, ucmp = base, None, HALF, base
     if do_taper:
         with span("pb.taper"):
             n, c = src.n, src.channels
@@ -138,23 +138,31 @@ def _restore_iteration(src: TileView, est: torch.Tensor,
                                     tables)
             av, ah = taper_weights(est, h, wc)
             xc = torch.empty((n, c, h, wc), dtype=f32, device=est.device)
-            u, pad = base, HALF
+            # in a bf16 work dtype the canvas also in bf16, which the next
+            # product reads as rounded (the first product rounds what it
+            # reads to the work dtype)
+            wd = tables.fwd_t.dtype
+            xr = torch.empty_like(xc, dtype=wd) if wd == torch.bfloat16 \
+                else None
+            u, u1, pad = base, None, HALF
             for _ in range(_N_TAPERS):
                 # xc = a u + (1 - a) K u, blended in the product's epilogue
                 spectral_poly(u, khat2, tables, xc, pad=pad, crop=0,
-                              clip=False, out_dtype=f32, taper=(av, ah))
+                              clip=False, out_dtype=f32, taper=(av, ah),
+                              rounded=xr, view1=u1)
                 u, pad = TileView.of_tiles(xc), 0
-            poly_src = u
+                u1 = None if xr is None else TileView.of_tiles(xr)
+            poly_src, poly_src1 = u, u1
             ucmp = TileView.of_tiles(xc[:, :, HALF:h - HALF, HALF:wc - HALF])
     if grads is not None:
         with span("pb.polynomial"):
             o = spectral_poly(poly_src, qhat2, tables, pad=pad, clip=False,
-                              out_dtype=f32)
+                              out_dtype=f32, view1=poly_src1)
         with span("pb.halo"):
             return halo_mask(o, grads, ucmp, noise, out)
     with span("pb.polynomial"):
         return spectral_poly(poly_src, qhat2, tables, out, pad=pad,
-                             noise=noise)
+                             noise=noise, view1=poly_src1)
 
 
 @annotate("pb.restore_tiles")
