@@ -4,7 +4,9 @@ The upstream's patch decomposition (teboli/polyblur ``deblurring.py``
 ``deblur_patches``): the photo is cropped to even sizes, replicate-padded
 so that whole tiles at a fixed step cover it, and cut into square tiles.
 The step is ``int(patch * (1 - overlap))``, truncated. Both the reference
-and the work counts read the grid from here, never from the program.
+and the work counts read the grid from here, never from the program. A
+configuration whose ``layout`` is ``"whole"`` has no grid: each photo is
+restored as one piece (:func:`whole`).
 """
 
 from __future__ import annotations
@@ -44,3 +46,17 @@ def plan(height: int, width: int, patch: int, overlap: float) -> Grid:
     return Grid((h, w), (hc, wc), patch, step, (hc - patch) // step + 1,
                 (wc - patch) // step + 1,
                 (top, hc - h - top, left, wc - w - left))
+
+
+#: a configuration's ``layout``: cut into the tile grid (the default), or
+#: each photo restored as one piece
+LAYOUTS = ("tiles", "whole")
+
+
+def whole(config: dict) -> bool:
+    """Whether the configuration restores each photo whole, with no tile
+    grid."""
+    layout = config.get("layout", "tiles")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: expected one of {LAYOUTS}")
+    return layout == "whole"

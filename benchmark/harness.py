@@ -9,6 +9,17 @@ returns a number or None (nothing to read: the metric is left out). The
 harness finds all of them by the names in ``BENCHMARK.json``; adding a
 configuration, a mix or a metric adds files and entries, no code here.
 
+A configuration's ``layout`` says how the program takes a photo. With
+``"tiles"`` (the default) the entry is the patch engine: its call names
+the tile grid and the work and output dtypes, which go in as dtypes, and
+``cast_input`` says whether the batch is cast to the work dtype before the
+call. With ``"whole"`` each photo is restored as one piece (the
+functional API's and the module's default): the call goes to the entry as
+it stands, with only ``device`` added, and the batch is cast to the work
+dtype of the file's ``precision`` (``{"work_dtype", "out_dtype"}``); the
+reference then restores each photo whole too, and the work counts give
+the megapixels alone.
+
 The window is a closed loop with one caller: each call takes the next
 batch of the pool and ends in a synchronize. With ``trace`` the run
 instead times the host side of a few calls, counts their launches, and
@@ -30,7 +41,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-from . import compare, photos
+from . import compare, grid, photos
 from . import trace as tracing
 from .reference import polyblur_ref
 from .work import shapes
@@ -92,6 +103,9 @@ def entry_point(config: dict, device):
     module, name = config["entry"].split(":")
     fn = getattr(importlib.import_module(module), name)
     kw = dict(config["call"])
+    if grid.whole(config):
+        work = polyblur_ref.DTYPES[config["precision"]["work_dtype"]]
+        return lambda x: fn(x.to(work), device=device, **kw)
     work = polyblur_ref.DTYPES[kw["work_dtype"]]
     kw["out_dtype"] = polyblur_ref.DTYPES[kw["out_dtype"]]
     if kw.pop("cast_input"):

@@ -1,16 +1,19 @@
-"""Plain reference of the patch path, in float64 PyTorch.
+"""Plain reference of the patch path and of whole photos, in float64
+PyTorch.
 
 What a call of the program computes, worked out again from the photo
 alone, with the FFT where the program multiplies by DFT tables, in
 float64 except where a storage precision rounds: the canvas and the
 state after each iteration are stored in it, and each convolution reads
-its operand in it. That precision is float32, above every configuration's
-work dtype, so that the program's own rounding is part of what the check
-measures, not copied into the reference (at a bf16 path's rounding, with
+its operand in it. That precision is float32, above the bf16
+configurations' work dtype, so that the program's own rounding is part
+of what the check measures, not copied into the reference (at a bf16 path's rounding, with
 every flag on, the rounding's share of a photo's change is close to the
-restoration's own). Called with a lower precision it is the control.
-Nothing here imports the program or takes a table, weight or
-intermediate from it.
+restoration's own). Called with a lower precision it is the control:
+a dtype of PyTorch's, or ``"tfloat32"``, float32 with its mantissa
+rounded to TF32's 10 bits, the precision of a tensor-core product whose
+operands are not split. Nothing here imports the program or takes a
+table, weight or intermediate from it.
 
 Per tile (teboli/polyblur ``deblurring.py``, ``blur_estimation.py``,
 ``filters.py``, ``domain_transform.py``, as the tiled path runs them):
@@ -36,6 +39,12 @@ Per tile (teboli/polyblur ``deblurring.py``, ``blur_estimation.py``,
 
 and the tiles blended by the periodic Kaiser window (beta 5), divided by
 the window sum, clipped and cropped to the photo.
+
+A configuration whose ``layout`` is ``"whole"`` (the functional API's
+route, teboli/polyblur ``deblurring.py`` ``polyblur_deblurring``) has no
+grid: each photo of the batch is one tile of the steps above, at its own
+size, padded by 12, convolved circularly on that canvas and cropped back;
+no window, no even crop.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import math
 
 import torch
 
-from ..grid import plan
+from ..grid import plan, whole
 
 F64 = torch.float64
 HALF = 12                          # kernel half-support: 25 taps
@@ -52,14 +61,22 @@ N_ANGLES = 6                       # maxima at N_ANGLES + 1 angles
 N_INTERP = 30                      # interpolated angles, 6 degrees apart
 N_TAPERS = 3                       # edgetaper blends per iteration
 
-#: the dtypes a configuration names
+#: float32 with a 10-bit mantissa: no dtype of PyTorch's
+TF32 = "tfloat32"
+#: the precisions a configuration names
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float8_e4m3fn": torch.float8_e4m3fn}
+          "float8_e4m3fn": torch.float8_e4m3fn, TF32: TF32}
 
 
-def rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` rounded to ``dtype`` (to nearest, ties to even) and back."""
-    return x.to(torch.float32).to(dtype).to(F64)
+    x = x.to(torch.float32)
+    if dtype == TF32:
+        # the 13 low mantissa bits rounded off, on the magnitude's bits
+        b = x.view(torch.int32)
+        b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
+        return b.view(torch.float32).to(F64)
+    return x.to(dtype).to(F64)
 
 
 def replicate_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -275,9 +292,14 @@ def restore(photos: torch.Tensor, config: dict, work=torch.float32,
             block: int = 24) -> torch.Tensor:
     """The reference's restoration of the (B, C, H, W) photos under the
     configuration's call, with ``work`` as the stored precision; (B, C,
-    h, w) float64, (h, w) the photo's even crop. Tiles go through in
+    h, w) float64, (h, w) the photo's even crop, or the whole photo where
+    the layout is ``"whole"``. Tiles, or whole photos, go through in
     blocks of ``block``."""
     call = config["call"]
+    if whole(config):
+        x = rounded(photos, work)
+        return torch.cat([restore_tiles(x[i:i + block], call, work)
+                          for i in range(0, x.shape[0], block)])
     bsz, c, hh, ww = photos.shape
     g = plan(hh, ww, call["patch_size"], call["overlap"])
     (h, w), (hc, wc), p = g.crop, g.canvas, g.patch

@@ -10,8 +10,20 @@ import pytest
 from benchmark import harness
 from benchmark.tests.conftest import small
 
-WORKLOADS = ("photo12mp_bf16.single", "photo2mp_flags_bf16.single",
-             "photo2mp_flags_bf16.batch8")
+#: the routes one call of each cell takes, by the program's dispatch log:
+#: the patch engine's staged tiles, or the whole photo through the scan
+#: route, with the blocked polynomial and the plain directional maxima
+#: (both past 640 px) in each of its 3 iterations
+ROUTES = {
+    "photo12mp_bf16.single": {"deblur_patches:staged_tiles": 1},
+    "photo2mp_flags_bf16.single": {"deblur_patches:staged_tiles": 1},
+    "photo2mp_flags_bf16.batch8": {"deblur_patches:staged_tiles": 1},
+    "demo700k.single": {"polyblur_core:scan/direct_separable": 1,
+                        "inverse_filtering_rank3:separable_fast": 3,
+                        "compute_polynomial_separable:prepad": 3,
+                        "compute_polynomial_separable:blocked": 3,
+                        "directional_maxima:plain": 3}}
+WORKLOADS = tuple(ROUTES)
 
 
 def _line(result) -> dict:
@@ -21,10 +33,10 @@ def _line(result) -> dict:
 
 @pytest.mark.parametrize("trace", [0, 1])
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_cell_runs_and_reports(workload, trace):
+def test_cell_runs_and_reports(workload, trace, root):
     result, info = harness.run_cell(workload, 2 ** 31 + 7, 0.3, bool(trace),
-                                    time.perf_counter(), device="cpu",
-                                    shrink=small)
+                                    time.perf_counter(), root=root,
+                                    device="cpu", shrink=small)
     line = _line(result)
     assert list(line)[:4] == ["correct", "attempted", "failed", "metrics"]
     assert list(line)[-1] == "checks"
@@ -32,7 +44,7 @@ def test_cell_runs_and_reports(workload, trace):
     assert line["attempted"] >= 1
     assert set(line["device"]) >= {"platform", "kind", "count",
                                    "memory_peak_bytes"}
-    bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    bench = harness.load_json(root / "BENCHMARK.json")
     units = {m["name"]: m["unit"]
              for m in bench["end_to_end"] + bench["per_layer"]}
     for name, m in line["metrics"].items():
@@ -47,6 +59,6 @@ def test_cell_runs_and_reports(workload, trace):
         assert {"mp_per_s", "setup_s"} <= set(line["metrics"])
     for name, c in line["checks"].items():
         assert c["value"] <= c["limit"], name
-    # every call of the window took the staged route of the kernels
-    assert info["route"] == {"deblur_patches:staged_tiles":
-                             line["attempted"]}
+    # every call of the window took its cell's route
+    assert info["route"] == {k: n * line["attempted"]
+                             for k, n in ROUTES[workload].items()}

@@ -11,19 +11,19 @@ from benchmark import harness
 from benchmark.tests.conftest import small
 
 WORKLOADS = ("photo12mp_bf16.single", "photo2mp_flags_bf16.single",
-             "photo2mp_flags_bf16.batch8")
+             "photo2mp_flags_bf16.batch8", "demo700k.single")
 
 
-def _run(workload, sut, seed=11):
+def _run(workload, sut, root, seed=11):
     result, _ = harness.run_cell(workload, seed, 0.2, False,
-                                 time.perf_counter(), device="cpu",
+                                 time.perf_counter(), root=root, device="cpu",
                                  shrink=small, sut=sut)
     return result
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_control_is_not_correct(workload):
-    result = _run(workload, "control")
+def test_control_is_not_correct(workload, root):
+    result = _run(workload, "control", root)
     assert result["correct"] is False
     assert any(c["value"] > c["limit"] for c in result["checks"].values())
 
@@ -58,16 +58,22 @@ def tile_altered(program):
     return call
 
 
-@pytest.mark.parametrize("fault", [unchanged, half_left_out, tile_altered])
+#: the faults the cells can have (``benchmark/readings.py`` reads them on
+#: the card)
+FAULTS = (unchanged, half_left_out, tile_altered)
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_fault_is_not_correct(workload, fault):
-    assert _run(workload, fault)["correct"] is False
+def test_fault_is_not_correct(workload, fault, root):
+    assert _run(workload, fault, root)["correct"] is False
 
 
 @pytest.mark.chip
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_control_is_not_correct_at_the_cells_size(workload, cuda):
+def test_control_is_not_correct_at_the_cells_size(workload, cuda, root):
     """The control at the cell's own size on the card."""
     result, _ = harness.run_cell(workload, 12345, 1.0, False,
-                                 time.perf_counter(), sut="control")
+                                 time.perf_counter(), root=root,
+                                 sut="control")
     assert result["correct"] is False

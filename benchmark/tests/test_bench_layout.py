@@ -83,6 +83,8 @@ def test_the_reference_imports_nothing_of_the_program():
             "_, _, c, _ = harness.cell(harness.ROOT, 'photo2mp_flags_bf16.single');"
             "x = torch.rand(1, 3, 460, 470);"
             "r.restore(x, c);"
+            "r.restore(x, harness.load_json("
+            " harness.ROOT / 'benchmark/configs/demo700k.json'));"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=600,

@@ -8,7 +8,8 @@ from benchmark import harness, photos
 
 CELLS = {"photo12mp_bf16.single": (4, 576e6),
          "photo2mp_flags_bf16.single": (12, 276.48e6),
-         "photo2mp_flags_bf16.batch8": (4, 737.28e6)}
+         "photo2mp_flags_bf16.batch8": (4, 737.28e6),
+         "demo700k.single": (65, 273e6)}
 
 
 def _small(workload, h=96, w=128):
@@ -18,11 +19,11 @@ def _small(workload, h=96, w=128):
 
 
 @pytest.mark.parametrize("workload", sorted(CELLS))
-def test_pool_sizes(workload):
+def test_pool_sizes(workload, root):
     """Calls in the pool and bytes of the pool, worked out from the files
     alone (no full-size photo is made on the CPU): at least 4x the 50 MB
     L2 cache."""
-    _, _, config, traffic = harness.cell(harness.ROOT, workload)
+    _, _, config, traffic = harness.cell(root, workload)
     n = photos.pool_calls(config, traffic)
     p = config["photo"]
     nbytes = n * traffic["batch"] * p["channels"] * p["height"] * p["width"] * 4

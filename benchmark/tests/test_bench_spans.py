@@ -102,3 +102,37 @@ def test_a_traced_run_reports_both(monkeypatch, capsys):
     assert metrics["pipeline_idle_ms"]["value"] > 0
     assert any(name.startswith("pb.")
                for name, _ in line["breakdown"]["idle_gaps"])
+
+
+def test_idle_gaps_go_to_the_innermost_span_as_a_scan_of_all_finds():
+    """The sweep that names the host span at each gap's middle against a
+    scan of every span, on nested, overlapping and equal spans."""
+    import random
+
+    rng = random.Random(5)
+    host = []
+    for k in range(400):
+        s = rng.uniform(0.0, 1000.0)
+        host.append((f"h{k % 7}", s, s + rng.choice([0.5, 3.0, 3.0, 40.0])))
+    host += [("outer", 0.0, 1000.0), ("twin", 500.0, 503.0),
+             ("twin2", 500.0, 503.0)]
+    device = [("k", t, t + 0.7) for t in range(0, 1000, 2)]
+    tr = Trace(device, host, (0.0, 1000.0), 1)
+
+    def scan(t):
+        best = None
+        for name, s, e in host:
+            if s <= t < e and (best is None or e - s < best[1]):
+                best = (name, e - s)
+        return best[0] if best else "python"
+
+    times = sorted(rng.uniform(-5.0, 1005.0) for _ in range(2000))
+    times += [500.0, 502.9, 503.0]
+    times.sort()
+    assert tracing.hosts_at(tr, times) == [scan(t) for t in times]
+    by = {}
+    for s, e in tracing.idle_gaps(tr):
+        n = scan(0.5 * (s + e))
+        by[n] = by.get(n, 0.0) + (e - s)
+    want = [[n, v / 1e6] for n, v in sorted(by.items(), key=lambda kv: -kv[1])]
+    assert tracing.top_idle_gaps(tr) == want[:10]

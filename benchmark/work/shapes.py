@@ -1,11 +1,13 @@
 """The sizes of one call of a cell, worked out from its configuration and
-traffic files: what the work counts multiply."""
+traffic files: what the work counts multiply. A configuration restored
+whole has no tiles: its call has the photos' sizes alone (:class:`Whole`),
+and no reader of tile work reads it."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-from ..grid import plan
+from ..grid import plan, whole
 
 HALF = 12                  # the kernel's half-support: tiles padded by it
 _ESZ = {"bfloat16": 2, "float32": 4}
@@ -44,8 +46,21 @@ class Call(NamedTuple):
         return self.batch * self.photo[0] * self.photo[1] / 1e6
 
 
-def of_cell(config: dict, traffic: dict) -> Call:
+class Whole(NamedTuple):
+    batch: int             # photos per call
+    c: int                 # channels
+    photo: tuple           # (H, W)
+
+    @property
+    def megapixels(self) -> float:
+        return self.batch * self.photo[0] * self.photo[1] / 1e6
+
+
+def of_cell(config: dict, traffic: dict) -> Call | Whole:
     ph = config["photo"]
+    if whole(config):
+        return Whole(traffic["batch"], ph["channels"],
+                     (ph["height"], ph["width"]))
     call = config["call"]
     g = plan(ph["height"], ph["width"], call["patch_size"], call["overlap"])
     prefilter = bool(call.get("prefiltering"))
