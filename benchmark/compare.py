@@ -25,6 +25,41 @@ each against the limit its configuration file states:
   photo.
 
 A configuration's ``limits`` name the numbers it is judged by.
+
+A training cell's first steps (``benchmark.train``) are judged on their
+outputs by the numbers above, against the reference's at its own scalars,
+and on four more, which its configuration's ``train_limits`` name:
+
+* ``loss_rel_err``: the worst step's ``|loss - reference's| /
+  reference's``;
+* ``loss_own_err``: the worst step's ``|loss - L| / L``, ``L`` the
+  float64 mean squared error of the step's own output against the sharp
+  photos: the loss the step reports and descends is that of all of its
+  output (a loss over part of it, such as half of the rows, reads some
+  percent off; float32 summation some 1e-7);
+* ``grad_err``: the first gradient as the optimizer holds it, by the
+  worst steady scalar: the gap between the program's value and the
+  reference's, sign and all, over the larger of the reference's magnitude
+  and the median scalar's (one gradient can be 20 times another, so that
+  a share of the largest would pass over a small one left out; a gradient
+  of the wrong sign reads 2);
+* ``change_err``: the same of each steady scalar's change over the steps
+  (Adam moves a scalar by about its rate whatever the gradient's size, so
+  that the change's sign is what tells a descent from an ascent);
+* ``unmoved``: how many scalars whose reference gradient is not nought to
+  rounding (at least a thousandth of the median's) the steps left exactly
+  where they started (a skipped optimizer step, a gradient left out),
+  against the limit 0.
+
+A scalar is steady where its reference gradient is at least
+:data:`RESIDUE` of its mass, the sum of the magnitudes of the tiles'
+shares: where it is less, it is what is left of shares that cancel, and
+the storage precision decides it. On 12 MP photos in bf16 c's and b's
+gradients are mostly such residues and move by tens of percent, their
+sign too (as does the reference's own when it stores in bf16), while
+alpha's and beta's keep most of their mass and move by a few percent.
+A residue is held only by ``unmoved``: an error in it that leaves it
+non-zero and the outputs within their limits passes.
 """
 
 from __future__ import annotations
@@ -36,7 +71,15 @@ import torch
 BLOCK = 64
 #: the numbers of one sampled output, each the worst over its photos
 WORST = ("rms_err", "block_rms_err", "gain_err")
-NAMES = WORST + ("median_rms_err",)
+#: the numbers of a training cell's steps (:func:`training_numbers`)
+TRAINING = ("loss_rel_err", "loss_own_err", "grad_err", "change_err",
+            "unmoved")
+NAMES = WORST + ("median_rms_err",) + TRAINING
+#: a scalar whose reference gradient is under this share of the median
+#: scalar's moves by round-off alone under Adam
+NOUGHT = 1e-3
+#: the least share of its mass that a steady scalar's gradient keeps
+RESIDUE = 0.8
 
 
 def errors(out: torch.Tensor, ref: torch.Tensor, x: torch.Tensor) -> dict:
@@ -72,6 +115,35 @@ def worst(readings: list) -> dict:
     numbers["median_rms_err"] = statistics.median(
         v for r in readings for v in r["photo_rms"])
     return numbers
+
+
+def leaf_gap(got: dict, ref: dict, names) -> float:
+    """The worst of ``names``: ``|got - ref|`` over the larger of ``|ref|``
+    and the median of ``|ref|`` over every scalar."""
+    med = statistics.median(abs(v) for v in ref.values())
+    return max(abs(got[k] - ref[k]) / max(abs(ref[k]), med) for k in names)
+
+
+def training_numbers(got, ref, own: list) -> dict:
+    """The numbers of :data:`TRAINING` of the program's first steps
+    ``got`` against the reference's ``ref`` (``benchmark.train.Recorder``
+    each: the losses, the first gradients, the scalars at the start and
+    after the steps; the reference's with the first gradients' ``mass``),
+    ``own`` the losses of the program's own outputs."""
+    losses = [abs(a - b) / abs(b) for a, b in zip(got.losses, ref.losses)]
+    owns = [abs(a - b) / abs(b) for a, b in zip(got.losses, own)]
+    g = ref.first_grads
+    med = statistics.median(abs(v) for v in g.values())
+    moving = [k for k in g if abs(g[k]) >= NOUGHT * med]
+    share = {k: abs(g[k]) / ref.mass[k] if ref.mass[k] else 0.0 for k in g}
+    steady = ([k for k in g if share[k] >= RESIDUE]
+              or [max(share, key=share.get)])
+    change = [{k: r.after[k] - r.start[k] for k in g} for r in (got, ref)]
+    return {"loss_rel_err": max(losses), "loss_own_err": max(owns),
+            "grad_err": leaf_gap(got.first_grads, g, steady),
+            "change_err": leaf_gap(*change, steady),
+            "unmoved": float(sum(got.after[k] == got.start[k]
+                                 for k in moving))}
 
 
 def judge(numbers: dict, limits: dict) -> tuple:

@@ -9,6 +9,11 @@ returns a number or None (nothing to read: the metric is left out). The
 harness finds all of them by the names in ``BENCHMARK.json``; adding a
 configuration, a mix or a metric adds files and entries, no code here.
 
+A training traffic (``"job": "train"``) makes each call one step of the
+program's training path on a (blurry, sharp) pair instead
+(``benchmark.train``): the configuration's call gives the layer's grid,
+dtypes and starting scalars, the traffic Adam's hyperparameters.
+
 A configuration's ``layout`` says how the program takes a photo. With
 ``"tiles"`` (the default) the entry is the patch engine: its call names
 the tile grid and the work and output dtypes, which go in as dtypes, and
@@ -26,7 +31,8 @@ instead times the host side of a few calls, counts their launches, and
 profiles a fixed number more. Either way a sample of the calls' outputs,
 drawn from the seed, is kept and, once the window has closed and the
 device memory's peak has been read, held against the plain reference
-(``benchmark.reference``) by ``benchmark.compare``.
+(``benchmark.reference``) by ``benchmark.compare``; a training cell's
+check follows its first steps instead (``benchmark.train``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-from . import compare, grid, photos
+from . import compare, grid, photos, train
 from . import trace as tracing
 from .reference import polyblur_ref
 from .work import shapes
@@ -162,7 +168,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         program's plain path (tests)
     :param sut: None for the program; ``"control"`` for the reference in
         the lower precision; or a function ``f(program_call) -> call``
-        that wraps the timed call (the faults of the tests)
+        that wraps the timed call (the faults of the tests; for a training
+        cell it takes and returns the step object, ``train.Program``)
     :param shrink: optional function ``f(config, traffic)`` that edits the
         loaded files in place (the tests' tiny sizes)
     """
@@ -188,13 +195,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         _build.build()      # every source at once where the checkout has none
 
-    program = entry_point(config, dev)
-    if sut == "control":
-        fn = control(config)
-    elif sut is not None:
-        fn = sut(program)
+    training = photos.training(traffic)
+    if training:
+        program = (train.control if sut == "control" else train.Program)(
+            config, traffic, dev)
     else:
-        fn = program
+        program = control(config) if sut == "control" else entry_point(
+            config, dev)
+    fn = program if sut is None or sut == "control" else sut(program)
     pool = photos.make_pool(config, traffic, seed, dev)
     for i in range(traffic["warmup_calls"]):
         fn(pool[i % len(pool)])
@@ -204,7 +212,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     reset_dispatch_log()
-    sample = Sample(traffic["check_calls"], seed)
+    # a training cell's check reads its step object's first steps instead
+    sample = Sample(0 if training else traffic["check_calls"], seed)
     rec = SimpleNamespace(shapes=shapes.of_cell(config, traffic),
                           setup_s=setup_s, calls=0, window_s=None,
                           latencies_s=[], host_s=[], launches=[],
@@ -284,17 +293,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     # the check: after the window, the peak read and the caches let go
     if cuda:
         torch.cuda.empty_cache()
-    readings, ref_of, ref = [], None, None
-    with torch.no_grad():
-        for _, p, out in sorted(sample.kept, key=lambda t: t[1]):
-            if p != ref_of:          # one photo's reference at a time
-                ref_of, ref = p, polyblur_ref.restore(pool[p], config)
-            h, w = ref.shape[-2:]
-            readings.append(compare.errors(out, ref, pool[p][..., :h, :w]))
-    del ref
-    sample.kept.clear()
-    correct, checks = (compare.judge(compare.worst(readings), config["limits"])
-                       if readings else (False, {}))
+    if training:
+        correct, checks = compare.judge(
+            train.check(fn, config, traffic),
+            dict(config["limits"], **config["train_limits"]))
+    else:
+        readings, ref_of, ref = [], None, None
+        with torch.no_grad():
+            for _, p, out in sorted(sample.kept, key=lambda t: t[1]):
+                if p != ref_of:          # one photo's reference at a time
+                    ref_of, ref = p, polyblur_ref.restore(pool[p], config)
+                h, w = ref.shape[-2:]
+                readings.append(compare.errors(out, ref,
+                                               pool[p][..., :h, :w]))
+        del ref
+        sample.kept.clear()
+        correct, checks = (compare.judge(compare.worst(readings),
+                                         config["limits"])
+                           if readings else (False, {}))
     correct = correct and failed == 0
     result = {"correct": bool(correct), "attempted": rec.calls + failed,
               "failed": failed, "metrics": metrics}

@@ -2,7 +2,10 @@
 ``torch.cuda.max_memory_allocated`` over the call less what was allocated
 when it began (the pool of photos and the outputs kept for the check are
 the harness's, not the program's), the largest over the traced run's
-untraced calls: its intermediates and its output. Layer device."""
+untraced calls: its intermediates and its output; of a training step,
+the forward's saved activations, the backward's and the gradients (the
+layer's scalars and Adam's state are held when it begins). Layer
+device."""
 
 
 def read(rec):

@@ -12,7 +12,11 @@ Every tile then carries content, and a blur, of its own.
 The traffic file gives the batch of one call, the least size of the pool
 the calls cycle through (several times the 50 MB L2 cache, so that no call
 finds its photo in cache) and the content's parameters. The sizes never
-depend on the seed; only the content does.
+depend on the seed; only the content does. A training traffic (``"job":
+"train"``) pairs each batch with its sharp photos: the field and Voronoi
+mix before the blur and the noise, already in [0, 1]. Keeping them draws
+nothing more, so its blurry photos are those of any other traffic with the
+same seed and content.
 """
 
 from __future__ import annotations
@@ -95,8 +99,10 @@ def _blur(x, sigma: float, rho: float, theta: float, radius: int):
     return y[:, radius:radius + h, radius:radius + w]
 
 
-def make_photo(gen, config: dict, content: dict, device) -> torch.Tensor:
-    """One (C, H, W) f32 photo in [0, 1]."""
+def make_photo(gen, config: dict, content: dict, device,
+               sharp: bool = False):
+    """One (C, H, W) f32 photo in [0, 1]; with ``sharp``, the pair (photo,
+    the photo before its blur and noise)."""
     p = config["photo"]
     c, h, w = p["channels"], p["height"], p["width"]
     mix = content["field_weight"]
@@ -107,19 +113,29 @@ def make_photo(gen, config: dict, content: dict, device) -> torch.Tensor:
     rho = _uniform(gen, *content["rho"], device)
     theta = _uniform(gen, 0.0, math.pi, device)
     radius = math.ceil(3.0 * content["sigma"][1])
-    x = _blur(x, sigma, rho, theta, radius)
-    x = x + content["noise_std"] * torch.randn(x.shape, generator=gen,
+    y = _blur(x, sigma, rho, theta, radius)
+    y = y + content["noise_std"] * torch.randn(y.shape, generator=gen,
                                                device=device)
-    return x.clamp(0.0, 1.0).contiguous()
+    y = y.clamp(0.0, 1.0).contiguous()
+    return (y, x) if sharp else y
+
+
+def training(traffic: dict) -> bool:
+    """Whether the traffic's calls are training steps on (blurry, sharp)
+    pairs."""
+    return traffic.get("job") == "train"
 
 
 def make_pool(config: dict, traffic: dict, seed: int, device) -> list:
     """The pool of one cell: :func:`pool_calls` batches, each (B, C, H, W)
-    f32 on ``device``, made from ``seed``."""
+    f32 on ``device``, made from ``seed``; for a training traffic each a
+    (blurry, sharp) pair of such batches."""
     gen = generator(seed, device)
-    b = traffic["batch"]
+    b, pairs = traffic["batch"], training(traffic)
     pool = []
     for _ in range(pool_calls(config, traffic)):
-        pool.append(torch.stack([make_photo(gen, config, traffic["content"],
-                                            device) for _ in range(b)]))
+        made = [make_photo(gen, config, traffic["content"], device, pairs)
+                for _ in range(b)]
+        pool.append(tuple(torch.stack(t) for t in zip(*made)) if pairs
+                    else torch.stack(made))
     return pool

@@ -9,9 +9,10 @@ program's runs give the lower readings. With ``--control-seeds``, the same
 for the control: the reference in the program's place, storing in the
 precision below the configuration's (``control_dtype``), whose smallest
 reading is the upper one. With ``--fault-seeds``, the same for each
-fault the tests plant under the timed call (``FAULTS`` of
-``benchmark/tests/test_bench_control.py``). One JSON line a run; the
-benchmark's own runs do not run this.
+fault the tests plant under the timed call (``faults_of`` the cell's
+traffic in ``benchmark/tests/test_bench_control.py``: a training cell's
+faults are planted in its step). One JSON line a run; the benchmark's own
+runs do not run this.
 """
 
 import argparse
@@ -35,13 +36,14 @@ def main(argv=None) -> int:
     import torch
 
     from benchmark import harness
-    from benchmark.tests.test_bench_control import FAULTS
+    from benchmark.tests.test_bench_control import faults_of
 
     if not torch.cuda.is_available():
         print("readings.py: no CUDA device", file=sys.stderr)
         return 2
     runs = [(None, args.seeds), ("control", args.control_seeds)]
-    runs += [(fault, args.fault_seeds) for fault in FAULTS]
+    _, _, _, traffic = harness.cell(ROOT, args.workload)
+    runs += [(fault, args.fault_seeds) for fault in faults_of(traffic)]
     for sut, seeds in runs:
         for seed in seeds:
             result, _ = harness.run_cell(args.workload, seed, args.seconds,

@@ -68,8 +68,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float8_e4m3fn": torch.float8_e4m3fn, TF32: TF32}
 
 
-def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
-    """``x`` rounded to ``dtype`` (to nearest, ties to even) and back."""
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     x = x.to(torch.float32)
     if dtype == TF32:
         # the 13 low mantissa bits rounded off, on the magnitude's bits
@@ -77,6 +76,28 @@ def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
         b = (b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF
         return b.view(torch.float32).to(F64)
     return x.to(dtype).to(F64)
+
+
+class _Rounded(torch.autograd.Function):
+    """The rounding with the identity for its gradient: a cast's own
+    backward would round the float64 cotangent to the storage precision
+    too (float8 flushes a loss's small cotangents to zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return _round(x, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` (to nearest, ties to even) and back; in
+    a graph, its gradient passes as it is."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Rounded.apply(x, dtype)
+    return _round(x, dtype)
 
 
 def replicate_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -288,19 +309,12 @@ def kaiser(n: int, beta: float = 5.0) -> torch.Tensor:
             / torch.special.i0(torch.tensor(beta, dtype=F64)))[:n]
 
 
-def restore(photos: torch.Tensor, config: dict, work=torch.float32,
-            block: int = 24) -> torch.Tensor:
-    """The reference's restoration of the (B, C, H, W) photos under the
-    configuration's call, with ``work`` as the stored precision; (B, C,
-    h, w) float64, (h, w) the photo's even crop, or the whole photo where
-    the layout is ``"whole"``. Tiles, or whole photos, go through in
-    blocks of ``block``."""
+def _grid(photos: torch.Tensor, config: dict, work):
+    """(grid, canvas, window) of the tiled layout: the photos' even crop
+    replicate-padded to the grid's canvas and stored in ``work``, and the
+    2-D Kaiser window of one tile."""
     call = config["call"]
-    if whole(config):
-        x = rounded(photos, work)
-        return torch.cat([restore_tiles(x[i:i + block], call, work)
-                          for i in range(0, x.shape[0], block)])
-    bsz, c, hh, ww = photos.shape
+    _, _, hh, ww = photos.shape
     g = plan(hh, ww, call["patch_size"], call["overlap"])
     (h, w), (hc, wc), p = g.crop, g.canvas, g.patch
     top, _, left, _ = g.pad
@@ -309,16 +323,120 @@ def restore(photos: torch.Tensor, config: dict, work=torch.float32,
         (left, wc - w - left, top, hc - h - top), mode="replicate")
     canvas = rounded(canvas, work)
     win = kaiser(p).to(photos.device)
-    win = win[:, None] * win[None, :]
+    return g, canvas, win[:, None] * win[None, :]
+
+
+def _tiles(canvas: torch.Tensor, part, p: int) -> torch.Tensor:
+    """The (len(part) * B, C, p, p) tiles of the canvas at the origins
+    ``part``, tile-major."""
+    return torch.cat([canvas[..., i:i + p, j:j + p] for i, j in part])
+
+
+def _blend(photos: torch.Tensor, config: dict, work, block: int):
+    """(blend, window sum, grid, canvas, window): the tiles restored in
+    blocks of ``block`` and blended over the canvas, divided by the window
+    sum, unclipped."""
+    call = config["call"]
+    bsz, c = photos.shape[:2]
+    g, canvas, win = _grid(photos, config, work)
+    (hc, wc), p = g.canvas, g.patch
     acc = torch.zeros((bsz, c, hc, wc), dtype=F64, device=photos.device)
     wsum = torch.zeros((hc, wc), dtype=F64, device=photos.device)
     origins = g.origins()
     for t0 in range(0, len(origins), block):
         part = origins[t0:t0 + block]
-        tiles = torch.cat([canvas[..., i:i + p, j:j + p] for i, j in part])
-        out = restore_tiles(tiles, call, work).reshape(len(part), bsz, c, p, p)
+        out = restore_tiles(_tiles(canvas, part, p), call, work).reshape(
+            len(part), bsz, c, p, p)
         for k, (i, j) in enumerate(part):
             acc[..., i:i + p, j:j + p] += out[k] * win
             wsum[i:i + p, j:j + p] += win
-    out = (acc / (wsum + 1e-8)).clamp(0.0, 1.0)
-    return out[..., top:top + h, left:left + w]
+    return acc / (wsum + 1e-8), wsum, g, canvas, win
+
+
+def _crop(x: torch.Tensor, g) -> torch.Tensor:
+    """The photo's even crop of a canvas-sized ``x``."""
+    (h, w), (top, _, left, _) = g.crop, g.pad
+    return x[..., top:top + h, left:left + w]
+
+
+def restore(photos: torch.Tensor, config: dict, work=torch.float32,
+            block: int = 24) -> torch.Tensor:
+    """The reference's restoration of the (B, C, H, W) photos under the
+    configuration's call, with ``work`` as the stored precision; (B, C,
+    h, w) float64, (h, w) the photo's even crop, or the whole photo where
+    the layout is ``"whole"``. Tiles, or whole photos, go through in
+    blocks of ``block``."""
+    if whole(config):
+        x = rounded(photos, work)
+        return torch.cat([restore_tiles(x[i:i + block], config["call"], work)
+                          for i in range(0, x.shape[0], block)])
+    blend, _, g, _, _ = _blend(photos, config, work, block)
+    return _crop(blend.clamp(0.0, 1.0), g)
+
+
+# ------------------------------------------------------------ training
+
+#: the learnable scalars of a training step, in the call's names, each
+#: with the shape a block's tiles take it in, one value a tile: the
+#: estimate's against its (n,) maxima, the polynomial's against the (n, h,
+#: w) spectra
+SCALARS = ("c", "b", "alpha", "beta")
+_PER_TILE = {"c": (-1,), "b": (-1,), "alpha": (-1, 1, 1), "beta": (-1, 1, 1)}
+
+
+def loss_and_grads(blurry: torch.Tensor, sharp: torch.Tensor, config: dict,
+                   scalars: dict, work=torch.float32, block: int = 24):
+    """(loss, {name: gradient}, restored, {name: mass}) of one training
+    step on the tiled layout: the mean squared error of :func:`restore` of
+    ``blurry`` at the scalars ``scalars`` (``{name: float}``, the rest of
+    the call as the configuration states it) against ``sharp`` (cropped as
+    the restoration is), its gradient in each scalar by float64 autograd,
+    the restoration, (B, C, h, w) float64, and each gradient's mass: the
+    sum over the tiles of the magnitude of each tile's share of it (a
+    gradient far below its mass is what is left of shares that cancel).
+
+    In blocks, so that the graph of one block of tiles at a time is held:
+    the forward runs once without a graph for the blend and its clip; the
+    loss's cotangent on each tile is then ``window * clip mask * 2 (out -
+    sharp) / N / window sum`` over the tile's place on the canvas (zero
+    outside the photo's crop), and each block's vector-Jacobian product
+    through :func:`restore_tiles` at the same scalars is summed. Where the
+    program's backward may depart: the clips pass the gradient at their
+    bounds (``torch.clamp``'s rule), the blur direction's argmin and the
+    storage roundings pass the float64 cotangent as it is (the rounding
+    taken as the identity), and the loss is float64 where the program's is
+    float32. Each tile takes the scalars as leaves of its own, so that one
+    product gives every tile's share."""
+    if whole(config):
+        raise ValueError("loss_and_grads takes the tiled layout only")
+    call = dict(config["call"], **scalars)
+    with torch.no_grad():
+        blend, wsum, g, canvas, win = _blend(blurry, dict(config, call=call),
+                                             work, block)
+        out = _crop(blend, g)
+        clip = (out >= 0.0) & (out <= 1.0)
+        out = out.clamp(0.0, 1.0)
+        diff = out - sharp[..., :out.shape[-2], :out.shape[-1]].to(F64)
+        loss = float((diff * diff).mean())
+        cot = torch.zeros_like(blend)
+        _crop(cot, g).copy_(clip * 2.0 * diff / diff.numel())
+        cot /= wsum + 1e-8
+    grads, mass = dict.fromkeys(scalars, 0.0), dict.fromkeys(scalars, 0.0)
+    origins, p = g.origins(), g.patch
+    for t0 in range(0, len(origins), block):
+        part = origins[t0:t0 + block]
+        x = _tiles(canvas, part, p)
+        leaves = {k: torch.full((x.shape[0],), float(v), dtype=F64,
+                                device=x.device, requires_grad=True)
+                  for k, v in scalars.items()}
+        with torch.enable_grad():
+            tiles = restore_tiles(x, dict(call, **{
+                k: v.view(_PER_TILE[k]) for k, v in leaves.items()}), work)
+        vjp = torch.autograd.grad(tiles, list(leaves.values()),
+                                  _tiles(cot, part, p) * win,
+                                  allow_unused=True)
+        for k, v in zip(leaves, vjp):
+            if v is not None:
+                grads[k] += float(v.sum())
+                mass[k] += float(v.abs().sum())
+    return loss, grads, out, mass

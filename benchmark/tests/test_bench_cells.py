@@ -43,7 +43,7 @@ def test_cell_runs_and_reports(workload, trace, root):
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] >= 1
     assert set(line["device"]) >= {"platform", "kind", "count",
-                                   "memory_peak_bytes"}
+                                       "memory_peak_bytes"}
     bench = harness.load_json(root / "BENCHMARK.json")
     units = {m["name"]: m["unit"]
              for m in bench["end_to_end"] + bench["per_layer"]}
@@ -62,3 +62,30 @@ def test_cell_runs_and_reports(workload, trace, root):
     # every call of the window took its cell's route
     assert info["route"] == {k: n * line["attempted"]
                              for k, n in ROUTES[workload].items()}
+
+
+#: each tiled cell's check numbers at the tests' size on one seed, with a
+#: window of one call and one CPU thread: what the harness read before a
+#: traffic could state a training job, on the same tree otherwise. Stating
+#: one changes neither the photos nor the check of the cells that state
+#: none.
+BEFORE_TRAINING = {
+    "photo12mp_bf16.single": {"rms_err": 0.008285107734084573,
+                              "block_rms_err": 0.010455295292088298,
+                              "gain_err": 0.009355487778190619},
+    "photo2mp_flags_bf16.single": {"rms_err": 0.005950881665835648,
+                                     "block_rms_err": 0.007254409744731023,
+                                     "gain_err": 0.012078634963390344},
+    "photo2mp_flags_bf16.batch8": {"rms_err": 0.006237017389828232,
+                                     "block_rms_err": 0.008072736494957147,
+                                     "gain_err": 0.012630727359869587}}
+
+
+@pytest.mark.parametrize("workload", sorted(BEFORE_TRAINING))
+def test_check_numbers_as_before_training_cells(workload, one_thread):
+    result, _ = harness.run_cell(workload, 2 ** 31 + 7, 0.0, False,
+                                 time.perf_counter(), device="cpu",
+                                 shrink=small)
+    assert result["attempted"] == 1
+    assert {k: c["value"] for k, c in result["checks"].items()} == \
+        BEFORE_TRAINING[workload]

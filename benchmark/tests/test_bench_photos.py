@@ -9,7 +9,8 @@ from benchmark import harness, photos
 CELLS = {"photo12mp_bf16.single": (4, 576e6),
          "photo2mp_flags_bf16.single": (12, 276.48e6),
          "photo2mp_flags_bf16.batch8": (4, 737.28e6),
-         "demo700k.single": (65, 273e6)}
+         "demo700k.single": (65, 273e6),
+         "photo12mp_bf16.train_step": (4, 576e6)}
 
 
 def _small(workload, h=96, w=128):

@@ -3,12 +3,15 @@
 The traced calls run under ``torch.profiler`` with the host and the
 device recorded. This module keeps only plain tuples of the trace: the
 device operations (kernels, copies, sets) and the host spans, each
-``(name, start_us, end_us)`` on the profiler's one clock, and the
-window's own span, so that a metric's reader needs no profiler object.
+``(name, start_us, end_us)`` on the profiler's one clock, the window's own
+span, and for each device operation the start of the runtime call that
+launched it (the profiler's correlation), so that a metric's reader needs
+no profiler object.
 """
 
 from __future__ import annotations
 
+import bisect
 import heapq
 import re
 from typing import NamedTuple
@@ -23,27 +26,36 @@ class Trace(NamedTuple):
     host: list               # [(name, start_us, end_us)] host spans
     window: tuple            # (start_us, end_us) of the traced calls
     calls: int               # calls traced
+    #: [start_us or None] of the runtime call that launched each device
+    #: operation, in the order of ``device``
+    launched: list = ()
 
 
 def of_profile(prof, calls: int) -> Trace:
     """The :class:`Trace` of a finished ``torch.profiler.profile``."""
     from torch.autograd import DeviceType
 
-    device, host, window = [], [], None
-    for e in prof.events():
+    events = list(prof.events())
+    # a device operation shares its correlation id with the runtime call
+    # (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ...) that launched it
+    runtime = {e.id: float(e.time_range.start) for e in events
+               if e.device_type != DeviceType.CUDA and e.name.startswith("cu")}
+    device, launched, host, window = [], [], [], None
+    for e in events:
         span = (e.name, float(e.time_range.start), float(e.time_range.end))
         if e.device_type == DeviceType.CUDA:
             # a host span's copy on the device's timeline is no operation
             if not (getattr(e, "is_user_annotation", False)
                     or e.name in (WINDOW, CALL, SYNC)):
                 device.append(span)
+                launched.append(runtime.get(e.id))
         elif e.name == WINDOW:
             window = span[1:]
         else:
             host.append(span)
     if window is None:
         raise RuntimeError(f"the trace holds no {WINDOW} span")
-    return Trace(device, host, window, calls)
+    return Trace(device, host, window, calls, launched)
 
 
 def short(name: str) -> str:
@@ -85,6 +97,22 @@ def device_us(tr: Trace, patterns) -> float:
     rx = [re.compile(p) for p in patterns]
     return sum(e - s for name, s, e in tr.device
                if any(r.search(name) for r in rx))
+
+
+def launched_in(tr: Trace, inside) -> float | None:
+    """Summed device time of the operations launched while a host span
+    whose name satisfies ``inside`` was open; None where the trace links
+    no device operation to its launch."""
+    if not any(t is not None for t in tr.launched):
+        return None
+    spans = busy_intervals([s for s in tr.host if inside(s[0])])
+    starts = [s for s, _ in spans]
+    total = 0.0
+    for (_, s, e), t in zip(tr.device, tr.launched):
+        k = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if k >= 0 and t < spans[k][1]:
+            total += e - s
+    return total
 
 
 def top_device_ops(tr: Trace, k: int = 10) -> list:
