@@ -18,7 +18,10 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    480 x 640 tiles route's one image, with its device time (the calls
    queued behind a device-side sleep) beside the CUDA-event time;
    ``blend_overlap_add`` for every tile and output dtype on the 12 MP grid
-   and on an even-cropped 1198 x 1598 image (its scalar path);
+   and on an even-cropped 1198 x 1598 image (its scalar path), and its
+   backward kernel at the training cell's shapes (130 tiles of 400 px at
+   step 300, bf16, the 12 MP f32 output's gradient) against autograd of
+   the plain blend;
 4. drives the main path once through ``polyblur_torch.deblur_patches``
    (bench.py's image and arguments: 448/384 tiles, bf16 work dtype, f32
    output, 3 iterations) with every launch counter zeroed just before and
@@ -64,7 +67,8 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
 8. trains through ``polyblur_torch.PolyblurLayer`` (the kernels forward,
    autograd of their plain versions backward), each step with the launch
    counters zeroed just before its forward and read after it and after
-   its backward (the backward launches no kernel): (a) the main path as a
+   its backward (the backward launches no forward kernel, and the blend's
+   backward kernel once per blend): (a) the main path as a
    learnable layer (12 MP, 448/384 tiles, bf16 work, f32 loss, one Adam
    step): the forward's launches equal the main path's, the blur
    direction of every tile and iteration and the four scalar gradients
@@ -85,17 +89,19 @@ Runs from the root of a checkout: ``python3 chip_smoke.py``. It
    memory; (e) each autograd Function alone at its main-path shapes, its
    gradients under a seeded cotangent bit-equal to autograd of its plain
    version (no plain backward accumulates with atomics), with its
-   backward's time; extended to the bilateral Function and the two IIR
-   Functions (rows, columns) on the 1200 x 1600 photo (f32) and on
-   config 2's 12 bf16 tiles, and to the flagged tiles (480 x 640, every
-   flag) and canvas (config 2) Functions, whose backward replays the
+   backward's time (the blend's backward kernel also on upstream's
+   400 px grid at 12 MP and 2 MP); extended to the bilateral Function
+   and the two IIR Functions (rows, columns) on the 1200 x 1600 photo
+   (f32) and on config 2's 12 bf16 tiles, and to the flagged tiles (480
+   x 640, every flag) and canvas (config 2) Functions, whose backward replays the
    scan route on all their tiles (``pipeline._ref_pipeline``, as the
    JAX package's flagged VJPs); (f) BASELINE config 2 (2b in f32) as a
    learnable layer at full size (1200 x 1600, 448 px tiles at overlap
    1/7, taper + dt prefilter + halo, one Adam step): the forward's
-   launches equal the grad-free call's, the backward launches none,
-   theta is identical kernel vs plain on every tile and iteration, the
-   scalar gradients are held against the plain step; (g) the scan route
+   launches equal the grad-free call's, the backward no forward kernel
+   (the blend's backward kernel once), theta is identical kernel vs
+   plain on every tile and iteration, the scalar gradients are held
+   against the plain step; (g) the scan route
    through both smoothers on the 2 MP photo (config 2c, ``method='fft'``
    with dt; every flag with the bilateral smoother), each with and
    without ``remat`` (under ``remat`` the recompute launches the
@@ -301,6 +307,9 @@ HIGHEST_ROWS = ("spectral_gemm[highest]", "tile_estimate[highest]",
                 "halo[highest]")
 SOURCES.update({k: SOURCES[k[:k.index("[")]]
                 for k in GENERALIZED + HIGHEST_ROWS})
+# the blend's backward: no TPU kernel (overlap_add.py defines no VJP)
+SOURCES["blend_overlap_add_backward"] = ("polyblur_torch/csrc/blend.cu",
+                                         "none")
 
 
 class SmokeFailure(Exception):
@@ -739,6 +748,72 @@ def blend_geometries(dev) -> None:
         print(f"blend_overlap_add[{hw[0]}x{hw[1]}, left crop {grid.pad[2]}]: "
               f"max_abs_err {', '.join(errs)}; bf16 -> f32 {cuda_ms(blend):.4f}"
               f" ms, device {device_ms(blend):.4f} ms")
+
+
+def blend_backward_row(dev, report: dict, launches: dict) -> None:
+    """The blend's backward kernel (``blend_overlap_add_backward``) at the
+    training cell's shapes, 130 tiles of 400 px at step 300 in bf16 and
+    the 12 MP f32 output's gradient: bit-equal to autograd of the plain
+    blend, its launches those of one backward through the blend's
+    Function, its time against that autograd (the plain blend recomputed
+    and differentiated, as the replay it replaced) and its bytes bound."""
+    import torch
+
+    from polyblur_torch.ops import cuda as pcuda
+    from polyblur_torch.ops.cuda.overlap_add import (
+        blend_overlap_add, blend_overlap_add_backward,
+        blend_overlap_add_plain)
+    from polyblur_torch.patches import (_blend_constants, _grid_steps,
+                                        plan_patch_grid)
+
+    grid = plan_patch_grid(3000, 4000, 400, 0.25)
+    gi = _grid_steps(grid) + (400, 400)
+    args = (*_blend_constants(grid, "kaiser", dev), gi, 1,
+            (grid.pad[0], grid.pad[2]) + grid.orig_size)
+    gen = torch.Generator(dev).manual_seed(26)
+    n = gi[0] * gi[1]
+    tiles = (torch.rand((n, 3, 400, 400), device=dev, generator=gen) * 1.5
+             - 0.25).to(torch.bfloat16)
+    g = torch.randn((1, 3, 3000, 4000), device=dev, generator=gen)
+    x = tiles.clone().requires_grad_()
+    out = blend_overlap_add(x, *args, torch.float32)
+    torch.cuda.synchronize()
+    pcuda.reset_launches()
+    got = torch.autograd.grad(out, x, g)[0]
+    torch.cuda.synchronize()
+    launches["blend_overlap_add_backward"] = sum(
+        pcuda.backward_launches.values())
+    require(dict(pcuda.backward_launches) == {"blend_overlap_add": 1}
+            and not pcuda.launches,
+            f"blend backward launches {dict(pcuda.backward_launches)}, "
+            f"forward {dict(pcuda.launches)}")
+
+    def plain():
+        xp = tiles.detach().requires_grad_()
+        return torch.autograd.grad(
+            blend_overlap_add_plain(xp, *args, torch.float32), xp, g)[0]
+
+    def kernel():
+        return blend_overlap_add_backward(tiles, *args, g)
+
+    want = plain()
+    require(torch.equal(got.view(torch.int16), want.view(torch.int16))
+            and torch.equal(kernel().view(torch.int16),
+                            want.view(torch.int16)),
+            "blend backward differs from autograd of the plain blend")
+    # tiles read and their gradient written, the output gradient and the
+    # crop's reciprocal window sum read, each once
+    nbytes = 2 * tiles.numel() * 2 + g.numel() * 4 + 3000 * 4000 * 4
+    r = report["blend_overlap_add_backward"] = dict(
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+        plain_ms=cuda_ms(plain, reps=3), library_ms=None,
+        bound=bound_ms(nbytes, 0.0, "bf16"))
+    print(f"blend_overlap_add_backward[{n} x 3 x 400^2 bf16 -> 3000x4000 "
+          f"float32]: bit-equal to plain autograd, {r['ms']:.4f} ms, device "
+          f"{r['device_ms']:.4f} ms ({100 * r['bound'][0] / r['device_ms']:.1f}"
+          f"% of its {r['bound'][0]:.4f} ms bound by {r['bound'][1]}), plain "
+          f"autograd {r['plain_ms']:.3f} ms")
 
 
 def whole_image_kernels(dev, report: dict) -> None:
@@ -3087,12 +3162,13 @@ def grads_vs_plain(name: str, make_layer, x, y, tol: float, min_db: float,
                    route, expect_fwd, on_run=lambda plain: None):
     """One counted step with the kernels and one with the plain versions
     (``on_run(plain)`` called before each), each from a fresh layer: the
-    route is taken, the forward launches ``expect_fwd``, the backward
-    none, the two forwards' outputs are at least ``min_db`` apart, and
-    the four scalar gradients agree within ``tol`` relative to the
-    largest."""
+    route is taken, the forward launches ``expect_fwd``, the backward no
+    forward kernel and one blend backward kernel per blend launch, the
+    two forwards' outputs are at least ``min_db`` apart, and the four
+    scalar gradients agree within ``tol`` relative to the largest."""
     import torch
 
+    from polyblur_torch.ops import cuda as pcuda
     from polyblur_torch.utils.profiling import (dispatch_log,
                                                 reset_dispatch_log)
 
@@ -3103,20 +3179,25 @@ def grads_vs_plain(name: str, make_layer, x, y, tol: float, min_db: float,
         opt = torch.optim.Adam(layer.parameters(), lr=1e-2)
         reset_dispatch_log()
         runs[plain] = counted_step(layer, opt, x, y, plain=plain) + (
-            dispatch_log(),)
-    loss, fwd, bwd, g, out, log = runs[False]
-    loss_p, fwd_p, bwd_p, g_p, out_p, _ = runs[True]
+            dispatch_log(), dict(pcuda.backward_launches))
+    loss, fwd, bwd, g, out, log, bwd_k = runs[False]
+    loss_p, fwd_p, bwd_p, g_p, out_p, _, bwd_kp = runs[True]
+    blends = expect_fwd.get("blend_overlap_add", 0)
     db = psnr(out, out_p)
     print(f"training {name}: loss {loss:.6e} (plain {loss_p:.6e}), "
-          f"forward launches {fwd}, backward launches {bwd}, routes "
-          f"{sorted(log)}, forward vs plain {db:.2f} dB (min {min_db})")
+          f"forward launches {fwd}, backward launches {bwd}, backward "
+          f"kernels {bwd_k}, routes {sorted(log)}, forward vs plain "
+          f"{db:.2f} dB (min {min_db})")
     require(route in log, f"{name}: route {route} not taken")
     require(math.isfinite(loss) and bool(torch.isfinite(g).all()),
             f"{name}: loss or gradients not finite")
     require(fwd == expect_fwd, f"{name}: forward launches {fwd}, expected "
                                f"{expect_fwd}")
     require(not bwd, f"{name}: the backward launched {bwd}")
-    require(not fwd_p and not bwd_p, f"{name}: plain step launched")
+    require(bwd_k == ({"blend_overlap_add": blends} if blends else {}),
+            f"{name}: backward kernels {bwd_k}")
+    require(not fwd_p and not bwd_p and not bwd_kp,
+            f"{name}: plain step launched")
     require(db >= min_db, f"{name}: forward {db:.2f} dB from plain")
     rel = float((g - g_p).abs().max() / g_p.abs().max())
     print(f"training {name}: d loss / d (c, b, alpha, beta) "
@@ -3127,13 +3208,15 @@ def grads_vs_plain(name: str, make_layer, x, y, tol: float, min_db: float,
     return log
 
 
-def function_vs_plain(name: str, fn, plain, inputs) -> dict:
+def function_vs_plain(name: str, fn, plain, inputs,
+                      backward_kernels=None) -> dict:
     """Gradients of a Function alone (its kernels forward, its plain
-    replay backward) against autograd of its plain version on the same
-    inputs under the same seeded cotangent: bit-equal (every plain
-    backward of the port is deterministic: its replicate pads, wrap pads
-    and repeats are reductions). The forward must launch and the backward
-    must not."""
+    replay backward or its backward kernel) against autograd of its plain
+    version on the same inputs under the same seeded cotangent: bit-equal
+    (every plain backward of the port is deterministic: its replicate
+    pads, wrap pads and repeats are reductions). The forward must launch
+    and the backward launch no forward kernel, and exactly
+    ``backward_kernels`` backward ones (default none)."""
     import torch
 
     from polyblur_torch.ops import cuda as pcuda
@@ -3161,20 +3244,24 @@ def function_vs_plain(name: str, fn, plain, inputs) -> dict:
         gs = torch.autograd.grad(out, [x for x in xs if x.requires_grad], g)
         e.record()
         e.synchronize()
-        return gs, fwd, dict(pcuda.launches), s.elapsed_time(e)
+        return (gs, fwd, dict(pcuda.launches),
+                dict(pcuda.backward_launches), s.elapsed_time(e))
 
     grads(plain, True)                      # warm: plans, workspaces
-    g_f, fwd, bwd, ms = grads(fn, False)
-    g_p, _, _, ms_p = grads(plain, True)
+    g_f, fwd, bwd, bwd_k, ms = grads(fn, False)
+    g_p, _, _, bwd_kp, ms_p = grads(plain, True)
     require(sum(fwd.values()) > 0, f"{name}: the forward launched nothing")
     require(not bwd, f"{name}: the backward launched {bwd}")
+    require(bwd_k == (backward_kernels or {}) and not bwd_kp,
+            f"{name}: backward kernels {bwd_k}, plain {bwd_kp}")
     equal = all(torch.equal(a, b) for a, b in zip(g_f, g_p))
     rel = max(float((a.float() - b.float()).abs().max()
                     / b.float().abs().max().clamp(min=1e-30))
               for a, b in zip(g_f, g_p))
     kind = "bit-equal" if equal else f"not bit-equal, max rel err {rel:.3e}"
-    print(f"function {name}: forward launches {fwd}; backward {ms:.2f} ms "
-          f"(plain autograd {ms_p:.2f} ms), gradients {kind}")
+    print(f"function {name}: forward launches {fwd}; backward kernels "
+          f"{bwd_k}; backward {ms:.2f} ms (plain autograd {ms_p:.2f} ms), "
+          f"gradients {kind}")
     require(equal, f"{name}: gradients differ from plain autograd "
                    f"({rel:.3e})")
     return dict(backward_ms=ms, bit_equal=equal, max_rel_err=rel)
@@ -3557,8 +3644,28 @@ def training_functions(dev, img) -> dict:
         "blend_overlap_add (88 x 3 x 448^2 bf16 -> 12 MP f32)",
         lambda t: blend_overlap_add(t, win, inv, gi, 1, crop4, f32),
         lambda t: blend_overlap_add_plain(t, win, inv, gi, 1, crop4, f32),
-        (tiles,))
+        (tiles,), {"blend_overlap_add": 1})
     del canvas, tiles
+    # the blend's backward kernel on upstream's 400 px / step 300 grid: the
+    # training cell's 130 tiles and the flags cell's 2 MP grid
+    for hw in ((3000, 4000), (1200, 1600)):
+        g400 = plan_patch_grid(*hw, 400, 0.25)
+        gi400 = _grid_steps(g400) + (400, 400)
+        crop400 = (g400.pad[0], g400.pad[2]) + g400.orig_size
+        win400, inv400 = _blend_constants(g400, "kaiser", dev)
+        n400 = gi400[0] * gi400[1]
+        t400 = (torch.rand((n400, 3, 400, 400), device=dev,
+                           generator=torch.Generator(dev).manual_seed(26))
+                * 1.5 - 0.25).to(bf16)
+        out[f"blend_overlap_add_{hw[0]}x{hw[1]}"] = function_vs_plain(
+            f"blend_overlap_add ({n400} x 3 x 400^2 bf16 -> {hw[0]} x "
+            f"{hw[1]} f32)",
+            lambda t: blend_overlap_add(t, win400, inv400, gi400, 1,
+                                        crop400, f32),
+            lambda t: blend_overlap_add_plain(t, win400, inv400, gi400, 1,
+                                              crop400, f32),
+            (t400,), {"blend_overlap_add": 1})
+        del t400
     crop = img[..., :480, :640].contiguous()
     out["polyblur_tiles_fused"] = function_vs_plain(
         "polyblur_tiles_fused (B.1.4, 1 x 3 x 480 x 640 f32, 3 iterations)",
@@ -3598,6 +3705,7 @@ def training_phases(dev, card: str) -> dict:
     import torch
 
     from polyblur_torch import PolyblurLayer, make_train_step
+    from polyblur_torch.ops import cuda as pcuda
     from polyblur_torch.utils.profiling import (dispatch_log,
                                                 reset_dispatch_log)
 
@@ -3638,6 +3746,8 @@ def training_phases(dev, card: str) -> dict:
     loss, fwd, bwd, g, _ = counted_step(
         layer, torch.optim.Adam(layer.parameters(), lr=1e-2), x5b, img)
     log = dispatch_log()
+    require(dict(pcuda.backward_launches) == {"blend_overlap_add": 1},
+            f"(b): backward kernels {dict(pcuda.backward_launches)}")
     print(f"training (b) config 5b: loss {loss:.6e}, forward launches {fwd}, "
           f"backward launches {bwd}, routes {sorted(log)}, grads "
           f"{[f'{v:.6e}' for v in g.tolist()]}")
@@ -4067,6 +4177,7 @@ def main() -> int:
 
     spectrum_planes(dev, coeffs, report)
     blend_geometries(dev)
+    blend_backward_row(dev, report, launches)
 
     # ---------------------------------------------------------- whole image
     print(f"[{time.perf_counter() - t_start:.1f} s] whole-image phases")
@@ -4117,7 +4228,8 @@ def main() -> int:
     rows = []
     for name in (NAMES + SPECTRUM_ROWS + ("polyblur_tiles", "fused_polynomial",
                                           "directional_maxima") + FEATURES
-                 + ("bilateral[n=88]",) + GENERALIZED + HIGHEST_ROWS):
+                 + ("bilateral[n=88]",) + GENERALIZED + HIGHEST_ROWS
+                 + ("blend_overlap_add_backward",)):
         r = report[name]
         src, replaces = SOURCES[name]
         bms, by = r["bound"]

@@ -23,6 +23,32 @@
 // where the output rows are 16-byte aligned). Other geometries, and the
 // last group of a row when the width is no multiple of 8, take the
 // kernel's scalar path, one column per thread; both paths round alike.
+//
+// blend_backward_kernel: the tiles' gradient of the same blend. It replaces
+// no TPU kernel (the JAX package's overlap_add.py defines no VJP): it was
+// added for training through the patch route, in place of autograd of the
+// plain blend, whose index gathers differentiate into a sort and an index
+// scatter over every tile element. The adjoint of the blend is a gather:
+// each tile element lies at one canvas pixel, and its gradient is that
+// pixel's output gradient where the clip passed it (0 <= p <= 1, p
+// recomputed in the forward's order and rounding), times the reciprocal
+// window sum, times the window, rounded once to the tile dtype; tile
+// elements outside the crop get 0. That is autograd of the plain blend bit
+// for bit: the scatter's other terms and the zeros it starts from are +0,
+// so adding them only turns a -0 into +0, which the kernel does with one
+// add of +0.
+//
+// Bound on the H100: bytes (each tile element read once, to recompute p,
+// and its gradient written once; the output gradient and the reciprocal
+// window sum read once). Design: as the forward's, over the whole canvas
+// rather than the crop, so the margins are zeroed in the same launch: a
+// thread owns V consecutive canvas columns of one row for all C channels,
+// finds their covering tiles once, sums p from them, then writes each
+// covering tile's V gradients. V is 4 where the tile step and width are
+// multiples of 4 (upstream's 400 px / step 300 grid: 8-byte bf16, 16-byte
+// f32 accesses), else 1. No 8-column path: on the H100 it ran 2.7% faster
+// on the 448 / 384 grid at 12 MP and 0.3-1.6% slower at 2 MP, and no
+// benchmark cell trains on that grid.
 #include "common.cuh"
 
 namespace {
@@ -169,6 +195,152 @@ blend_kernel(const TI* __restrict__ tiles, const float* __restrict__ win,
   }
 }
 
+// V consecutive values as f32 from, or to, an address aligned to V
+// elements (V = 4 or 1)
+template <int V>
+__device__ __forceinline__ void loadv(const float* p, float v[V]) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void loadv(const bf16* p, float v[V]) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void storev(float* p, const float v[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void storev(bf16* p, const float v[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                   *reinterpret_cast<const unsigned*>(&b));
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// Grid (column groups / kThreads, canvas rows, B): the thread's V columns
+// from X0 of canvas row Y, every channel. The V columns lie in the same
+// tiles (the step and tile width are multiples of V) and at V-aligned
+// addresses of tiles, window and inv_wsum (Wc a multiple of V). vec_out:
+// the output gradient's rows are V-aligned too
+// (width and left crop multiples of V, aligned pointer); else it is read
+// a column at a time.
+template <typename TI, typename TO, int V>
+__global__ void __launch_bounds__(kThreads)
+blend_backward_kernel(const TI* __restrict__ tiles,
+                      const float* __restrict__ win,
+                      const float* __restrict__ inv_wsum,
+                      const TO* __restrict__ gout, TI* __restrict__ gtiles,
+                      int B, int C, int th, int tw, int sh, int sw, int ph,
+                      int pw, int Wc, int pt, int pl, int h, int w,
+                      int vec_out) {
+  const int Y = blockIdx.y;
+  const int b = blockIdx.z;
+  const int X0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (X0 >= (tw - 1) * sw + pw) return;
+  const long long plane = (long long)ph * pw;
+  const int ki0 = Y / sh, kj0 = X0 / sw;
+  const int y = Y - pt, x0 = X0 - pl;
+  const bool row_in = y >= 0 && y < h;
+  bool in[V];
+  bool any = false, all = true;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    in[i] = row_in && x0 + i >= 0 && x0 + i < w;
+    any = any || in[i];
+    all = all && in[i];
+  }
+  float inv[V];
+  if (all) {
+    loadv<V>(inv_wsum + (long long)Y * Wc + X0, inv);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      inv[i] = in[i] ? inv_wsum[(long long)Y * Wc + X0 + i] : 0.f;
+  }
+  for (int c = 0; c < C; ++c) {
+    // gi: the output gradient where the clip passed it, times inv; 0
+    // outside the crop
+    float gi[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) gi[i] = 0.f;
+    if (any) {
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+      for (int ki = ki0; ki >= 0 && Y - ki * sh < ph; --ki) {
+        if (ki >= th) continue;
+        const int ly = Y - ki * sh;
+        for (int kj = kj0; kj >= 0 && X0 - kj * sw < pw; --kj) {
+          if (kj >= tw) continue;
+          const int off = ly * pw + X0 - kj * sw;
+          const long long t = ((long long)(ki * tw + kj) * B + b) * C + c;
+          float v[V], wv[V];
+          loadv<V>(tiles + t * plane + off, v);
+          loadv<V>(win + off, wv);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(v[i], wv[i]));
+        }
+      }
+      const TO* grow = gout + ((long long)(b * C + c) * h + y) * w + x0;
+      float g[V];
+      if (all && vec_out) {
+        loadv<V>(grow, g);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) g[i] = in[i] ? pb::to_f32(grow[i]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float p = __fmul_rn(acc[i], inv[i]);
+        const bool pass = p >= 0.f && p <= 1.f;  // false on NaN, as torch
+        gi[i] = in[i] ? __fmul_rn(pass ? g[i] : 0.f, inv[i]) : 0.f;
+      }
+    }
+    for (int ki = ki0; ki >= 0 && Y - ki * sh < ph; --ki) {
+      if (ki >= th) continue;
+      const int ly = Y - ki * sh;
+      for (int kj = kj0; kj >= 0 && X0 - kj * sw < pw; --kj) {
+        if (kj >= tw) continue;
+        const int off = ly * pw + X0 - kj * sw;
+        const long long t = ((long long)(ki * tw + kj) * B + b) * C + c;
+        float wv[V], r[V];
+        loadv<V>(win + off, wv);
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          r[i] = __fadd_rn(__fmul_rn(gi[i], wv[i]), 0.f);
+        storev<V>(gtiles + t * plane + off, r);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
@@ -187,6 +359,38 @@ void launch(const void* tiles, const float* win, const float* inv_wsum,
   blend_kernel<TI, TO><<<grid, kThreads, 0, s>>>(
       static_cast<const TI*>(tiles), win, inv_wsum, static_cast<TO*>(out), B,
       C, th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, vec, vec_out);
+}
+
+template <typename TI, typename TO, int V>
+void launch_backward_v(const void* tiles, const float* win,
+                       const float* inv_wsum, const void* gout, void* gtiles,
+                       int B, int C, int th, int tw, int sh, int sw, int ph,
+                       int pw, int Wc, int pt, int pl, int h, int w,
+                       cudaStream_t s) {
+  const int vec_out = w % V == 0 && pl % V == 0 && aligned16(gout);
+  const int groups = ((tw - 1) * sw + pw) / V;
+  dim3 grid((groups + kThreads - 1) / kThreads, (th - 1) * sh + ph, B);
+  blend_backward_kernel<TI, TO, V><<<grid, kThreads, 0, s>>>(
+      static_cast<const TI*>(tiles), win, inv_wsum,
+      static_cast<const TO*>(gout), static_cast<TI*>(gtiles), B, C, th, tw,
+      sh, sw, ph, pw, Wc, pt, pl, h, w, vec_out);
+}
+
+template <typename TI, typename TO>
+void launch_backward(const void* tiles, const float* win,
+                     const float* inv_wsum, const void* gout, void* gtiles,
+                     int B, int C, int th, int tw, int sh, int sw, int ph,
+                     int pw, int Wc, int pt, int pl, int h, int w,
+                     cudaStream_t s) {
+  const bool aligned = aligned16(tiles) && aligned16(win) &&
+                       aligned16(inv_wsum) && aligned16(gtiles) &&
+                       Wc % 4 == 0;
+  if (aligned && sw % 4 == 0 && pw % 4 == 0)
+    launch_backward_v<TI, TO, 4>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                 th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, s);
+  else
+    launch_backward_v<TI, TO, 1>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                 th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, s);
 }
 
 }  // namespace
@@ -214,6 +418,37 @@ extern "C" int pb_blend(const void* tiles, int in_dtype, const float* win,
   else if (in_dtype == pb::kF32 && out_dtype == pb::kBF16)
     launch<float, bf16>(tiles, win, inv_wsum, out, B, C, th, tw, sh, sw, ph,
                         pw, Wc, pt, pl, h, w, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles' gradient of pb_blend: tiles, win, inv_wsum and the geometry as
+// there (Hc = (th-1)*sh + ph, Wc its row stride); gout: (B, C, h, w) in the
+// output dtype, contiguous; gtiles: like tiles, every element written.
+extern "C" int pb_blend_backward(const void* tiles, int in_dtype,
+                                 const float* win, const float* inv_wsum,
+                                 const void* gout, int out_dtype,
+                                 void* gtiles, int B, int C, int th, int tw,
+                                 int sh, int sw, int ph, int pw, int Wc,
+                                 int pt, int pl, int h, int w,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((th - 1) * sh + ph > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == pb::kBF16 && out_dtype == pb::kF32)
+    launch_backward<bf16, float>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                 th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, s);
+  else if (in_dtype == pb::kBF16 && out_dtype == pb::kBF16)
+    launch_backward<bf16, bf16>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, s);
+  else if (in_dtype == pb::kF32 && out_dtype == pb::kF32)
+    launch_backward<float, float>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                  th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w,
+                                  s);
+  else if (in_dtype == pb::kF32 && out_dtype == pb::kBF16)
+    launch_backward<float, bf16>(tiles, win, inv_wsum, gout, gtiles, B, C,
+                                 th, tw, sh, sw, ph, pw, Wc, pt, pl, h, w, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

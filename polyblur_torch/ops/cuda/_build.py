@@ -14,9 +14,11 @@ The wrappers run their plain PyTorch version for CPU tensors
 (:func:`runs_plain`); for CUDA tensors they launch or raise, except inside
 :func:`plain_versions`, the explicit reference mode the kernels are held
 against on the card. That mode belongs to the thread that entered it: a
-forward on another thread (or the autograd engine's) still launches. A kernel has no backward of its own: a launch on a
-tensor autograd is recording raises (:func:`check_cuda`); the
-differentiable wrappers launch inside ``autograd.replay``'s Function.
+forward on another thread (or the autograd engine's) still launches. A
+launch on a tensor autograd is recording raises (:func:`check_cuda`); the
+differentiable wrappers launch inside ``autograd.replay``'s Function,
+whose backward replays their plain versions, or runs the blend's backward
+kernel (counted apart, :data:`backward_launches`).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 
 __all__ = ["SOURCES", "build", "library", "check", "check_cuda", "stream_of",
            "dtype_code", "count_launch", "launches", "count_feed", "feeds",
-           "reset_launches", "runs_plain", "plain_versions", "plain_mode"]
+           "count_backward", "backward_launches", "reset_launches",
+           "runs_plain", "plain_versions", "plain_mode"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -53,6 +56,11 @@ launches: collections.Counter = collections.Counter()
 #: ``"tma"`` or ``"gather"`` (``polyblur_fused.mode1_feed``). Each is one of
 #: :data:`launches` too.
 feeds: collections.Counter = collections.Counter()
+
+#: Launches of backward kernels since the last :func:`reset_launches`, by
+#: the name of the wrapper whose gradient they compute; none is one of
+#: :data:`launches`, which counts the forward's kernels.
+backward_launches: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -73,9 +81,14 @@ def count_feed(feed: str) -> None:
     feeds[feed] += 1
 
 
+def count_backward(name: str) -> None:
+    backward_launches[name] += 1
+
+
 def reset_launches() -> None:
     launches.clear()
     feeds.clear()
+    backward_launches.clear()
 
 
 def plain_mode() -> bool:

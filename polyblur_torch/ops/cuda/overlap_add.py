@@ -11,9 +11,11 @@ channels, with 16-byte accesses where the grid's steps, tile width and
 left crop are multiples of 8 (the 12 MP main path's), and a scalar path
 for the rest.
 
-Differentiable in the tiles: the backward replays autograd of
-:func:`blend_overlap_add_plain` (the JAX package's overlap_add.py defines
-no VJP; the patch route trains through this blend).
+Differentiable in the tiles (the JAX package's overlap_add.py defines no
+VJP; the patch route trains through this blend): the backward is a kernel
+of its own, :func:`blend_overlap_add_backward` (``csrc/blend.cu``), the
+gather that is the blend's adjoint, bit-equal to autograd of
+:func:`blend_overlap_add_plain`.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import ctypes
 
 import torch
 
-from ._build import (check, count_launch, dtype_code, library, runs_plain,
-                     stream_of)
+from ._build import (check, count_backward, count_launch, dtype_code,
+                     library, plain_mode, runs_plain, stream_of)
 from .autograd import replay
 
-__all__ = ["blend_overlap_add", "blend_overlap_add_plain"]
+__all__ = ["blend_overlap_add", "blend_overlap_add_plain",
+           "blend_overlap_add_backward"]
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -76,8 +79,11 @@ def blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
         always accumulates in f32
     """
     args = (window, inv_wsum, grid_info, batch, crop, out_dtype)
-    return replay(lambda t: _blend_overlap_add(t, *args),
-                  lambda t: blend_overlap_add_plain(t, *args), tiles)
+    if plain_mode():
+        return blend_overlap_add_plain(tiles, *args)
+    return replay(lambda t: _blend_overlap_add(t, *args), None, tiles,
+                  backward=lambda t, g: (blend_overlap_add_backward(
+                      t, window, inv_wsum, grid_info, batch, crop, g),))
 
 
 def _blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
@@ -115,3 +121,51 @@ def _blend_overlap_add(tiles: torch.Tensor, window: torch.Tensor,
     count_launch("blend_overlap_add")
     check(lib, err, "blend_overlap_add")
     return out
+
+
+def blend_overlap_add_backward(tiles: torch.Tensor, window: torch.Tensor,
+                               inv_wsum: torch.Tensor, grid_info,
+                               batch: int, crop,
+                               grad_out: torch.Tensor) -> torch.Tensor:
+    """The tiles' gradient of :func:`blend_overlap_add` for the output
+    gradient ``grad_out`` ((batch, C, h, w), the output dtype), in the
+    tiles' dtype and shape; bit-equal to autograd of
+    :func:`blend_overlap_add_plain`. The other arguments as there."""
+    if runs_plain(tiles):
+        with torch.enable_grad():
+            t = tiles.detach().requires_grad_()
+            out = blend_overlap_add_plain(t, window, inv_wsum, grid_info,
+                                          batch, crop, grad_out.dtype)
+            return torch.autograd.grad(out, t, grad_out)[0]
+    for t in (tiles, window, inv_wsum, grad_out):
+        if t.device.type != "cuda":
+            raise ValueError(f"blend_overlap_add_backward: expected CUDA "
+                             f"tensors, got {t.device}")
+    th, tw, sh, sw, ph, pw = (int(v) for v in grid_info)
+    pt, pl, h, w = (int(v) for v in crop)
+    c = tiles.shape[1]
+    if tiles.shape != (th * tw * batch, c, ph, pw) or \
+            window.shape != (ph, pw) or window.dtype != torch.float32 or \
+            inv_wsum.dtype != torch.float32 or \
+            pt + h > inv_wsum.shape[0] or pl + w > inv_wsum.shape[1] or \
+            grad_out.shape != (batch, c, h, w):
+        raise ValueError("blend_overlap_add_backward: shapes do not match "
+                         "the grid")
+    if (th - 1) * sh + ph > 65535 or batch > 65535:
+        raise ValueError("blend_overlap_add_backward: canvas exceeds the "
+                         "launch grid")
+    tiles, window, inv_wsum, grad_out = (
+        t.contiguous() for t in (tiles, window, inv_wsum, grad_out))
+    grad = torch.empty_like(tiles)
+    lib = library("blend")
+    fn = lib.pb_blend_backward
+    fn.argtypes = [_P, _I, _P, _P, _P, _I, _P] + [_I] * 13 + [_P]
+    fn.restype = _I
+    err = fn(tiles.data_ptr(), dtype_code(tiles.dtype), window.data_ptr(),
+             inv_wsum.data_ptr(), grad_out.data_ptr(),
+             dtype_code(grad_out.dtype), grad.data_ptr(), batch, c, th, tw,
+             sh, sw, ph, pw, inv_wsum.shape[1], pt, pl, h, w,
+             stream_of(tiles))
+    count_backward("blend_overlap_add")
+    check(lib, err, "blend_overlap_add_backward")
+    return grad

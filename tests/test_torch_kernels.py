@@ -9,7 +9,9 @@ XLA reference the Pallas kernel is held to):
 * spectral_poly     vs ``sep_poly._spectral2d`` (rfft2) in f32, atol 1e-5;
 * tile_estimate     vs ``gaussian_blur_estimation``: same theta index,
                     sigma and rho within 1e-5 relative;
-* blend_overlap_add vs ``patches.overlap_add``, atol 1e-6;
+* blend_overlap_add vs ``patches.overlap_add``, atol 1e-6 (its backward
+                    kernel on the card against autograd of the plain blend,
+                    bit for bit);
 * fused_polynomial  vs ``sep_poly_fused.fused_polynomial_pallas(interpret=
                     True)`` with and without the replicate pad and the clip,
                     and inside ``_blocked_polynomial`` vs the JAX blocked
@@ -505,6 +507,57 @@ def test_cuda_blend_matches_plain(cuda_dev):
         want = blend_overlap_add_plain(t, *args, out_dtype=odt)
         assert got.dtype == odt
         assert float((got.float() - want.float()).abs().max()) <= 1e-6
+
+
+# (image size, tile, overlap, batch, tile dtype, output dtype) of the blend's
+# backward kernel: the training cell's 130 tiles of 400 px at step 300 and
+# the flags cell's 2 MP grid, the 448 / 384 grid with a left crop of 144 and
+# of 1 (the output gradient read a column at a time), all on the 4-column
+# path, and 150 px tiles at step 105 (one column a thread)
+BLEND_BACKWARD_CASES = {
+    "train12mp": ((3000, 4000), 400, 0.25, 1, torch.bfloat16, torch.float32),
+    "flags2mp": ((1200, 1600), 400, 0.25, 2, torch.bfloat16, torch.float32),
+    "g448": ((3000, 4000), 448, 64.0 / 448.0, 1, torch.float32,
+             torch.bfloat16),
+    "g448_crop1": ((1198, 1598), 448, 64.0 / 448.0, 1, torch.bfloat16,
+                   torch.bfloat16),
+    "step105": ((300, 420), 150, 0.3, 2, torch.float32, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", list(BLEND_BACKWARD_CASES))
+def test_cuda_blend_backward_is_autograd_of_plain(cuda_dev, case):
+    """The blend's backward kernel against autograd of the plain blend,
+    bit for bit, with pre-clip values below 0 and above 1: one backward
+    launches one ``blend_overlap_add`` backward kernel and no forward
+    kernel."""
+    hw, p, overlap, b, tdt, odt = BLEND_BACKWARD_CASES[case]
+    grid = plan_patch_grid(*hw, p, overlap)
+    th, tw, sh, sw = _grid_steps(grid)
+    gi = (th, tw, sh, sw, p, p)
+    crop = (grid.pad[0], grid.pad[2]) + grid.orig_size
+    win, inv = _blend_constants(grid, "kaiser", cuda_dev)
+    gen = torch.Generator(cuda_dev).manual_seed(26)
+    tiles = (torch.rand((th * tw * b, 3, p, p), generator=gen,
+                        device=cuda_dev) * 1.5 - 0.25).to(tdt)
+    g = torch.randn((b, 3) + grid.orig_size, generator=gen,
+                    device=cuda_dev).to(odt)
+    x = tiles.clone().requires_grad_()
+    out = blend_overlap_add(x, win, inv, gi, b, crop, odt)
+    assert out.grad_fn.name() == "_ReplayBackward"
+    before = dict(pcuda.launches)
+    kernels = pcuda.backward_launches["blend_overlap_add"]
+    got = torch.autograd.grad(out, x, g)[0]
+    torch.cuda.synchronize()
+    assert dict(pcuda.launches) == before
+    assert pcuda.backward_launches["blend_overlap_add"] == kernels + 1
+    xp = tiles.clone().requires_grad_()
+    want = torch.autograd.grad(
+        blend_overlap_add_plain(xp, win, inv, gi, b, crop, odt), xp, g)[0]
+    bits = torch.int16 if tdt == torch.bfloat16 else torch.int32
+    assert got.dtype == want.dtype == tdt
+    assert torch.equal(got.view(bits), want.view(bits)), \
+        float((got.float() - want.float()).abs().max())
 
 
 @pytest.mark.parametrize("n", [1, 12, 88])
@@ -1209,7 +1262,8 @@ def test_cuda_graph_through_a_route_without_backward_raises(cuda_dev):
 def test_cuda_grad_free_calls_launch_as_before(cuda_dev):
     """The staged patch route launches the same kernels without grad,
     under no_grad with an input that requires grad, and in the forward of
-    a recorded step, whose backward launches none."""
+    a recorded step, whose backward launches no forward kernel and the
+    blend's backward kernel once."""
     from polyblur_torch.patches import deblur_patches
 
     img = _photo(cuda_dev, 300, 420)
@@ -1236,6 +1290,7 @@ def test_cuda_grad_free_calls_launch_as_before(cuda_dev):
     pcuda.reset_launches()
     out.square().mean().backward()
     assert dict(pcuda.launches) == {} and xg.grad is not None
+    assert dict(pcuda.backward_launches) == {"blend_overlap_add": 1}
 
 
 @pytest.mark.parametrize("prefilter", ["dt", "bilateral"])
@@ -1243,7 +1298,8 @@ def test_cuda_grad_free_flagged_calls_launch_as_before(cuda_dev, prefilter):
     """With every flag the staged patch route launches the same kernels
     without grad, under no_grad with an input that requires grad, and in
     the forward of a recorded step (its Functions' forward is the kernels'
-    route); the backward, the scan route's plain replay, launches none."""
+    route); the backward, the scan route's plain replay and the blend's
+    backward kernel, launches no forward kernel."""
     from polyblur_torch.patches import deblur_patches
 
     img = _photo(cuda_dev, 300, 420)
@@ -1272,4 +1328,5 @@ def test_cuda_grad_free_flagged_calls_launch_as_before(cuda_dev, prefilter):
     pcuda.reset_launches()
     out.square().mean().backward()
     assert dict(pcuda.launches) == {}
+    assert dict(pcuda.backward_launches) == {"blend_overlap_add": 1}
     assert bool(torch.isfinite(xg.grad).all())

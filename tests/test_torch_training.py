@@ -388,6 +388,62 @@ def test_each_function_backward_is_autograd_of_its_plain_version():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("grid_case", ["steps_of_8", "odd_steps"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_dtype", [torch.bfloat16, torch.float32])
+def test_blend_function_backward_is_autograd_of_the_plain_blend(
+        tile_dtype, out_dtype, batch, channels, grid_case):
+    """The blend's Function on the CPU, whose backward closure is
+    ``blend_overlap_add_backward`` (there autograd of the plain blend, the
+    gradient the card's kernel is held to), against native autograd of
+    ``blend_overlap_add_plain``, bit for bit. The tiles put the pre-clip
+    value p below 0, above 1 and exactly at 0 and 1 (the clip's gradient
+    passes at both ends); a fifth of the cotangent is -0. Grids: 32 px
+    tiles at step 24 (steps and widths multiples of 8) and 30 px at step
+    21."""
+    h, w, p, overlap = {"steps_of_8": (50, 70, 32, 0.25),
+                        "odd_steps": (47, 61, 30, 0.3)}[grid_case]
+    grid = plan_patch_grid(h, w, p, overlap)
+    th, tw, sh, sw = _grid_steps(grid)
+    gi = (th, tw, sh, sw, p, p)
+    crop = (grid.pad[0], grid.pad[2], h, w)
+    win, inv = _blend_constants(grid, "kaiser", torch.device("cpu"))
+    # each tile element by its canvas pixel: random in [-0.5, 1.5], 1 or 0
+    rng = np.random.default_rng(26)
+    yy, xx = np.mgrid[:grid.padded_size[0], :grid.padded_size[1]]
+    kind = (xx + 2 * yy) % 3
+    kinds = np.stack([kind[i * sh:i * sh + p, j * sw:j * sw + p]
+                      for i in range(th) for j in range(tw)
+                      for _ in range(batch)])[:, None]
+    vals = rng.uniform(-0.5, 1.5, size=(th * tw * batch, channels, p, p))
+    tiles = torch.as_tensor(np.where(kinds == 0, vals, kinds == 1)
+                            .astype(np.float32)).to(tile_dtype)
+
+    # p from the plain blend itself: a halved reciprocal window sum halves
+    # p exactly, so p / 2 and -p / 2 (the tiles negated) pass the clip whole
+    def half(t):
+        return blend_overlap_add_plain(t, win, inv * 0.5, gi, batch, crop,
+                                       torch.float32)
+
+    pre = 2 * (half(tiles) - half(-tiles))
+    assert all(bool(m.any()) for m in (pre < 0, pre > 1, pre == 0, pre == 1))
+    x = tiles.clone().requires_grad_()
+    out = blend_overlap_add_plain(x, win, inv, gi, batch, crop, out_dtype)
+    assert torch.equal(pre.clamp(0.0, 1.0).to(out_dtype), out.detach())
+    g = _cotangent(out.shape).to(out_dtype)
+    g.view(-1)[::5] = -0.0
+    want = torch.autograd.grad(out, x, g)[0]
+    xf = tiles.clone().requires_grad_()
+    out_f = blend_overlap_add(xf, win, inv, gi, batch, crop, out_dtype)
+    assert out_f.grad_fn.name() == "_ReplayBackward"
+    got = torch.autograd.grad(out_f, xf, g)[0]
+    bits = torch.int16 if tile_dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == want.dtype == tile_dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_replay_without_graph_is_the_kernel_call():
     """Without a graph to record no Function is built: the wrapper's
     forward runs as it did, and under no_grad as well."""
